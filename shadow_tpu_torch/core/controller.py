@@ -1,0 +1,211 @@
+"""Controller: top-level simulation driver (reference Master, core/master.c).
+
+Loads configuration + topology, registers programs and hosts into the
+Engine, computes the lookahead, runs the simulation, reports results
+(master_run :400 flow).
+
+The port runs the Python data plane with the ``tpu`` policy's hop on the
+device.  Paths it has not ported refuse with NotImplementedError naming
+their ROADMAP item, before any simulation work; they never quietly take
+another path (:func:`refuse_unported`).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, List, Optional
+
+from ..apps import registry as app_registry
+from ..device import resolve_device
+from ..host.host import Host, HostParams
+from ..process.process import Process
+from ..routing.address import ip_to_int
+from ..routing.topology import Topology, single_vertex_topology
+from . import stime
+from .configuration import Configuration, tokenize_arguments
+from .engine import Engine
+from .logger import get_logger
+from .options import Options
+
+
+def refuse_unported(options: Options, config: Configuration) -> None:
+    """Raise NotImplementedError for the configurations whose paths the
+    port does not run yet; log once that ``--dataplane=auto`` means the
+    Python data plane here."""
+    if getattr(options, "processes", 0) >= 2:
+        raise NotImplementedError(
+            "--processes >= 2 (sharded multi-process runs) is not ported "
+            "yet: ROADMAP A9")
+    dataplane = getattr(options, "dataplane", "auto")
+    if dataplane == "native":
+        raise NotImplementedError(
+            "--dataplane=native (the C data plane) is not ported yet: "
+            "ROADMAP A14")
+    if dataplane == "auto":
+        get_logger().message(
+            "engine", "--dataplane=auto: the port runs the Python data "
+            "plane (the C plane is ROADMAP A14)")
+    if getattr(options, "host_table", "auto") == "on" \
+            or any(hc.flows for hc in config.hosts):
+        raise NotImplementedError(
+            "the HostTable tier (--host-table=on, processless flows) is "
+            "not ported yet: ROADMAP A13")
+    if options.scheduler_policy == "tpu" and (
+            getattr(options, "tpu_devices", 0) > 1
+            or getattr(options, "tpu_shard_matrix", False)):
+        raise NotImplementedError(
+            "the sharded packet hop (--tpu-devices > 1, "
+            "--tpu-shard-matrix) is not ported yet: ROADMAP B7")
+    if getattr(options, "tpu_device_threshold", 0) > 0 \
+            and getattr(options, "device", "cuda") != "cpu":
+        raise NotImplementedError(
+            "--tpu-device-threshold > 0 computes small hop batches on the "
+            "host; with --device cuda every batch goes through the kernel, "
+            "so the bypass runs only with --device cpu")
+    for hc in config.hosts:
+        for pc in hc.processes:
+            args = tokenize_arguments(pc.arguments)
+            if args and args[0] == "client" and "device" in args:
+                raise NotImplementedError(
+                    f"host {hc.id!r} has a device-mode client: the "
+                    "device traffic plane is not ported yet: ROADMAP "
+                    "A5-A6")
+
+
+class Controller:
+    def __init__(self, options: Options, config: Configuration):
+        refuse_unported(options, config)
+        if options.scheduler_policy == "tpu":
+            # fail before setup, not at the first round's launch, when the
+            # requested device is missing (device.py never falls back)
+            resolve_device(getattr(options, "device", "cuda"))
+        self.options = options
+        self.config = config
+        self.topology = self._load_topology()
+        self.engine = Engine(options, self.topology)
+        self._program_paths: Dict[str, str] = {}
+
+    def _load_topology(self) -> Topology:
+        cfg = self.config
+        if cfg.topology_text:
+            return Topology.from_graphml(cfg.topology_text)
+        if cfg.topology_path:
+            path = cfg.topology_path
+            if not os.path.isabs(path) and self.options.config_path:
+                base = os.path.dirname(os.path.abspath(self.options.config_path))
+                cand = os.path.join(base, path)
+                if os.path.exists(cand):
+                    path = cand
+            return Topology.from_file(path)
+        return single_vertex_topology()
+
+    def _validated_tcp_cc(self, hc):
+        """Per-host <host tcpcc="..."> must name a known CC kind at
+        CONFIG time — not crash as a KeyError in the native plane or a
+        mid-run ValueError at first socket creation."""
+        from .options import TCP_CC_KINDS
+        if hc.tcp_cc and hc.tcp_cc not in TCP_CC_KINDS:
+            raise ValueError(
+                f"host {hc.id!r}: unknown tcpcc={hc.tcp_cc!r} "
+                f"(choices: {', '.join(TCP_CC_KINDS)})")
+        return hc.tcp_cc
+
+    def _host_params_kwargs(self, hc) -> dict:
+        """The HostParams keyword set shared by a whole config entry —
+        everything but the per-host name and the topology-resolved
+        bandwidths.  ONE construction point for the eager path and the
+        HostTable's deferred materialization, so the two can never drift
+        (the table-vs-object digest parity gates lean on it)."""
+        opts = self.options
+        return dict(
+            qdisc=hc.qdisc or opts.interface_qdisc,
+            tcp_cc=self._validated_tcp_cc(hc),
+            router_queue=opts.router_queue,
+            # 0 means "default start size + autotune", never a
+            # zero-byte buffer (a 0 advertised window would
+            # deadlock every transfer at handshake)
+            recv_buf_size=(hc.socket_recv_buffer
+                           or opts.socket_recv_buffer or 174760),
+            send_buf_size=(hc.socket_send_buffer
+                           or opts.socket_send_buffer or 131072),
+            autotune_recv=opts.socket_autotune and not hc.socket_recv_buffer,
+            autotune_send=opts.socket_autotune and not hc.socket_send_buffer,
+            cpu_frequency_khz=hc.cpu_frequency_khz,
+            cpu_threshold_ns=opts.cpu_threshold_ns,
+            cpu_precision_ns=opts.cpu_precision_ns,
+            interface_buffer=hc.interface_buffer or opts.interface_buffer,
+            heartbeat_interval_sec=(hc.heartbeat_interval_sec
+                                    or opts.heartbeat_interval_sec),
+            log_pcap=hc.log_pcap,
+            pcap_dir=hc.pcap_dir or opts.pcap_dir,
+            ip_hint=hc.ip_hint, city_hint=hc.city_hint,
+            country_hint=hc.country_hint, geocode_hint=hc.geocode_hint,
+            type_hint=hc.type_hint,
+            log_level=hc.log_level,
+            heartbeat_log_level=hc.heartbeat_log_level)
+
+    def setup(self) -> None:
+        """Register programs and hosts (master.c:279-392)."""
+        opts = self.options
+        # <shadow environment="K=V;..."> is injected into every native
+        # plugin's environment (reference main.c:474-524); a config-level
+        # preload path rides the same mechanism (main.c scrubs/builds
+        # LD_PRELOAD the same way)
+        self.engine.plugin_environment = dict(self.config.environment or {})
+        if self.config.preload:
+            prior = self.engine.plugin_environment.get("LD_PRELOAD", "")
+            self.engine.plugin_environment["LD_PRELOAD"] = (
+                self.config.preload + (" " + prior if prior else ""))
+        for prog in self.config.programs:
+            self._program_paths[prog.id] = prog.path
+
+        from ..scale.memprof import BootProfile
+        profile = BootProfile()
+        profile.snapshot()
+        self._setup_eager_hosts()
+        profile.commit(self.engine.total_host_count())
+        profile.install(self.engine)
+        self.topology.finalize()
+
+    def _setup_eager_hosts(self) -> None:
+        """The classic boot path: one Host object per quantity expansion."""
+        for hc in self.config.hosts:
+            if hc.flows:
+                raise ValueError(
+                    f"host {hc.id!r} has device flows; flows need the host "
+                    "table (--host-table=on or auto)")
+            kw = self._host_params_kwargs(hc)
+            for q in range(hc.quantity):
+                name = hc.id if hc.quantity == 1 else f"{hc.id}{q + 1}"
+                params = HostParams(
+                    name=name,
+                    bw_down_kibps=hc.bandwidth_down_kibps,
+                    bw_up_kibps=hc.bandwidth_up_kibps, **kw)
+                host = Host(self.engine.next_host_id(), params,
+                            self.engine.root_key)
+                requested_ip = ip_to_int(hc.ip_hint) if hc.ip_hint else None
+                self.engine.add_host(host, requested_ip)
+                for pc in hc.processes:
+                    self._add_process(host, pc)
+
+    def _add_process(self, host: Host, pc) -> None:
+        path = self._program_paths.get(pc.plugin, pc.plugin)
+        app_main = app_registry.resolve(path)
+        args = tokenize_arguments(pc.arguments)
+        stop_ns = stime.from_seconds(pc.stop_time_sec) if pc.stop_time_sec else 0
+        proc = Process(host, f"{host.name}.{pc.plugin}", app_main, args,
+                       start_time_ns=stime.from_seconds(pc.start_time_sec),
+                       stop_time_ns=stop_ns, preload=pc.preload)
+        proc.app_path = path    # device-plane scan matches on resolved app
+
+    def run(self) -> int:
+        # device-mode clients were refused at construction, so the engine's
+        # device-plane hooks stay inert (engine.device_plane is None)
+        self.setup()
+        return self.engine.run()
+
+
+def run_simulation(options: Options, config: Configuration) -> int:
+    """One-call entry used by the CLI and tests.  ``--processes N`` (N >= 2)
+    is refused (ROADMAP A9) by the Controller's :func:`refuse_unported`."""
+    return Controller(options, config).run()

@@ -1,0 +1,378 @@
+"""The per-round device kernel: all packet hops in a window as one launch.
+
+Reference hot path (worker.c:243-304 ``worker_sendPacket``): for EACH packet,
+look up path reliability, draw a uniform, maybe drop, look up path latency,
+schedule delivery.  That is a per-packet scalar pipeline; on the card the
+same work is one batched launch over the round's whole packet set:
+
+    latency  = L[src_row, dst_row]          # int64 ns gather
+    rel      = R[src_row, dst_row]          # f32 gather
+    u        = threefry(drop_key, uid)      # counter-based, order-independent
+    keep     = bootstrap | rel >= 1 | u <= rel
+    deliver  = max(send_time + latency, barrier)   # int64 ns, exact
+
+Determinism contract: the uniform is keyed by the packet uid, not execution
+order, and is the bitwise-identical construction the CPU policies use
+(core/rng.py), so the CPU and device schedulers drop exactly the same
+packets and compute exactly the same delivery times.
+
+Three layers, each testable on its own:
+
+* :func:`packet_hop_packed_reference` — the plain torch version; the CPU
+  tests hold it bit-exact against the JAX package's step.
+* :func:`packet_hop_packed` — the wrapper: on CPU tensors it runs the plain
+  version; on CUDA tensors it launches the hand-written kernel
+  (csrc/packet_hop.cu) or raises.  It counts its launches.
+* :class:`PacketHopKernel` — owns the device-resident topology tensors, the
+  drop key, a CUDA stream and pinned host buffers; turns a round's numpy
+  columns into a launched, not yet materialized :class:`HopHandle`.
+
+Batches are padded to power-of-two buckets (as in the JAX package, where
+each bucket is one compiled shape); the CUDA kernel compiles once for every
+size, so buckets here only bound the pinned-buffer pool.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..core.rng import uniform_np, uniform_torch_pair
+
+MIN_BUCKET = 256
+_M32 = 0xFFFFFFFF
+
+
+def bucket_size(n: int) -> int:
+    """Smallest power-of-two bucket >= n (min MIN_BUCKET) — bounds the number
+    of distinct padded shapes to log2(max_batch)."""
+    b = MIN_BUCKET
+    while b < n:
+        b <<= 1
+    return b
+
+
+def packet_hop_packed_reference(latency: torch.Tensor,      # int64 [A, A]
+                                reliability: torch.Tensor,  # f32   [A, A]
+                                packed: torch.Tensor,       # int64 [1+B, 3]
+                                key_lo: int, key_hi: int,
+                                bootstrap_end: int,
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of the packed hop step (the JAX package's
+    ``packet_hop_step_packed``).  Row 0 of ``packed`` is a header: (valid
+    row count n, round barrier ns, 0).  Data row layout: word0 = (src_row
+    << 32) | dst_row, word1 = the packet uid (uint64 bit pattern), word2 =
+    send time ns.  Returns PADDED (deliver int64 [B], keep bool [B]);
+    padding lanes come back keep=False.  Rows are clamped to [0, A) as the
+    kernel clamps them (they always are in range)."""
+    a = latency.shape[0]
+    n = packed[0, 0]
+    barrier = packed[0, 1]
+    w0 = packed[1:, 0]
+    uid = packed[1:, 1]
+    send = packed[1:, 2]
+    src = (w0 >> 32).to(torch.int32).clamp(0, a - 1).long()
+    dst = (w0 & _M32).to(torch.int32).clamp(0, a - 1).long()
+    # arithmetic >> then mask == logical shift for the uint64 bit pattern
+    uid_lo = uid & _M32
+    uid_hi = (uid >> 32) & _M32
+    valid = torch.arange(w0.shape[0], device=packed.device) < n
+    lat = latency[src, dst]
+    rel = reliability[src, dst]
+    key = (int(key_hi) << 32) | (int(key_lo) & _M32)
+    u = uniform_torch_pair(key, uid_lo, uid_hi)
+    keep = ((send < bootstrap_end) | (rel >= 1.0) | (u <= rel)) & valid
+    deliver = torch.maximum(send + lat, barrier)
+    return deliver, keep
+
+
+_VP = ctypes.c_void_p
+_LAUNCH_ARGTYPES = [_VP, _VP, ctypes.c_int, _VP, ctypes.c_int,
+                    ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int64,
+                    _VP, _VP, _VP]
+
+
+def _launch_fn():
+    """csrc/packet_hop.cu's C entry point, built at first use and bound
+    (the library itself is cached by _build.load)."""
+    from . import _build
+    fn = _build.load().packet_hop_launch
+    if fn.argtypes is None:
+        fn.argtypes = _LAUNCH_ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_cuda_args(latency, reliability, packed) -> None:
+    dev = packed.device
+    if latency.device != dev or reliability.device != dev:
+        raise ValueError("packet_hop: latency, reliability and packed must "
+                         f"be on one device, got {latency.device}, "
+                         f"{reliability.device}, {dev}")
+    if latency.dtype != torch.int64 or latency.dim() != 2 \
+            or latency.shape[0] != latency.shape[1] or latency.shape[0] < 1:
+        raise ValueError("packet_hop: latency must be int64 [A, A], got "
+                         f"{latency.dtype} {tuple(latency.shape)}")
+    if reliability.dtype != torch.float32 \
+            or reliability.shape != latency.shape:
+        raise ValueError("packet_hop: reliability must be float32 "
+                         f"{tuple(latency.shape)}, got {reliability.dtype} "
+                         f"{tuple(reliability.shape)}")
+    if packed.dtype != torch.int64 or packed.dim() != 2 \
+            or packed.shape[1] != 3 or packed.shape[0] < 2:
+        raise ValueError("packet_hop: packed must be int64 [1+B, 3], got "
+                         f"{packed.dtype} {tuple(packed.shape)}")
+    if packed.shape[0] - 1 >= 2 ** 31 or latency.shape[0] >= 2 ** 31:
+        raise ValueError("packet_hop: B and A must fit in int32")
+    for name, t in (("latency", latency), ("reliability", reliability),
+                    ("packed", packed)):
+        if not t.is_contiguous():
+            raise ValueError(f"packet_hop: {name} must be contiguous")
+
+
+def packet_hop_packed(latency: torch.Tensor, reliability: torch.Tensor,
+                      packed: torch.Tensor, key_lo: int, key_hi: int,
+                      bootstrap_end: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The packet-hop step on ``packed``'s device.  CPU tensors run
+    :func:`packet_hop_packed_reference`; CUDA tensors launch
+    csrc/packet_hop.cu on the current stream (no synchronisation), and a
+    refused launch raises.  ``packet_hop_packed.launches`` counts kernel
+    launches.  Returns PADDED (deliver int64 [B], keep bool [B])."""
+    if packed.device.type == "cpu":
+        return packet_hop_packed_reference(latency, reliability, packed,
+                                           key_lo, key_hi, bootstrap_end)
+    if packed.device.type != "cuda":
+        raise ValueError(f"packet_hop: unsupported device {packed.device}")
+    _check_cuda_args(latency, reliability, packed)
+    b = packed.shape[0] - 1
+    deliver = torch.empty(b, dtype=torch.int64, device=packed.device)
+    keep = torch.empty(b, dtype=torch.bool, device=packed.device)
+    stream = torch.cuda.current_stream(packed.device).cuda_stream
+    rc = _launch_fn()(
+        latency.data_ptr(), reliability.data_ptr(), latency.shape[0],
+        packed.data_ptr(), b, int(key_lo) & _M32, int(key_hi) & _M32,
+        int(bootstrap_end), deliver.data_ptr(), keep.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"packet_hop kernel launch failed: CUDA error "
+                           f"{rc} (B={b}, A={latency.shape[0]})")
+    packet_hop_packed.launches += 1
+    return deliver, keep
+
+
+packet_hop_packed.launches = 0
+
+
+class HopHandle:
+    """One launched chunk.  :meth:`wait` blocks until its results are on
+    the host and returns exact-length numpy (deliver int64, keep bool)."""
+
+    __slots__ = ("_n", "_result", "_event", "_bufs", "_pool")
+
+    def __init__(self, n: int, result=None, event=None, bufs=None,
+                 pool=None):
+        self._n = n
+        self._result = result
+        self._event = event
+        self._bufs = bufs
+        self._pool = pool
+
+    def wait(self) -> Tuple[np.ndarray, np.ndarray]:
+        if self._result is None:
+            self._event.synchronize()
+            _packed, deliver, keep = self._bufs
+            n = self._n
+            self._result = (deliver.numpy()[:n].copy(),
+                            keep.numpy()[:n].copy())
+            # only now may the next launch overwrite these pinned buffers
+            self._pool.release(self._bufs)
+            self._bufs = self._event = None
+        return self._result
+
+
+class _PinnedPool:
+    """Free lists of pinned host buffers (packed [1+b, 3], deliver [b],
+    keep [b]) per bucket size b.  A set is held by its HopHandle from launch
+    until its event has completed, so no chunk's input or output is
+    overwritten by a later chunk while the card may still use it."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._free: Dict[int, List[tuple]] = {}
+
+    def acquire(self, b: int) -> tuple:
+        with self._lock:
+            free = self._free.get(b)
+            if free:
+                return free.pop()
+        return (torch.empty((1 + b, 3), dtype=torch.int64, pin_memory=True),
+                torch.empty(b, dtype=torch.int64, pin_memory=True),
+                torch.empty(b, dtype=torch.bool, pin_memory=True))
+
+    def release(self, bufs: tuple) -> None:
+        b = bufs[1].shape[0]
+        with self._lock:
+            self._free.setdefault(b, []).append(bufs)
+
+
+class PacketHopKernel:
+    """Host-side wrapper owning the device-resident topology tensors and the
+    drop key; turns a round's (src_row, dst_row, uid, send_time) arrays into
+    (deliver_time, keep) with one kernel launch."""
+
+    # >0: batches below this size are computed with the bitwise-identical
+    # vectorized numpy path (--tpu-device-threshold; 0 = always launch).
+    # Only with the matrices on the CPU: on the card every batch launches
+    # the kernel, and a kernel built with a threshold is refused.
+    DEVICE_THRESHOLD = 0
+
+    def __init__(self, topology, drop_key: int, bootstrap_end_ns: int,
+                 device="cuda", device_threshold: Optional[int] = None):
+        lat, rel = topology.device_tensors(device)
+        self._init(np.asarray(topology.latency_ns),
+                   np.asarray(topology.reliability, dtype=np.float32),
+                   lat, rel, drop_key, bootstrap_end_ns, device_threshold)
+
+    @classmethod
+    def from_arrays(cls, latency_ns: np.ndarray, reliability: np.ndarray,
+                    drop_key: int, bootstrap_end_ns: int, device,
+                    device_threshold: Optional[int] = None
+                    ) -> "PacketHopKernel":
+        """A kernel over given [A, A] matrices (int64 ns latency, f32
+        reliability) — e.g. the ones another package's Topology built, so
+        one topology can feed both."""
+        self = cls.__new__(cls)
+        lat_np = np.ascontiguousarray(latency_ns, dtype=np.int64)
+        rel_np = np.ascontiguousarray(reliability, dtype=np.float32)
+        self._init(lat_np, rel_np,
+                   torch.as_tensor(lat_np, device=device),
+                   torch.as_tensor(rel_np, device=device),
+                   drop_key, bootstrap_end_ns, device_threshold)
+        return self
+
+    def _init(self, lat_np, rel_np, lat, rel, drop_key, bootstrap_end_ns,
+              device_threshold) -> None:
+        assert lat.dtype == torch.int64 and rel.dtype == torch.float32
+        self.latency = lat
+        self.reliability = rel
+        self.device = lat.device
+        # host-side copies for the small-batch path (CPU device only) and
+        # the tests' numpy oracle
+        self.latency_np = lat_np
+        self.reliability_np = rel_np
+        kv = int(drop_key) & 0xFFFFFFFFFFFFFFFF
+        self.drop_key = kv
+        self.key_lo = kv & _M32
+        self.key_hi = (kv >> 32) & _M32
+        self.bootstrap_end_ns = int(bootstrap_end_ns)
+        self.device_calls = 0
+        self.host_calls = 0
+        if device_threshold is not None:
+            self.DEVICE_THRESHOLD = device_threshold
+        if self.DEVICE_THRESHOLD > 0 and self.device.type != "cpu":
+            raise ValueError(
+                "--tpu-device-threshold > 0 would compute small batches on "
+                "the host while the matrices are on the card; it runs only "
+                "with --device cpu")
+        # distinct padded batch shapes seen (the engine heartbeat reports
+        # it; here it sizes the pinned pool, the kernel compiles once)
+        self.buckets_seen: set = set()
+        self.stream = None
+        if self.device.type == "cuda":
+            self.stream = torch.cuda.Stream(self.device)
+            # the matrices were uploaded on the current stream
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
+            self._pool = _PinnedPool()
+
+    def _step_numpy(self, src_rows, dst_rows, uids, send_times,
+                    barrier_ns: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Vectorized host path for small rounds — same math, same cipher,
+        same f32 comparison as the device kernel, so the decision per packet
+        is identical bit for bit."""
+        lat = self.latency_np[src_rows, dst_rows]
+        rel = self.reliability_np[src_rows, dst_rows]
+        u = uniform_np(self.drop_key, uids.astype(np.uint64))
+        send_times = send_times.astype(np.int64, copy=False)
+        keep = ((send_times < self.bootstrap_end_ns)
+                | (rel >= np.float32(1.0))
+                | (u.astype(np.float32) <= rel))
+        deliver = np.maximum(send_times + lat, np.int64(barrier_ns))
+        self.host_calls += 1
+        return deliver, keep
+
+    def _pack(self, src_rows, dst_rows, uids, send_times, b: int,
+              barrier_ns: int, out: Optional[np.ndarray] = None
+              ) -> np.ndarray:
+        """Assemble the [1+b, 3] int64 packed batch (header row 0 carries
+        n and the barrier — see packet_hop_packed_reference's layout), into
+        ``out`` when given (a reused pinned buffer: padding rows are
+        zeroed)."""
+        n = len(src_rows)
+        if out is None:
+            out = np.zeros((1 + b, 3), dtype=np.int64)
+        else:
+            out[n + 1:] = 0
+        out[0] = (n, barrier_ns, 0)
+        out[1:n + 1, 0] = ((np.asarray(src_rows, dtype=np.int64) << 32)
+                           | np.asarray(dst_rows, dtype=np.int64))
+        out[1:n + 1, 1] = np.asarray(uids, dtype=np.uint64).view(np.int64)
+        out[1:n + 1, 2] = np.asarray(send_times, dtype=np.int64)
+        return out
+
+    def launch(self, src_rows: np.ndarray, dst_rows: np.ndarray,
+               uids: np.ndarray, send_times: np.ndarray,
+               barrier_ns: int) -> HopHandle:
+        """Dispatch one chunk WITHOUT waiting for it: the packed batch goes
+        up from pinned memory on the kernel's own stream, the kernel runs,
+        deliver/keep come back into pinned memory, and an event marks the
+        end — all asynchronous.  The caller calls ``.wait()`` on the handle
+        when it needs the values (the engine does so at the next round
+        boundary), so device work overlaps host-side work.  On the CPU
+        device, the plain version and the numpy bypass (DEVICE_THRESHOLD)
+        return finished handles with the same interface."""
+        n = len(src_rows)
+        if n == 0:
+            return HopHandle(0, result=(np.empty(0, dtype=np.int64),
+                                        np.empty(0, dtype=bool)))
+        if self.stream is None and n < self.DEVICE_THRESHOLD:
+            return HopHandle(n, result=self._step_numpy(
+                np.asarray(src_rows), np.asarray(dst_rows),
+                np.asarray(uids), np.asarray(send_times), barrier_ns))
+        b = bucket_size(n)
+        self.buckets_seen.add(b)
+        self.device_calls += 1
+        if self.stream is None:
+            packed = torch.from_numpy(self._pack(src_rows, dst_rows, uids,
+                                                 send_times, b, barrier_ns))
+            deliver, keep = packet_hop_packed(
+                self.latency, self.reliability, packed, self.key_lo,
+                self.key_hi, self.bootstrap_end_ns)
+            return HopHandle(n, result=(deliver.numpy()[:n],
+                                        keep.numpy()[:n]))
+        bufs = self._pool.acquire(b)
+        packed_pin, deliver_pin, keep_pin = bufs
+        self._pack(src_rows, dst_rows, uids, send_times, b, barrier_ns,
+                   out=packed_pin.numpy())
+        # the launching thread names its device: worker threads launch
+        # mid-round chunks (--tpu-chunk) under the policy's launch lock
+        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            packed_dev = packed_pin.to(self.device, non_blocking=True)
+            deliver, keep = packet_hop_packed(
+                self.latency, self.reliability, packed_dev, self.key_lo,
+                self.key_hi, self.bootstrap_end_ns)
+            deliver_pin.copy_(deliver, non_blocking=True)
+            keep_pin.copy_(keep, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self.stream)
+        return HopHandle(n, event=event, bufs=bufs, pool=self._pool)
+
+    def step(self, src_rows: np.ndarray, dst_rows: np.ndarray,
+             uids: np.ndarray, send_times: np.ndarray,
+             barrier_ns: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Synchronous variant of launch (materialized, exact-length)."""
+        return self.launch(src_rows, dst_rows, uids, send_times,
+                           barrier_ns).wait()

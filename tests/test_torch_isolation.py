@@ -1,0 +1,149 @@
+"""The port stands alone: it imports torch and never jax, and nothing of
+``shadow_tpu``; ``shadow_tpu`` never imports torch; ``--device cuda``
+without a card raises instead of running on the CPU; and every module the
+port keeps as a verbatim copy still equals its ``shadow_tpu`` original once
+the import prefix is normalised (so the copies are copies, and drift on
+either side shows here)."""
+
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+import textwrap
+
+import pytest
+
+import shadow_tpu_torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "shadow_tpu_torch")
+REF = os.path.join(REPO, "shadow_tpu")
+
+# modules copied from shadow_tpu unchanged but for the import prefix
+VERBATIM = [
+    "core/configuration", "core/worker", "core/event", "core/task",
+    "core/stime", "core/defs", "core/counters", "core/logger",
+    "core/supervision", "core/engine", "core/checkpoint", "core/scheduler",
+    "host/host", "host/cpu", "host/network_interface", "host/router",
+    "host/tracker",
+    "routing/address", "routing/dns", "routing/packet",
+    "descriptor/base", "descriptor/tcp", "descriptor/tcp_cong",
+    "descriptor/retransmit_tally", "descriptor/udp", "descriptor/signalfd",
+    "descriptor/epoll", "descriptor/timer", "descriptor/eventfd",
+    "descriptor/channel",
+    "process/process",
+    "apps/tor", "apps/echo", "apps/filetransfer", "apps/phold", "apps/tgen",
+    "apps/blast", "apps/httpd", "apps/bitcoin",
+    "obs/__init__", "obs/metrics", "obs/trace",
+    "utils/pqueue", "utils/count_down_latch", "utils/pcap",
+    "utils/byte_queue",
+    "scale/memprof",
+    "tools/workloads",
+]
+
+
+def _port_modules():
+    names = [shadow_tpu_torch.__name__]
+    for info in pkgutil.walk_packages(shadow_tpu_torch.__path__,
+                                      prefix="shadow_tpu_torch."):
+        names.append(info.name)
+    return sorted(names)
+
+
+def _run_python(code):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    return subprocess.run([sys.executable, "-c", textwrap.dedent(code)],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=240)
+
+
+def test_every_port_module_imports_without_jax_or_shadow_tpu():
+    mods = _port_modules()
+    assert len(mods) > 50
+    res = _run_python(f"""
+        import importlib, sys
+        for m in {mods!r}:
+            importlib.import_module(m)
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                     or m == "shadow_tpu" or m.startswith("shadow_tpu."))
+        assert not bad, bad
+        assert "torch" in sys.modules
+        print("OK", len({mods!r}))
+    """)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("OK")
+
+
+def _imported_roots(path):
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 \
+                and node.module:
+            yield node.module.split(".")[0]
+
+
+def test_ast_scan_finds_no_jax_or_shadow_tpu_import():
+    seen = 0
+    for root, _dirs, files in os.walk(PORT):
+        for fn in files:
+            if fn.endswith(".py"):
+                path = os.path.join(root, fn)
+                roots = set(_imported_roots(path))
+                assert not roots & {"jax", "jaxlib", "shadow_tpu"}, path
+                seen += 1
+    assert seen > 50
+    # the smoke script that drives the port on the card is held to it too
+    roots = set(_imported_roots(os.path.join(REPO, "chip_smoke.py")))
+    assert not roots & {"jax", "jaxlib", "shadow_tpu"}
+
+
+def test_import_shadow_tpu_does_not_load_torch():
+    res = _run_python("""
+        import sys
+        import shadow_tpu
+        import shadow_tpu.core.controller, shadow_tpu.parallel.tpu_policy
+        assert "torch" not in sys.modules, "shadow_tpu imported torch"
+        print("OK")
+    """)
+    assert res.returncode == 0, res.stderr
+
+
+def test_cuda_without_a_card_raises(monkeypatch):
+    import torch
+    from shadow_tpu_torch.core import configuration
+    from shadow_tpu_torch.core.controller import Controller
+    from shadow_tpu_torch.core.options import Options, parse_args
+    from shadow_tpu_torch.device import resolve_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device("cuda")
+    assert resolve_device("cpu").type == "cpu"
+    with pytest.raises(ValueError):
+        resolve_device("tpu")
+    # cuda is the default of both entry points
+    assert Options().device == "cuda"
+    assert parse_args(["x.xml"]).device == "cuda"
+    assert parse_args(["x.xml", "--device", "cpu"]).device == "cpu"
+    cfg = configuration.parse_xml(
+        '<shadow stoptime="5"><plugin id="e" path="python:echo" />'
+        '<host id="h"><process plugin="e" starttime="1" '
+        'arguments="udp server 8000" /></host></shadow>')
+    with pytest.raises(RuntimeError, match="cuda"):
+        Controller(Options(scheduler_policy="tpu", stop_time_sec=5), cfg)
+
+
+@pytest.mark.parametrize("module", VERBATIM)
+def test_verbatim_copy_equals_original(module):
+    with open(os.path.join(PORT, module + ".py"), encoding="utf-8") as f:
+        port = f.read()
+    with open(os.path.join(REF, module + ".py"), encoding="utf-8") as f:
+        ref = f.read()
+    assert port.replace("shadow_tpu_torch.", "shadow_tpu.") == ref, (
+        f"shadow_tpu_torch/{module}.py drifted from shadow_tpu/{module}.py")

@@ -1,0 +1,64 @@
+"""Paths the port has not ported refuse with NotImplementedError naming
+their ROADMAP item, before any simulation work — they never quietly take
+another path — and the port's CLI runs a config end to end on the CPU."""
+
+import pytest
+
+from shadow_tpu_torch import cli
+from shadow_tpu_torch.apps import registry
+from shadow_tpu_torch.core import configuration
+from shadow_tpu_torch.core.controller import Controller, run_simulation
+from shadow_tpu_torch.core.options import Options
+from shadow_tpu_torch.tools.workloads import tor_network
+
+ECHO = ('<shadow stoptime="5"><plugin id="e" path="python:echo" />'
+        '<host id="h"><process plugin="e" starttime="1" '
+        'arguments="udp server 8000" /></host></shadow>')
+FLOW = ('<shadow stoptime="5"><host id="s" /><host id="c">'
+        '<flow dest="s" down="1000" /></host></shadow>')
+
+
+@pytest.mark.parametrize("xml,opts,item", [
+    (ECHO, {"processes": 2}, "A9"),
+    (ECHO, {"dataplane": "native"}, "A14"),
+    (ECHO, {"host_table": "on"}, "A13"),
+    (FLOW, {}, "A13"),
+    (ECHO, {"scheduler_policy": "tpu", "tpu_devices": 2}, "B7"),
+    (ECHO, {"scheduler_policy": "tpu", "tpu_shard_matrix": True}, "B7"),
+    (tor_network(2, n_clients=1, n_servers=1, device_data=True), {},
+     "A5-A6"),
+])
+def test_unported_paths_raise(xml, opts, item):
+    cfg = configuration.parse_xml(xml)
+    options = Options(device="cpu", stop_time_sec=5, **opts)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        run_simulation(options, cfg)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        Controller(options, cfg)
+
+
+@pytest.mark.parametrize("path", ["exec:/bin/true", "pool:/x/plugin.so",
+                                  "/bin/true"])
+def test_native_plugins_raise(path):
+    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
+        registry.resolve(path)
+    assert registry.resolve("python:echo") is registry.resolve("echo")
+
+
+def test_cli_runs_a_config_under_tpu_on_cpu(tmp_path):
+    conf = tmp_path / "echo.xml"
+    conf.write_text(tor_network(3, n_clients=2, n_servers=1, stoptime=8))
+    rc = cli.main([str(conf), "--scheduler-policy=tpu", "--device", "cpu",
+                   "--data-directory", str(tmp_path / "data"),
+                   "--log-level", "warning"])
+    assert rc == 0
+
+
+def test_device_threshold_refused_on_cuda():
+    """The numpy small-batch bypass would move hops to the host while the
+    matrices are on the card: refused there, before any device work."""
+    cfg = configuration.parse_xml(ECHO)
+    options = Options(device="cuda", stop_time_sec=5,
+                      scheduler_policy="tpu", tpu_device_threshold=64)
+    with pytest.raises(NotImplementedError, match="--device cpu"):
+        Controller(options, cfg)
