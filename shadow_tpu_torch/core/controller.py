@@ -5,9 +5,10 @@ Engine, computes the lookahead, runs the simulation, reports results
 (master_run :400 flow).
 
 The port runs the Python data plane with the ``tpu`` policy's hop on the
-device.  Paths it has not ported refuse with NotImplementedError naming
-their ROADMAP item, before any simulation work; they never quietly take
-another path (:func:`refuse_unported`).
+device, and device-mode clients' bulk cells on the device traffic plane
+(parallel/device_plane.py).  Paths it has not ported refuse with
+NotImplementedError naming their ROADMAP item, before any simulation work;
+they never quietly take another path (:func:`refuse_unported`).
 """
 
 from __future__ import annotations
@@ -28,10 +29,31 @@ from .logger import get_logger
 from .options import Options
 
 
+def has_device_clients(config: Configuration) -> bool:
+    """Whether any process is a device-mode client (its bulk transfer
+    runs on the device traffic plane)."""
+    for hc in config.hosts:
+        for pc in hc.processes:
+            args = tokenize_arguments(pc.arguments)
+            if args and args[0] == "client" and "device" in args:
+                return True
+    return False
+
+
 def refuse_unported(options: Options, config: Configuration) -> None:
     """Raise NotImplementedError for the configurations whose paths the
     port does not run yet; log once that ``--dataplane=auto`` means the
     Python data plane here."""
+    if (getattr(options, "cost_model", "") or "").strip():
+        raise NotImplementedError(
+            "--cost-model: the port has no device cost model yet (the "
+            "checked-in COSTMODEL.json is the JAX package's): ROADMAP A7")
+    if has_device_clients(config) \
+            and getattr(options, "device_plane", "device") == "device" \
+            and getattr(options, "tpu_devices", 0) > 1:
+        raise NotImplementedError(
+            "the device traffic plane over --tpu-devices > 1 (the sharded "
+            "mesh) is not ported yet: ROADMAP A10")
     if getattr(options, "processes", 0) >= 2:
         raise NotImplementedError(
             "--processes >= 2 (sharded multi-process runs) is not ported "
@@ -62,21 +84,15 @@ def refuse_unported(options: Options, config: Configuration) -> None:
             "--tpu-device-threshold > 0 computes small hop batches on the "
             "host; with --device cuda every batch goes through the kernel, "
             "so the bypass runs only with --device cpu")
-    for hc in config.hosts:
-        for pc in hc.processes:
-            args = tokenize_arguments(pc.arguments)
-            if args and args[0] == "client" and "device" in args:
-                raise NotImplementedError(
-                    f"host {hc.id!r} has a device-mode client: the "
-                    "device traffic plane is not ported yet: ROADMAP "
-                    "A5-A6")
 
 
 class Controller:
     def __init__(self, options: Options, config: Configuration):
         refuse_unported(options, config)
-        if options.scheduler_policy == "tpu":
-            # fail before setup, not at the first round's launch, when the
+        if options.scheduler_policy == "tpu" or (
+                has_device_clients(config)
+                and getattr(options, "device_plane", "device") == "device"):
+            # fail before setup, not at the first launch, when the
             # requested device is missing (device.py never falls back)
             resolve_device(getattr(options, "device", "cuda"))
         self.options = options
@@ -199,9 +215,13 @@ class Controller:
         proc.app_path = path    # device-plane scan matches on resolved app
 
     def run(self) -> int:
-        # device-mode clients were refused at construction, so the engine's
-        # device-plane hooks stay inert (engine.device_plane is None)
         self.setup()
+        # device-mode clients in the workload promote their bulk traffic to
+        # the device-resident plane (parallel/device_plane.py); None when
+        # the workload has none — the engine hooks are then inert
+        from ..parallel.device_plane import build_plane_from_engine
+        self.engine.device_plane = build_plane_from_engine(
+            self.engine, mode=getattr(self.options, "device_plane", "device"))
         return self.engine.run()
 
 

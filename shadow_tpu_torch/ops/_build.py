@@ -1,10 +1,11 @@
-"""Build and load the port's CUDA kernel.
+"""Build and load the port's CUDA kernels.
 
-``csrc/packet_hop.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, at first use, into ``build/`` beside this
-file (listed in .gitignore), and loaded with ``ctypes``.  The library's file
+file (listed in .gitignore), and loaded with ``ctypes``.  A library's file
 name carries a hash of its source and flags, so an edited source is rebuilt
-and a stale one is never loaded.
+and a stale one is never loaded.  :func:`build` compiles several sources at
+once, one ``nvcc`` process each, all started together.
 
 Nothing here runs at import: the CPU tests import every module, and there
 is no ``nvcc`` or card there.
@@ -19,16 +20,24 @@ import os
 import shutil
 import subprocess
 import time
+from typing import Dict, Iterable, Optional
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(_HERE, "csrc", "packet_hop.cu")
 BUILD_DIR = os.path.join(_HERE, "build")
+KERNELS = ("packet_hop", "torcells_span", "pack_flush")
 
 # never --use_fast_math: the hop's uniform and its comparison against the
 # f32 reliability must round exactly as the plain torch version does;
 # -Xptxas -v puts the register and spill report in nvcc's output
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def source_path(name: str) -> str:
+    if name not in KERNELS:
+        raise ValueError(f"unknown kernel {name!r} (choices: "
+                         f"{', '.join(KERNELS)})")
+    return os.path.join(_HERE, "csrc", f"{name}.cu")
 
 
 def nvcc_path() -> str:
@@ -40,39 +49,52 @@ def nvcc_path() -> str:
     found = shutil.which("nvcc")
     if found is None:
         raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on "
-                           "PATH): the CUDA kernel is built at first use")
+                           "PATH): the CUDA kernels are built at first use")
     return found
 
 
-def library_path() -> str:
-    with open(SOURCE, "rb") as f:
+def library_path(name: str) -> str:
+    with open(source_path(name), "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR,
-                        f"libpacket_hop-{digest.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
-def build() -> dict:
-    """Compile the kernel's library.  Returns ``{"seconds", "log"}``
-    (``log`` is nvcc's output, with ptxas's register and spill report).
-    Raises RuntimeError with nvcc's output if the build fails."""
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
+    """Compile the kernels' libraries (all of them by default), one nvcc
+    process per source, all started together.  Returns ``{name:
+    {"seconds", "log"}}`` (``log`` is nvcc's output, with ptxas's register
+    and spill report).  Raises RuntimeError with nvcc's output if a build
+    fails."""
+    names = list(KERNELS if names is None else names)
     os.makedirs(BUILD_DIR, exist_ok=True)
-    lib = library_path()
-    tmp = f"{lib}.tmp{os.getpid()}"
-    t0 = time.perf_counter()
-    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                          capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {SOURCE} "
-                           f"(exit {proc.returncode}):\n{log}")
-    os.replace(tmp, lib)
-    return {"seconds": time.perf_counter() - t0, "log": log}
+    nvcc = nvcc_path()
+    jobs = {}
+    for name in names:
+        lib = library_path(name)
+        tmp = f"{lib}.tmp{os.getpid()}"
+        proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", tmp,
+                                 source_path(name)],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs[name] = (proc, tmp, lib, time.perf_counter())
+    out, failed = {}, []
+    for name, (proc, tmp, lib, t0) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {source_path(name)} "
+                          f"(exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, lib)
+        out[name] = {"seconds": time.perf_counter() - t0, "log": log}
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
 
 
 @functools.lru_cache(maxsize=None)
-def load() -> ctypes.CDLL:
+def load(name: str) -> ctypes.CDLL:
     """The kernel's loaded library, building it first if needed."""
-    path = library_path()
+    path = library_path(name)
     if not os.path.exists(path):
-        build()
+        build([name])
     return ctypes.CDLL(path)

@@ -1,0 +1,134 @@
+// pack_flush: the device traffic plane's packed flush buffer, one block, for
+// Hopper (sm_90a).
+//
+// Replaces the JAX package's shadow_tpu/ops/torcells_device.py:337
+// (_pack_flush_jnp), called by _step_span_flush_impl :512 after the span
+// step.  The plain torch version of the same function is
+// shadow_tpu_torch/ops/torcells_device.py:pack_flush_torch; the two agree bit
+// for bit.
+//
+// Output, int64 [5 + 2cc + 2hh] (cc = min(cap_chains, C), hh likewise; no
+// caps means cc = C, hh = H):
+//   [0] forwards, [1] delivered sum, [2] n_done, [3] n_touched, [4] t_stop
+//   [5        : 5+n]        chains c with newly[c], ascending
+//   [5+cc     : 5+cc+n]     their done_last[c]
+//   [5+2cc    : 5+2cc+m]    nodes h with sent_delta[h] != 0, ascending
+//   [5+2cc+hh : 5+2cc+hh+m] their sent_delta[h]
+// and zeros elsewhere.  The header counts are the TRUE counts; entries
+// whose cursor is past a cap are not written (the JAX scatter's "drop"
+// mode), so the host can tell a capped buffer lost entries.
+//
+// Design.  Ascending order needs each selected lane's rank among the
+// selected lanes: an exclusive scan, not atomics (whose order would vary).
+// One block of 1024 threads walks C and then H in chunks of 1024, a
+// block-wide scan per chunk (warp shuffles, then a scan of the 32 warp
+// totals), carrying the running count between chunks.  The scalars come
+// from device memory (the span kernel's outputs), so the launch needs no
+// host read.
+//
+// Bound.  It reads C bools + 8C + 8H bytes and writes 8 (5 + 2C + 2H):
+// ~1.2 MB at tor10k width (C = 20,000, H = 30,494), under a microsecond at
+// HBM rate.  One block walking 50 chunks with ~10 block barriers each is
+// latency-bound, tens of microseconds; spreading it over the card is later
+// work.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int THREADS = 1024;
+constexpr int HEADER = 5;
+
+// exclusive scan of v over the block; *total gets the block's sum
+__device__ __forceinline__ int64_t block_exclusive_scan(int64_t v,
+                                                        int64_t* total) {
+  __shared__ int64_t warp_tot[THREADS / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int64_t x = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int64_t y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) warp_tot[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int64_t w = warp_tot[lane];
+    for (int o = 1; o < 32; o <<= 1) {
+      const int64_t y = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += y;
+    }
+    warp_tot[lane] = w;  // inclusive scan of warp totals
+  }
+  __syncthreads();
+  const int64_t warp_base = warp > 0 ? warp_tot[warp - 1] : 0;
+  *total = warp_tot[THREADS / 32 - 1];
+  __syncthreads();  // warp_tot is reused by the next call
+  return warp_base + x - v;
+}
+
+__global__ void __launch_bounds__(THREADS)
+pack_flush_kernel(const int64_t* forwards, const int64_t* delivered_sum,
+                  const int64_t* t_stop, const uint8_t* newly,
+                  const int64_t* done_last, const int64_t* sent_delta,
+                  int64_t* buf, int64_t c, int64_t h, int64_t cc,
+                  int64_t hh) {
+  const int64_t len = HEADER + 2 * cc + 2 * hh;
+  for (int64_t i = HEADER + threadIdx.x; i < len; i += THREADS) buf[i] = 0;
+  __syncthreads();
+
+  int64_t carry = 0;
+  for (int64_t base = 0; base < c; base += THREADS) {
+    const int64_t i = base + threadIdx.x;
+    const int64_t sel = (i < c && newly[i]) ? 1 : 0;
+    int64_t chunk;
+    const int64_t pos = carry + block_exclusive_scan(sel, &chunk);
+    if (sel && pos < cc) {
+      buf[HEADER + pos] = i;
+      buf[HEADER + cc + pos] = done_last[i];
+    }
+    carry += chunk;
+  }
+  const int64_t n_done = carry;
+
+  carry = 0;
+  for (int64_t base = 0; base < h; base += THREADS) {
+    const int64_t i = base + threadIdx.x;
+    const int64_t d = i < h ? sent_delta[i] : 0;
+    const int64_t sel = d != 0 ? 1 : 0;
+    int64_t chunk;
+    const int64_t pos = carry + block_exclusive_scan(sel, &chunk);
+    if (sel && pos < hh) {
+      buf[HEADER + 2 * cc + pos] = i;
+      buf[HEADER + 2 * cc + hh + pos] = d;
+    }
+    carry += chunk;
+  }
+
+  if (threadIdx.x == 0) {
+    buf[0] = *forwards;
+    buf[1] = *delivered_sum;
+    buf[2] = n_done;
+    buf[3] = carry;
+    buf[4] = *t_stop;
+  }
+}
+
+}  // namespace
+
+// Launch on `stream` (a cudaStream_t passed as a pointer).  Does not
+// synchronise.  Returns cudaGetLastError(): 0 when the launch was accepted.
+extern "C" int pack_flush_launch(const void* forwards,
+                                 const void* delivered_sum,
+                                 const void* t_stop, const void* newly,
+                                 const void* done_last,
+                                 const void* sent_delta, void* buf,
+                                 int64_t c, int64_t h, int64_t cc,
+                                 int64_t hh, void* stream) {
+  pack_flush_kernel<<<1, THREADS, 0, (cudaStream_t)stream>>>(
+      (const int64_t*)forwards, (const int64_t*)delivered_sum,
+      (const int64_t*)t_stop, (const uint8_t*)newly,
+      (const int64_t*)done_last, (const int64_t*)sent_delta, (int64_t*)buf,
+      c, h, cc, hh);
+  return (int)cudaGetLastError();
+}

@@ -100,7 +100,7 @@ def _launch_fn():
     """csrc/packet_hop.cu's C entry point, built at first use and bound
     (the library itself is cached by _build.load)."""
     from . import _build
-    fn = _build.load().packet_hop_launch
+    fn = _build.load("packet_hop").packet_hop_launch
     if fn.argtypes is None:
         fn.argtypes = _LAUNCH_ARGTYPES
         fn.restype = ctypes.c_int

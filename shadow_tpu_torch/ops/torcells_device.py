@@ -1,0 +1,663 @@
+"""The device traffic plane's step: bulk Tor cells advanced in device
+tensors, one dispatch per superwindow.
+
+Port of the JAX package's ``ops/torcells_device.py`` superwindow span step
+(``_step_span_impl`` via ``_step_span_flush_impl``) and its packed flush
+(``_pack_flush_jnp``).  The model: C cell chains of a few stages each form
+F flows, sorted by paced node (``build_flows``); per tick every node refills
+its token bucket, serves its flows greedily in flow order (a segmented
+cumsum), and a served cell arrives at the successor flow after the edge
+latency through an int32 ``[L, F]`` send-history ring.  A dispatch advances
+through the ascending step boundaries in ``targets`` and halts at the first
+boundary after a chain completed.
+
+Three layers, each testable on its own:
+
+* the plain torch versions :func:`torcells_step_span_torch` and
+  :func:`pack_flush_torch` (and their composite
+  :func:`torcells_step_window_flush_reference`) — the CPU tests hold them
+  bit-exact against the JAX functions and the numpy twins;
+* the wrappers :func:`torcells_span` and :func:`pack_flush`, each of which
+  launches its hand-written kernel (``csrc/torcells_span.cu``,
+  ``csrc/pack_flush.cu``) on a CUDA tensor and counts the launch in its
+  ``.launches``;
+* the dispatch :func:`torcells_step_window_flush`: on CPU tensors the plain
+  versions, on CUDA tensors the two kernels, nothing else.
+
+On the card the carried state is updated in place (the JAX package donated
+it instead); callers treat the state they pass as consumed.
+
+The numpy helpers (``build_flows``, the flush layout helpers) and the numpy
+twins are copied unchanged: ``--device-plane=numpy`` runs the twins as an
+execution mode, and the plane's recovery drill replays on them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..core import defs
+
+CELL_WIRE_BYTES = 512 + defs.CONFIG_HEADER_SIZE_TCPIPETH
+
+# Arrival-ring element dtype: per-step per-flow cell counts are bounded by
+# bucket capacity / cell size (a 10 Gbit/s host at a 100 ms granule is
+# ~230k cells, nowhere near 2**31), so int32 halves the [ring_len, F] state.
+# The plane refuses a configuration whose burst could overflow it.
+RING_DTYPE = np.int32
+RING_TORCH_DTYPE = torch.int32
+
+# the span kernel takes the superwindow boundaries by value (csrc
+# torcells_span.cu MAX_TARGETS); the tuner's ceiling on K is the same
+MAX_TARGETS = 64
+
+
+def build_flows(route: np.ndarray,          # int32 [C, 5] node per stage
+                latency_ticks: np.ndarray,  # int64 [H, H]
+                ) -> dict:
+    """Precompute the static flow layout: flows sorted by (paced node,
+    circuit id), segment offsets per node, and each flow's onward hop
+    latency.  Pure numpy; runs once at model build."""
+    c, stages = route.shape
+    flow_circ = np.repeat(np.arange(c, dtype=np.int64), stages)
+    flow_stage = np.tile(np.arange(stages, dtype=np.int64), c)
+    flow_node = route[flow_circ, flow_stage].astype(np.int64)
+    # greedy allocation order: by paced node, then circuit id (a node never
+    # paces two stages of the same circuit: servers/relays/clients occupy
+    # disjoint node ranges and relay picks are distinct).  Onward latencies
+    # are >= 1 tick, so a cell can never traverse two stages in one tick —
+    # matching the engine, where a forwarded cell is a new arrival event.
+    order = np.lexsort((flow_stage, flow_circ, flow_node))
+    flow_circ, flow_stage, flow_node = (flow_circ[order], flow_stage[order],
+                                        flow_node[order])
+    # onward latency: stage s -> s+1 edge; last stage delivers (0)
+    nxt = np.where(flow_stage < stages - 1,
+                   route[flow_circ, np.minimum(flow_stage + 1, stages - 1)],
+                   route[flow_circ, flow_stage])
+    lat = latency_ticks[flow_node, nxt].astype(np.int64)
+    lat = np.where(flow_stage < stages - 1, np.maximum(lat, 1), 0)
+    # successor flow index (same circuit, next stage) in sorted space
+    flat_id = flow_circ * stages + flow_stage
+    pos_of = np.empty(c * stages, dtype=np.int64)
+    pos_of[flat_id] = np.arange(c * stages)
+    succ = np.where(flow_stage < stages - 1,
+                    pos_of[np.minimum(flat_id + 1, c * stages - 1)], -1)
+    # segment start offset of each flow's node group (for the cumsum trick)
+    seg_start_of_flow = np.zeros(c * stages, dtype=np.int64)
+    starts = np.flatnonzero(np.r_[True, flow_node[1:] != flow_node[:-1]])
+    seg_id = np.cumsum(np.r_[0, (flow_node[1:] != flow_node[:-1])
+                             .astype(np.int64)])
+    seg_start_of_flow = starts[seg_id]
+    return {
+        "flow_circ": flow_circ, "flow_stage": flow_stage,
+        "flow_node": flow_node, "flow_lat": lat, "flow_succ": succ,
+        "seg_start": seg_start_of_flow,
+    }
+
+
+# ---------------------------------------------------------------------------
+# Packed flush buffer: the dispatch's ENTIRE host-facing summary in one
+# int64 vector, so collect is ONE device->host transfer instead of four
+# (delivered + done_tick + node_sent + forwards).  Delta-compacted with a
+# device-side cursor: only chains that completed THIS window and only nodes
+# whose sent-byte counter moved occupy slots; the header carries the counts.
+#
+# Layout ([5 + 2C + 2H] int64, C = chains, H = nodes):
+#   [0] forwards this window
+#   [1] cumulative delivered cells summed over chain-exit flows
+#   [2] n_done   — chains newly completed this window
+#   [3] n_nodes  — nodes with a nonzero sent-byte delta this window
+#   [4] t_stop   — the absolute step the kernel actually advanced to (the
+#                  final target, or an earlier sub-window boundary when the
+#                  superwindow loop halted at a completion — see
+#                  _step_span_impl); carried in the flush so the host never
+#                  pays a second device read to learn where a multi-round
+#                  dispatch stopped
+#   [5        : 5+n_done]        newly-done chain indices (ascending)
+#   [5+C      : 5+C+n_done]      their completion steps
+#   [5+2C     : 5+2C+n_nodes]    touched node indices (ascending)
+#   [5+2C+H   : 5+2C+H+n_nodes]  their sent-byte deltas
+# ---------------------------------------------------------------------------
+
+FLUSH_HEADER = 5
+
+
+def flush_len(n_chains: int, n_nodes: int,
+              cap_chains: Optional[int] = None,
+              cap_nodes: Optional[int] = None) -> int:
+    """Packed flush buffer length.  With caps (the delta-compacted
+    flush) the chain/node sections carry at most ``cap_chains``/
+    ``cap_nodes`` entries — the header counts stay TRUE, so an
+    overflowing window is detectable (flush_overflowed) and re-read
+    through the full-length kernel."""
+    c = n_chains if cap_chains is None else min(cap_chains, n_chains)
+    h = n_nodes if cap_nodes is None else min(cap_nodes, n_nodes)
+    return FLUSH_HEADER + 2 * c + 2 * h
+
+
+def pack_flush_np(forwards, delivered_sum, t_stop, newly, done_last,
+                  sent_delta):
+    """Bit-identical host twin of _pack_flush_jnp."""
+    c = len(newly)
+    h = len(sent_delta)
+    buf = np.zeros(flush_len(c, h), np.int64)
+    buf[0] = forwards
+    buf[1] = delivered_sum
+    ci = np.flatnonzero(newly)
+    ni = np.flatnonzero(sent_delta)
+    buf[2] = len(ci)
+    buf[3] = len(ni)
+    buf[4] = t_stop
+    base = FLUSH_HEADER
+    buf[base:base + len(ci)] = ci
+    buf[base + c:base + c + len(ci)] = np.asarray(done_last)[ci]
+    buf[base + 2 * c:base + 2 * c + len(ni)] = ni
+    buf[base + 2 * c + h:base + 2 * c + h + len(ni)] = \
+        np.asarray(sent_delta)[ni]
+    return buf
+
+
+def flush_overflowed(buf: np.ndarray, cap_chains: int,
+                     cap_nodes: int) -> bool:
+    """True when a CAPPED flush buffer lost entries: the header carries the
+    true per-window counts, so overflow is one comparison — the caller then
+    re-runs the same inputs through the full-length kernel (legal on the
+    non-donating CPU path, where the inputs are still alive)."""
+    return int(buf[2]) > int(cap_chains) or int(buf[3]) > int(cap_nodes)
+
+
+def parse_flush(buf: np.ndarray, n_chains: int, n_nodes: int,
+                cap_chains: Optional[int] = None,
+                cap_nodes: Optional[int] = None):
+    """(forwards, delivered_sum, t_stop, done_chains, done_steps, node_idx,
+    node_delta) from a packed flush buffer — the ONE host-side reader.
+    Pass the caps the buffer was packed with (if any); callers must check
+    flush_overflowed FIRST — parsing an overflowed capped buffer would
+    silently drop completions/deltas."""
+    cc = n_chains if cap_chains is None else min(int(cap_chains), n_chains)
+    hh = n_nodes if cap_nodes is None else min(int(cap_nodes), n_nodes)
+    base = FLUSH_HEADER
+    n_done = min(int(buf[2]), cc)
+    n_touch = min(int(buf[3]), hh)
+    return (int(buf[0]), int(buf[1]), int(buf[4]),
+            buf[base:base + n_done],
+            buf[base + cc:base + cc + n_done],
+            buf[base + 2 * cc:base + 2 * cc + n_touch],
+            buf[base + 2 * cc + hh:
+                base + 2 * cc + hh + n_touch])
+
+
+def torcells_step_span_numpy(t0, queued, ring, tokens, delivered, target,
+                             done_tick, node_sent, inject, inject_target,
+                             targets, idle_ticks, flow_node, flow_lat,
+                             flow_succ, seg_start, refill, capacity,
+                             ring_len: int):
+    """Bit-identical host twin of _step_span_impl (same boundary/halt
+    rule) — the parity oracle and the --device-plane=numpy execution
+    mode's superwindow step."""
+    f = len(queued)
+    h = len(refill)
+    size = CELL_WIRE_BYTES
+    is_last = flow_succ < 0
+    queued = queued + inject
+    target = target + inject_target
+    tokens = np.minimum(capacity, tokens + refill * int(idle_ticks))
+    if int(idle_ticks) > 0:
+        ring = np.zeros_like(ring)   # idle jump: stale send history cleared
+    arr_lat = np.zeros(f, dtype=np.int64)
+    np.add.at(arr_lat, np.maximum(flow_succ, 0),
+              np.where(is_last, 0, flow_lat))
+    cols = np.arange(f)
+    bounds = [int(x) for x in np.asarray(targets)]
+    end = bounds[-1]
+    forwards = 0
+    t = int(t0)
+    idx = 0
+    span_done = False
+    while t < end:
+        arr = ring[(t - arr_lat) % ring_len, cols]
+        queued = queued + arr
+        tokens = np.minimum(capacity, tokens + refill)
+        cap_cells = tokens[flow_node] // size
+        csum = np.cumsum(queued)
+        seg_base = np.where(seg_start > 0, csum[np.maximum(seg_start - 1, 0)],
+                            0) * (seg_start > 0)
+        before = csum - queued - seg_base
+        served = np.clip(cap_cells - before, 0, queued)
+        queued = queued - served
+        spent = np.bincount(flow_node, weights=served * size,
+                            minlength=h).astype(np.int64)
+        tokens = tokens - spent
+        node_sent = node_sent + spent
+        delivered = delivered + np.where(is_last, served, 0)
+        newly_done = (is_last & (target > 0) & (done_tick < 0)
+                      & (delivered >= target))
+        done_tick = np.where(newly_done, t, done_tick)
+        v = np.zeros(f, dtype=np.int64)
+        np.add.at(v, np.maximum(flow_succ, 0), np.where(is_last, 0, served))
+        ring[t % ring_len] = v
+        forwards += int(served.sum())
+        span_done = span_done or bool(newly_done.any())
+        t += 1
+        if t == bounds[min(idx, len(bounds) - 1)]:
+            idx += 1
+            if span_done:
+                break
+            span_done = False
+    return (np.int64(t), queued, ring, tokens, delivered, target, done_tick,
+            node_sent, np.int64(forwards))
+
+
+def torcells_step_window_numpy_flush(t0, queued, ring, tokens, delivered,
+                                     target, done_tick, node_sent, inject,
+                                     inject_target, targets, idle_ticks,
+                                     flow_node, flow_lat, flow_succ,
+                                     seg_start, refill, capacity, last_flow,
+                                     ring_len: int):
+    """Host twin of torcells_step_window_flush (same 10-tuple contract,
+    same ``targets`` superwindow boundaries)."""
+    done_in_last = np.asarray(done_tick)[last_flow].copy()
+    node_sent_in = np.asarray(node_sent).copy()
+    out = torcells_step_span_numpy(t0, queued, ring, tokens, delivered,
+                                   target, done_tick, node_sent, inject,
+                                   inject_target, targets, idle_ticks,
+                                   flow_node, flow_lat, flow_succ,
+                                   seg_start, refill, capacity, ring_len)
+    done_last = out[6][last_flow]
+    newly = (done_last >= 0) & (done_in_last < 0)
+    flush = pack_flush_np(int(out[8]), int(out[4][last_flow].sum()),
+                          int(out[0]), newly, done_last,
+                          out[7] - node_sent_in)
+    return (*out, flush)
+
+
+# ---------------------------------------------------------------------------
+# Plain torch versions (the JAX functions' semantics, any device)
+# ---------------------------------------------------------------------------
+
+def arrival_latency(flow_lat: torch.Tensor,
+                    flow_succ: torch.Tensor) -> torch.Tensor:
+    """Successor-space arrival latency: ``arr_lat[j]`` is the onward
+    latency of j's predecessor, 0 where j has none (``flow_succ`` is
+    injective over chains, so the scatter-add is a set).  Static per flow
+    table: the plane computes it once."""
+    is_last = flow_succ < 0
+    return torch.zeros_like(flow_lat).index_add_(
+        0, flow_succ.clamp(min=0),
+        torch.where(is_last, torch.zeros_like(flow_lat), flow_lat))
+
+
+def torcells_step_span_torch(t0, queued, ring, tokens, delivered, target,
+                             done_tick, node_sent, inject, inject_target,
+                             targets, idle_ticks, flow_node, flow_lat,
+                             flow_succ, seg_start, refill, capacity,
+                             ring_len: int,
+                             arr_lat: Optional[torch.Tensor] = None):
+    """Plain torch version of the JAX package's ``_step_span_impl``: advance
+    from ``t0`` through the ascending boundaries ``targets`` (padded by
+    repeating the last), halting at the end of the first sub-window in
+    which a chain newly completed.  Returns the 9-tuple (t_stop, queued,
+    ring, tokens, delivered, target, done_tick, node_sent, forwards) with
+    t_stop and forwards as 0-d int64 tensors.  Pure: no input is changed.
+    The halt check reads one flag per tick on the host, which is the
+    plain version's privilege; the kernel keeps its loop on the card."""
+    dev = queued.device
+    f = queued.shape[0]
+    h = refill.shape[0]
+    size = CELL_WIRE_BYTES
+    is_last = flow_succ < 0
+    zero_f = torch.zeros(f, dtype=torch.int64, device=dev)
+    queued = queued + inject
+    target = target + inject_target
+    idle = int(idle_ticks)
+    tokens = torch.minimum(capacity, tokens + refill * idle)
+    ring = torch.zeros_like(ring) if idle > 0 else ring.clone()
+    if arr_lat is None:
+        arr_lat = arrival_latency(flow_lat, flow_succ)
+    cols = torch.arange(f, device=dev)
+    succ0 = flow_succ.clamp(min=0)
+    has_base = seg_start > 0
+    base_idx = (seg_start - 1).clamp(min=0)
+    bounds = [int(x) for x in torch.as_tensor(targets).reshape(-1).tolist()]
+    end = bounds[-1]
+    t = int(t0)
+    idx = 0
+    span_done = False
+    forwards = torch.zeros((), dtype=torch.int64, device=dev)
+    while t < end:
+        queued = queued + ring[torch.remainder(t - arr_lat, ring_len),
+                               cols].to(torch.int64)
+        tokens = torch.minimum(capacity, tokens + refill)
+        # floor division; the kernel's C++ '/' truncates, which agrees
+        # only while tokens stay non-negative — they always do
+        assert bool((tokens >= 0).all()), "torcells: negative tokens"
+        cap_cells = torch.div(tokens[flow_node], size, rounding_mode="floor")
+        csum = torch.cumsum(queued, 0)
+        before = csum - queued - torch.where(has_base, csum[base_idx],
+                                             zero_f)
+        served = torch.minimum((cap_cells - before).clamp(min=0), queued)
+        queued = queued - served
+        spent = torch.zeros(h, dtype=torch.int64, device=dev).index_add_(
+            0, flow_node, served * size)
+        tokens = tokens - spent
+        node_sent = node_sent + spent
+        delivered = delivered + torch.where(is_last, served, zero_f)
+        newly_done = (is_last & (target > 0) & (done_tick < 0)
+                      & (delivered >= target))
+        done_tick = torch.where(newly_done, torch.full_like(done_tick, t),
+                                done_tick)
+        v = torch.zeros(f, dtype=torch.int64, device=dev).index_add_(
+            0, succ0, torch.where(is_last, zero_f, served))
+        ring[t % ring_len] = v.to(ring.dtype)
+        forwards = forwards + served.sum()
+        span_done = span_done or bool(newly_done.any())
+        t += 1
+        if t == bounds[min(idx, len(bounds) - 1)]:
+            idx += 1
+            if span_done:
+                break
+            span_done = False
+    return (torch.tensor(t, dtype=torch.int64, device=dev), queued, ring,
+            tokens, delivered, target, done_tick, node_sent, forwards)
+
+
+def pack_flush_torch(forwards, delivered_sum, t_stop, newly: torch.Tensor,
+                     done_last: torch.Tensor, sent_delta: torch.Tensor,
+                     cap_chains: Optional[int] = None,
+                     cap_nodes: Optional[int] = None) -> torch.Tensor:
+    """Plain torch version of the JAX package's ``_pack_flush_jnp``: newly
+    bool [C], done_last int64 [C], sent_delta int64 [H] -> the packed
+    buffer (capped length with caps; the header keeps the TRUE counts).
+    The JAX scatters drop out-of-range slots; here the unselected lanes
+    are masked out, never scattered (torch's indexing would raise)."""
+    dev = sent_delta.device
+    c = newly.shape[0]
+    h = sent_delta.shape[0]
+    cc = c if cap_chains is None else min(int(cap_chains), c)
+    hh = h if cap_nodes is None else min(int(cap_nodes), h)
+    buf = torch.zeros(flush_len(c, h, cap_chains, cap_nodes),
+                      dtype=torch.int64, device=dev)
+    newly = newly.to(torch.bool)
+    touched = sent_delta != 0
+    pos_c = torch.cumsum(newly.to(torch.int64), 0) - 1
+    pos_h = torch.cumsum(touched.to(torch.int64), 0) - 1
+    sel_c = newly & (pos_c < cc)
+    sel_h = touched & (pos_h < hh)
+    buf[0] = torch.as_tensor(forwards, dtype=torch.int64, device=dev)
+    buf[1] = torch.as_tensor(delivered_sum, dtype=torch.int64, device=dev)
+    buf[2] = newly.sum()
+    buf[3] = touched.sum()
+    buf[4] = torch.as_tensor(t_stop, dtype=torch.int64, device=dev)
+    base = FLUSH_HEADER
+    pc = pos_c[sel_c]
+    ph = pos_h[sel_h]
+    buf[base + pc] = torch.arange(c, dtype=torch.int64, device=dev)[sel_c]
+    buf[base + cc + pc] = done_last[sel_c]
+    buf[base + 2 * cc + ph] = torch.arange(h, dtype=torch.int64,
+                                           device=dev)[sel_h]
+    buf[base + 2 * cc + hh + ph] = sent_delta[sel_h]
+    return buf
+
+
+def torcells_step_window_flush_reference(
+        t0, queued, ring, tokens, delivered, target, done_tick, node_sent,
+        inject, inject_target, targets, idle_ticks, flow_node, flow_lat,
+        flow_succ, seg_start, refill, capacity, last_flow, ring_len: int,
+        cap_chains: Optional[int] = None, cap_nodes: Optional[int] = None,
+        arr_lat: Optional[torch.Tensor] = None):
+    """Plain torch version of ``_step_span_flush_impl``: the 9-tuple of
+    :func:`torcells_step_span_torch` with the packed flush appended as
+    [9].  Runs on any device; the dispatch wrapper uses it on the CPU and
+    ``chip_smoke.py`` holds the kernels to it on the card."""
+    done_in_last = done_tick[last_flow]
+    node_sent_in = node_sent
+    out = torcells_step_span_torch(t0, queued, ring, tokens, delivered,
+                                   target, done_tick, node_sent, inject,
+                                   inject_target, targets, idle_ticks,
+                                   flow_node, flow_lat, flow_succ,
+                                   seg_start, refill, capacity, ring_len,
+                                   arr_lat=arr_lat)
+    done_last = out[6][last_flow]
+    newly = (done_last >= 0) & (done_in_last < 0)
+    flush = pack_flush_torch(out[8], out[4][last_flow].sum(), out[0], newly,
+                             done_last, out[7] - node_sent_in, cap_chains,
+                             cap_nodes)
+    return (*out, flush)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers (CUDA tensors launch the kernels; CPU tensors run the
+# plain versions)
+# ---------------------------------------------------------------------------
+
+class SpanTables:
+    """What the span kernel derives from a static flow table, computed and
+    checked once per table: ``arr_lat`` [F] and each node's flow range
+    ``node_off`` [H+1].  The kernel walks node n's flows
+    ``node_off[n]:node_off[n+1]`` serially, which is the JAX segmented
+    cumsum exactly when every ``seg_start`` segment is one node's whole
+    contiguous run of flows; it reads a flow's arrival from a ring row
+    other than the one the tick writes, which needs every arrival
+    latency in [1, ring_len).  A table breaking either is refused here."""
+
+    __slots__ = ("arr_lat", "node_off")
+
+    def __init__(self, flow_node, flow_lat, flow_succ, seg_start,
+                 n_nodes: int, ring_len: int):
+        fn = flow_node.cpu().numpy()
+        succ = flow_succ.cpu().numpy()
+        ss = seg_start.cpu().numpy()
+        f = len(fn)
+        if f and (np.any(np.diff(fn) < 0) or fn[0] < 0
+                  or fn[-1] >= n_nodes):
+            raise ValueError("torcells_span: flow_node must be sorted and "
+                             "in [0, H)")
+        off = np.searchsorted(fn, np.arange(n_nodes + 1), side="left")
+        if f and not np.array_equal(ss, off[fn]):
+            raise ValueError("torcells_span: every seg_start segment must "
+                             "be one node's whole run of flows")
+        arr_lat = arrival_latency(flow_lat.cpu(), flow_succ.cpu())
+        has_pred = np.zeros(f, dtype=bool)
+        has_pred[succ[succ >= 0]] = True
+        al = arr_lat.numpy()
+        if np.any(has_pred & ((al < 1) | (al >= ring_len))):
+            raise ValueError("torcells_span: every arrival latency must be "
+                             "in [1, ring_len)")
+        dev = flow_node.device
+        self.arr_lat = arr_lat.to(dev)
+        self.node_off = torch.as_tensor(off.astype(np.int64), device=dev)
+
+
+_VP = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_SPAN_ARGTYPES = ([_VP] * 19 + [_I64] * 6 + [ctypes.c_int, _VP, _VP])
+_PACK_ARGTYPES = [_VP] * 7 + [_I64] * 4 + [_VP]
+
+
+def _bound(name: str, symbol: str, argtypes):
+    """A C entry point of the kernel library ``name`` (csrc/<name>.cu),
+    built at first use and bound (the library is cached by _build.load)."""
+    from . import _build
+    fn = getattr(_build.load(name), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(name: str, t: torch.Tensor, dtype, shape, dev) -> None:
+    if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
+            or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: expected contiguous {dtype} {shape} on {dev}, got "
+            f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def torcells_span(t0, queued, ring, tokens, delivered, target, done_tick,
+                  node_sent, inject, inject_target, targets, idle_ticks,
+                  flow_node, flow_lat, flow_succ, seg_start, refill,
+                  capacity, last_flow, ring_len: int,
+                  tables: Optional[SpanTables] = None):
+    """Launch csrc/torcells_span.cu on CUDA tensors: the whole superwindow
+    in one cooperative launch on the current stream, no synchronisation.
+    The state tensors are updated in place.  Returns the 9-tuple of
+    :func:`torcells_step_span_torch` (t_stop and forwards as 0-d device
+    tensors) and the flush inputs (delivered_sum 0-d, newly bool [C],
+    done_last [C], sent_delta [H]).  Counts ``torcells_span.launches``."""
+    dev = queued.device
+    if dev.type != "cuda":
+        raise ValueError(f"torcells_span: needs CUDA tensors, got {dev}")
+    f = queued.shape[0]
+    h = refill.shape[0]
+    c = last_flow.shape[0]
+    i64 = torch.int64
+    for name, t, shape in (("queued", queued, (f,)),
+                           ("tokens", tokens, (h,)),
+                           ("delivered", delivered, (f,)),
+                           ("target", target, (f,)),
+                           ("done_tick", done_tick, (f,)),
+                           ("node_sent", node_sent, (h,)),
+                           ("inject", inject, (f,)),
+                           ("inject_target", inject_target, (f,)),
+                           ("flow_node", flow_node, (f,)),
+                           ("flow_lat", flow_lat, (f,)),
+                           ("flow_succ", flow_succ, (f,)),
+                           ("seg_start", seg_start, (f,)),
+                           ("refill", refill, (h,)),
+                           ("capacity", capacity, (h,)),
+                           ("last_flow", last_flow, (c,))):
+        _check(f"torcells_span: {name}", t, i64, shape, dev)
+    _check("torcells_span: ring", ring, RING_TORCH_DTYPE, (ring_len, f), dev)
+    tv = np.asarray(targets.cpu() if torch.is_tensor(targets) else targets,
+                    dtype=np.int64).reshape(-1)
+    if not 1 <= len(tv) <= MAX_TARGETS:
+        raise ValueError(f"torcells_span: 1 to {MAX_TARGETS} targets, got "
+                         f"{len(tv)}")
+    if tables is None:
+        tables = SpanTables(flow_node, flow_lat, flow_succ, seg_start, h,
+                            ring_len)
+    # [0] t_stop, [1] forwards, [2] delivered_sum, [3:6] the per-tick
+    # completion flags; the kernel initialises all six
+    scalars = torch.empty(6, dtype=i64, device=dev)
+    newly = torch.empty(c, dtype=torch.bool, device=dev)
+    done_last = torch.empty(c, dtype=i64, device=dev)
+    sent_delta = torch.empty(h, dtype=i64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    tv = np.ascontiguousarray(tv)
+    rc = _bound("torcells_span", "torcells_span_launch", _SPAN_ARGTYPES)(
+        queued.data_ptr(), ring.data_ptr(), tokens.data_ptr(),
+        delivered.data_ptr(), target.data_ptr(), done_tick.data_ptr(),
+        node_sent.data_ptr(), inject.data_ptr(), inject_target.data_ptr(),
+        tables.node_off.data_ptr(), tables.arr_lat.data_ptr(),
+        flow_succ.data_ptr(), refill.data_ptr(), capacity.data_ptr(),
+        last_flow.data_ptr(), scalars.data_ptr(), newly.data_ptr(),
+        done_last.data_ptr(), sent_delta.data_ptr(),
+        f, h, c, int(ring_len), int(t0), int(idle_ticks),
+        len(tv), tv.ctypes.data, stream)
+    if rc != 0:
+        raise RuntimeError(f"torcells_span kernel launch failed: CUDA error "
+                           f"{rc} (F={f}, H={h}, C={c}, L={ring_len})")
+    torcells_span.launches += 1
+    state = (scalars[0], queued, ring, tokens, delivered, target, done_tick,
+             node_sent, scalars[1])
+    return state, (scalars[2], newly, done_last, sent_delta)
+
+
+torcells_span.launches = 0
+
+
+def pack_flush(forwards, delivered_sum, t_stop, newly: torch.Tensor,
+               done_last: torch.Tensor, sent_delta: torch.Tensor,
+               cap_chains: Optional[int] = None,
+               cap_nodes: Optional[int] = None) -> torch.Tensor:
+    """The packed flush on ``sent_delta``'s device.  CPU tensors run
+    :func:`pack_flush_torch` (``forwards``, ``delivered_sum`` and
+    ``t_stop`` may be ints there); CUDA tensors launch csrc/pack_flush.cu
+    on the current stream (no synchronisation), reading those three from
+    0-d int64 tensors on the card, and count ``pack_flush.launches``."""
+    dev = sent_delta.device
+    if dev.type == "cpu":
+        return pack_flush_torch(forwards, delivered_sum, t_stop, newly,
+                                done_last, sent_delta, cap_chains, cap_nodes)
+    if dev.type != "cuda":
+        raise ValueError(f"pack_flush: unsupported device {dev}")
+    c = newly.shape[0]
+    h = sent_delta.shape[0]
+    _check("pack_flush: newly", newly, torch.bool, (c,), dev)
+    _check("pack_flush: done_last", done_last, torch.int64, (c,), dev)
+    _check("pack_flush: sent_delta", sent_delta, torch.int64, (h,), dev)
+    heads = (forwards, delivered_sum, t_stop)
+    for name, v in zip(("forwards", "delivered_sum", "t_stop"), heads):
+        if not torch.is_tensor(v):
+            raise ValueError(f"pack_flush: {name} must be a 0-d int64 "
+                             "tensor on the card")
+        _check(f"pack_flush: {name}", v, torch.int64, (), dev)
+    cc = c if cap_chains is None else min(int(cap_chains), c)
+    hh = h if cap_nodes is None else min(int(cap_nodes), h)
+    buf = torch.empty(flush_len(c, h, cap_chains, cap_nodes),
+                      dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _bound("pack_flush", "pack_flush_launch", _PACK_ARGTYPES)(
+        heads[0].data_ptr(), heads[1].data_ptr(), heads[2].data_ptr(),
+        newly.data_ptr(), done_last.data_ptr(), sent_delta.data_ptr(),
+        buf.data_ptr(), c, h, cc, hh, stream)
+    if rc != 0:
+        raise RuntimeError(f"pack_flush kernel launch failed: CUDA error "
+                           f"{rc} (C={c}, H={h})")
+    pack_flush.launches += 1
+    return buf
+
+
+pack_flush.launches = 0
+
+
+def torcells_step_window_flush(t0, queued, ring, tokens, delivered, target,
+                               done_tick, node_sent, inject, inject_target,
+                               targets, idle_ticks, flow_node, flow_lat,
+                               flow_succ, seg_start, refill, capacity,
+                               last_flow, ring_len: int,
+                               cap_chains: Optional[int] = None,
+                               cap_nodes: Optional[int] = None,
+                               tables: Optional[SpanTables] = None):
+    """Superwindow step + packed flush (the JAX package's
+    ``_step_span_flush_impl`` argument list and 10-tuple).  On CPU tensors
+    the plain versions; on CUDA tensors one launch of each kernel on the
+    current stream, with the carried state updated in place.  ``tables``
+    (a :class:`SpanTables` of this flow table) saves re-deriving it."""
+    if queued.device.type == "cpu":
+        return torcells_step_window_flush_reference(
+            t0, queued, ring, tokens, delivered, target, done_tick,
+            node_sent, inject, inject_target, targets, idle_ticks,
+            flow_node, flow_lat, flow_succ, seg_start, refill, capacity,
+            last_flow, ring_len, cap_chains, cap_nodes,
+            arr_lat=None if tables is None else tables.arr_lat)
+    state, (delivered_sum, newly, done_last, sent_delta) = torcells_span(
+        t0, queued, ring, tokens, delivered, target, done_tick, node_sent,
+        inject, inject_target, targets, idle_ticks, flow_node, flow_lat,
+        flow_succ, seg_start, refill, capacity, last_flow, ring_len,
+        tables=tables)
+    flush = pack_flush(state[8], delivered_sum, state[0], newly, done_last,
+                       sent_delta, cap_chains, cap_nodes)
+    return (*state, flush)
+
+
+def from_jax_state(state, flow_args, device) -> Tuple[tuple, tuple]:
+    """The JAX plane's carried state (its ``_state`` 8-tuple: t, queued,
+    ring, tokens, delivered, target, done_tick, node_sent) and static
+    tables (its ``_flow_args()`` 7-tuple: flow_node, flow_lat_steps,
+    flow_succ, seg_start, refill_step, capacity_step, last_flow), given as
+    numpy arrays, as the port's tensors on ``device``: t stays a Python
+    int, the ring is int32, everything else int64."""
+    t, *arrays = state
+    out = [int(t)]
+    for i, a in enumerate(arrays):
+        dtype = RING_DTYPE if i == 1 else np.int64
+        out.append(torch.as_tensor(
+            np.ascontiguousarray(np.asarray(a), dtype=dtype), device=device))
+    tables = tuple(torch.as_tensor(np.ascontiguousarray(
+        np.asarray(a), dtype=np.int64), device=device) for a in flow_args)
+    return tuple(out), tables

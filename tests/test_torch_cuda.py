@@ -1,12 +1,14 @@
-"""The packet-hop CUDA kernel on the card (marker ``cuda``).
+"""The port's CUDA kernels on the card (marker ``cuda``).
 
 A CUDA kernel has no CPU mode, so these tests skip where there is no GPU or
 no nvcc, with the reason; on a machine with an H100 they run with
-``python -m pytest tests/test_torch_cuda.py``.  They hold the kernel
-bit-exact against its plain torch version on the same card tensors, check
-the async launch path (pinned buffers, own stream, several chunks pending at
-once) and the wrapper's argument checks, and run the small tor config
-end to end on the card against the port's CPU run.
+``python -m pytest tests/test_torch_cuda.py``.  They hold each kernel
+(packet_hop, torcells_span, pack_flush) bit-exact against its plain torch
+version on the same card tensors, check the hop's async launch path (pinned
+buffers, own stream, several chunks pending at once) and the wrappers'
+argument checks, run the small tor configs (with and without device-mode
+clients) end to end on the card against the port's CPU run, and check that
+a failed launch of the device plane ends the run instead of demoting it.
 """
 
 import numpy as np
@@ -138,3 +140,85 @@ def test_small_tor_on_card_equals_cpu_run(dev, extra):
     cpu = run("cpu")
     assert card == cpu
     assert launched == card[3] > 0 and card[4] == 0
+
+
+@pytest.mark.parametrize("seed,idle,caps", [(0, 0, None), (1, 4, None),
+                                            (2, 0, (3, 5)), (3, 0, (50, 50))])
+def test_torcells_kernels_bit_exact_vs_plain_versions(dev, seed, idle, caps):
+    from shadow_tpu_torch.ops import torcells_device as td
+    from test_torch_torcells_cases import random_state, toy_instance
+    inst = toy_instance()
+    st = random_state(inst, seed)
+    targets = 500 + 2 * np.arange(1, 9)
+    zero = torch.zeros(inst["f"], dtype=torch.int64, device=dev)
+    kw = dict(ring_len=inst["ring_len"],
+              cap_chains=None if caps is None else caps[0],
+              cap_nodes=None if caps is None else caps[1])
+    s0, p0 = td.torcells_span.launches, td.pack_flush.launches
+    state, tables = td.from_jax_state(st, inst["tables"], dev)
+    got = td.torcells_step_window_flush(*state, zero, zero, targets, idle,
+                                        *tables, **kw)
+    assert (td.torcells_span.launches, td.pack_flush.launches) == \
+        (s0 + 1, p0 + 1)
+    state, tables = td.from_jax_state(st, inst["tables"], dev)
+    want = td.torcells_step_window_flush_reference(
+        *state, zero, zero, targets, idle, *tables, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.device == dev and a.dtype == b.dtype
+        assert torch.equal(a, b)
+
+
+def _run_device_tor(device):
+    """The small device-client tor config of test_torch_device_plane.py
+    through the port (no JAX here: the card's machine has none)."""
+    from shadow_tpu_torch.core import configuration
+    from shadow_tpu_torch.core.checkpoint import state_digest
+    from shadow_tpu_torch.core.controller import Controller
+    from shadow_tpu_torch.core.options import Options
+    from shadow_tpu_torch.tools.workloads import tor_network
+    cfg = configuration.parse_xml(tor_network(
+        8, n_clients=5, n_servers=2, stoptime=60, stream_spec="512:20200",
+        device_data=True))
+    ctl = Controller(Options(scheduler_policy="tpu", device=device, seed=3,
+                             workers=0, stop_time_sec=60,
+                             log_level="warning"), cfg)
+    assert ctl.run() == 0
+    e = ctl.engine
+    st = e.device_plane.stats()
+    return {"digest": state_digest(e), "events": e.events_executed,
+            "rounds": e.rounds_executed, "forwards": st["forwards"],
+            "completed": st["completed"], "dispatches": st["dispatches"],
+            "mode": st["mode"], "recoveries": st["recoveries"]}
+
+
+def test_device_clients_on_card_equal_cpu_run(dev):
+    from shadow_tpu_torch.ops import torcells_device as td
+    s0 = td.torcells_span.launches
+    card = _run_device_tor("cuda")
+    launched = td.torcells_span.launches - s0
+    cpu = _run_device_tor("cpu")
+    for key in ("digest", "events", "rounds", "forwards", "completed",
+                "dispatches"):
+        assert card[key] == cpu[key], key
+    assert launched == card["dispatches"] > 0
+    assert card["mode"] == "device" and card["recoveries"] == 0
+
+
+def test_a_failed_launch_ends_the_run(dev, monkeypatch):
+    """No fallback on the card: a launch that CUDA refuses raises out of
+    the run; the plane is not demoted to the numpy twin."""
+    from shadow_tpu_torch.ops import torcells_device as td
+
+    def refused(*_args):
+        return 2   # cudaErrorMemoryAllocation
+
+    real = td._bound
+
+    def bound(name, symbol, argtypes):
+        fn = real(name, symbol, argtypes)
+        return refused if name == "torcells_span" else fn
+    monkeypatch.setattr(td, "_bound", bound)
+    with pytest.raises(RuntimeError, match="torcells_span kernel launch "
+                       "failed: CUDA error 2"):
+        _run_device_tor("cuda")

@@ -35,7 +35,8 @@ VERBATIM = [
     "process/process",
     "apps/tor", "apps/echo", "apps/filetransfer", "apps/phold", "apps/tgen",
     "apps/blast", "apps/httpd", "apps/bitcoin",
-    "obs/__init__", "obs/metrics", "obs/trace",
+    "obs/__init__", "obs/metrics", "obs/trace", "obs/profiler",
+    "prof/__init__", "prof/autotune",
     "utils/pqueue", "utils/count_down_latch", "utils/pcap",
     "utils/byte_queue",
     "scale/memprof",

@@ -16,6 +16,7 @@ ECHO = ('<shadow stoptime="5"><plugin id="e" path="python:echo" />'
         'arguments="udp server 8000" /></host></shadow>')
 FLOW = ('<shadow stoptime="5"><host id="s" /><host id="c">'
         '<flow dest="s" down="1000" /></host></shadow>')
+DEVICE_TOR = tor_network(2, n_clients=1, n_servers=1, device_data=True)
 
 
 @pytest.mark.parametrize("xml,opts,item", [
@@ -25,8 +26,10 @@ FLOW = ('<shadow stoptime="5"><host id="s" /><host id="c">'
     (FLOW, {}, "A13"),
     (ECHO, {"scheduler_policy": "tpu", "tpu_devices": 2}, "B7"),
     (ECHO, {"scheduler_policy": "tpu", "tpu_shard_matrix": True}, "B7"),
-    (tor_network(2, n_clients=1, n_servers=1, device_data=True), {},
-     "A5-A6"),
+    (DEVICE_TOR, {"cost_model": "COSTMODEL.json"}, "A7"),
+    (ECHO, {"cost_model": "COSTMODEL.json"}, "A7"),
+    (DEVICE_TOR, {"tpu_devices": 2}, "A10"),
+    (DEVICE_TOR, {"scheduler_policy": "tpu", "tpu_devices": 2}, "A10"),
 ])
 def test_unported_paths_raise(xml, opts, item):
     cfg = configuration.parse_xml(xml)
