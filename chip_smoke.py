@@ -35,7 +35,28 @@ result line:
    ``pack_flush`` launch, every hop batch through ``packet_hop``; digest,
    events, rounds, completed flows and forwards equal to the JAX package's;
 8. the tor10k trace: that run under ``torch.profiler``, with one span and
-   one pack kernel in the trace per counted dispatch and the same digest.
+   one pack kernel in the trace per counted dispatch and the same digest;
+9. fleet kernels vs plain versions: ``torcells_span_batched`` +
+   ``pack_flush_batched`` at the sweep's shape class (W = 8: seven lanes
+   of the sweep's flow tables and a filler row), bit-exact on all ten
+   outputs against the plain batched version on the card, the numpy twin,
+   and a serial ``torcells_span`` + ``pack_flush`` launch on each lane's
+   real rows: a halt mid-span while others run on, an idle fold, an
+   injection on a boundary, lanes at different t_stops; and the batched
+   pack alone against its plain version;
+10. fleet times: one batched dispatch at W in {1, 2, 4, 8} against W
+    serial dispatches (CUDA events), the batched kernels alone at W = 8
+    (the pack by graph replay), each beside its bound;
+11. ``simfleet smoke`` on cuda: 8 fuzz-drawn scenarios run serially and
+    as 8 fleet lanes, digest-gated, with batched launches;
+12. the sweep: the genscen ``tor10k`` preset (10,000 hosts, every transfer
+    a processless device chain) with seeds 1..8, each run serially on cuda,
+    then as 8 lanes of one fleet: every lane equal to its serial run, lane
+    1 to the JAX package's, one batched span and one batched pack launch
+    per fleet launch, no serial kernel launched;
+13. the sweep's fleet under ``torch.profiler``: one batched span and one
+    batched pack kernel per fleet launch, the card's busy time and idle
+    share.
 
 ``--phases`` runs a subset (with no arguments it runs them all).  The line
 before the last is the card; the one before it the kernel table as JSON;
@@ -669,8 +690,10 @@ def tor1k_config():
     return cfg
 
 
-TRACED_KERNELS = {"hop": "packet_hop", "span": "torcells_span",
-                  "pack": "pack_flush"}
+TRACED_KERNELS = {"hop": "packet_hop_kernel", "span": "torcells_span_kernel",
+                  "pack": "pack_flush_kernel",
+                  "span_b": "torcells_span_batched_kernel",
+                  "pack_b": "pack_flush_batched_kernel"}
 
 
 def busy_intervals(prof) -> dict:
@@ -854,8 +877,628 @@ def check_tor10k(run: dict) -> None:
           "launches", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# The fleet plane: W simulations per launch (torcells_span_batched +
+# pack_flush_batched)
+# ---------------------------------------------------------------------------
+
+# The sweep: the genscen tor10k preset (10,000 hosts: 1,000 relays, 100
+# servers, 8,900 clients on seeded 3-hop circuits, every transfer a
+# processless 5-hop device chain, 8 stagger waves, stoptime 300) drawn with
+# seeds 1..8, one fleet lane each, Options(seed=s, host_table="on",
+# workers=0, heartbeat off) under --scheduler-policy=global.  EXPECTED_SWEEP1
+# is lane 1 (seed 1) as the JAX package runs it on the CPU (its device plane
+# on one XLA CPU device and its numpy twin agree); tests/test_torch_sweep.py
+# reproduces it (pytest -m slow) and holds the port's CPU run to it.
+SWEEP = {"preset": "tor10k", "seeds": (1, 2, 3, 4, 5, 6, 7, 8),
+         "stoptime": 300}
+EXPECTED_SWEEP1 = {
+    "digest": "024c44fd1dee9399095514c5727d1e26"
+              "452d12640f8f3f723ac39d5fdc98328f",
+    "events": 0,
+    "rounds": 11,
+    "completed": 8900,
+    "forwards": 4583500,
+    "dispatches": 9,
+}
+FLEET_WIDTHS = (1, 2, 4, 8)
+FLEET_TIME_TICKS = 64          # per timed dispatch: 8 boundaries, 8 apart
+
+
+def sweep_options(seed: int, device: str = "cuda"):
+    from shadow_tpu_torch.core.options import Options
+    return Options(scheduler_policy="global", device=device, workers=0,
+                   seed=seed, host_table="on", heartbeat_interval_sec=0,
+                   stop_time_sec=SWEEP["stoptime"], log_level="warning")
+
+
+def sweep_config(seed: int):
+    from shadow_tpu_torch.scale import genscen
+    return genscen.build(SWEEP["preset"], seed=seed,
+                         stoptime=SWEEP["stoptime"])
+
+
+def sweep_plane(seed: int):
+    """Lane ``seed``'s device plane as its run builds it (hosts booted as
+    table rows, flow table uploaded to the card), without running it."""
+    from shadow_tpu_torch.core.controller import Controller
+    from shadow_tpu_torch.core.logger import SimLogger, set_logger
+    from shadow_tpu_torch.parallel.device_plane import build_plane_from_engine
+    set_logger(SimLogger(level="warning"))
+    ctl = Controller(sweep_options(seed), sweep_config(seed))
+    ctl.setup()
+    plane = build_plane_from_engine(ctl.engine)
+    plane._flow_args()
+    return plane
+
+
+def plane_state_bytes(f: int, h: int, c: int, lr: int) -> dict:
+    """Bytes of a plane's carried state (queued, delivered, target,
+    done_tick per flow; tokens, node_sent per node; the int32 ring) and of
+    its static tables (flow_node, flow_lat, flow_succ, seg_start, arr_lat
+    per flow; refill, capacity, node_off per node; last_flow per chain)."""
+    return {"state": 8 * (4 * f + 2 * h) + 4 * lr * f,
+            "tables": 8 * (5 * f + 3 * h + c)}
+
+
+def fleet_lanes(planes):
+    """A cuda FleetPlane with one lane attached to each plane; all share
+    one shape class (printed with each lane's real shapes)."""
+    from shadow_tpu_torch.fleet.plane import FleetPlane
+    fp = FleetPlane(device="cuda")
+    lanes = []
+    for seed, pl in zip(SWEEP["seeds"], planes):
+        ln = fp.lane()
+        ln.attach_plane(pl)
+        lanes.append(ln)
+        sb = plane_state_bytes(pl.n_flows, pl.n_nodes, pl.n_chains,
+                               pl.ring_len)
+        print(f"lane seed {seed}: F {pl.n_flows} C {pl.n_chains} H "
+              f"{pl.n_nodes} ring_len {pl.ring_len} (state {sb['state']} "
+              f"B, tables {sb['tables']} B)", flush=True)
+    if len({ln.cls.key for ln in lanes}) != 1:
+        fail(f"the sweep's lanes fall in several shape classes: "
+             f"{sorted({ln.cls.key for ln in lanes})}")
+    cls = lanes[0].cls
+    sb = plane_state_bytes(cls.f2, cls.h2, cls.c2, cls.ring_len)
+    print(f"class: F2 {cls.f2} H2 {cls.h2} C2 {cls.c2} P2 {cls.p2} "
+          f"ring_len {cls.ring_len} (padded state {sb['state']} B, tables "
+          f"{sb['tables']} B per lane)", flush=True)
+    return fp, lanes
+
+
+def _pad_lane_state(cls, plane, st, inj, inj_t, tv, idle):
+    """A real-shaped numpy dispatch padded into the class as the fleet
+    stages it: zero rows, done_tick -1, targets repeating the last."""
+    import numpy as np
+    from shadow_tpu_torch.fleet.plane import _pad_vec
+    from shadow_tpu_torch.ops.torcells_device import RING_DTYPE
+    f, f2, h2 = plane.n_flows, cls.f2, cls.h2
+    ring = np.zeros((cls.ring_len, f2), RING_DTYPE)
+    ring[:, :f] = st[2]
+    return (np.int64(st[0]), _pad_vec(st[1], f2), ring, _pad_vec(st[3], h2),
+            _pad_vec(st[4], f2), _pad_vec(st[5], f2),
+            _pad_vec(st[6], f2, -1), _pad_vec(st[7], h2), _pad_vec(inj, f2),
+            _pad_vec(inj_t, f2), _pad_vec(tv, cls.p2, int(tv[-1])),
+            np.int64(idle))
+
+
+def fleet_batch(fp, lanes, rows, width: int):
+    """Numpy [W]-leading operands (state, injections, targets, idle) of
+    ``rows`` (one real dispatch per lane) topped up with filler rows, and
+    the stacked tables on the card: (numpy 12-tuple, tables, span tables)."""
+    import numpy as np
+    import torch
+    from shadow_tpu_torch.ops.torcells_device import BatchedSpanTables
+    cls = lanes[0].cls
+    padded = [_pad_lane_state(cls, ln_plane, *row)
+              for (ln_plane, row) in rows]
+    z = np.zeros(cls.f2, np.int64)
+    from shadow_tpu_torch.ops.torcells_device import RING_DTYPE
+    filler = (np.int64(0), z, np.zeros((cls.ring_len, cls.f2), RING_DTYPE),
+              np.zeros(cls.h2, np.int64), z, z, np.full(cls.f2, -1, np.int64),
+              np.zeros(cls.h2, np.int64), z, z, np.zeros(cls.p2, np.int64),
+              np.int64(0))
+    padded += [filler] * (width - len(padded))
+    batch = tuple(np.stack([np.asarray(r[i]) for r in padded])
+                  for i in range(12))
+    # each lane's seven flow tables and derived node_off, arr_lat
+    trows = [ln._tables for ln in lanes[:len(rows)]]
+    trows += [cls.filler_tables(fp.device)] * (width - len(rows))
+    stacked = [torch.stack([r[i] for r in trows]) for i in range(9)]
+    return batch, tuple(stacked[:7]), BatchedSpanTables(stacked[7],
+                                                        stacked[8])
+
+
+def _on_card(batch):
+    """The numpy operands as fresh card tensors (t0, idle stay numpy)."""
+    import torch
+    dev = torch.device("cuda", 0)
+    return (batch[0], *(torch.as_tensor(a.copy(), device=dev)
+                        for a in batch[1:10]),
+            batch[10], batch[11])
+
+
+def fleet_cases(planes):
+    """One dispatch per lane for the check: seven real lanes at different
+    t0s and spans — a halt mid-span, an idle fold (ring cleared), an
+    injection on the base boundary, and four lanes with no target that run
+    their whole (different) spans — the eighth row the filler."""
+    import numpy as np
+    rng = np.random.default_rng(30)
+    rows = []
+    for w, pl in enumerate(planes[:7]):
+        f = pl.n_flows
+        zero = np.zeros(f, dtype=np.int64)
+        t0 = 3000 + 1000 * w
+        st = busy_state(pl, rng, t0)
+        inj, inj_t, idle = zero, zero, 0
+        tv = t0 + 4 * np.arange(1, 9)
+        if w == 1:
+            tv, idle = np.array([t0 + 12] * 8), 9
+        elif w == 2:
+            inj = np.zeros(f, dtype=np.int64)
+            inj_t = np.zeros(f, dtype=np.int64)
+            k = min(2000, pl.n_chains // 2)
+            chains = rng.choice(pl.n_chains, size=k, replace=False)
+            cells = rng.integers(1, 300, size=k)
+            inj[pl.first_flow[chains]] = cells
+            inj_t[pl.last_flow[chains]] = cells
+            tv = t0 + 6 * np.arange(1, 9)
+        elif w >= 3:
+            st = list(st)
+            st[5] = np.zeros(f, dtype=np.int64)     # no target: no halt
+            tv = t0 + (2 + w) * np.arange(1, 9)
+        rows.append((pl, (st, inj, inj_t, tv, idle)))
+    return rows
+
+
+def check_fleet_kernels(planes, fp, lanes) -> dict:
+    """The batched span + pack kernels at the sweep's class (W = 8) against
+    the plain batched version on the card, the numpy twin, and W serial
+    torcells_span + pack_flush launches on each lane's real rows: bit-exact
+    on all ten outputs.  Then the batched pack alone against its plain
+    version.  Returns the largest absolute differences (0)."""
+    import numpy as np
+    import torch
+    from shadow_tpu_torch.fleet.plane import _repack_flush
+    from shadow_tpu_torch.ops import torcells_device as td
+    names = ("t_stop", "queued", "ring", "tokens", "delivered", "target",
+             "done_tick", "node_sent", "forwards", "flush")
+    rows = fleet_cases(planes)
+    batch, tables, span = fleet_batch(fp, lanes, rows, 8)
+    cls = lanes[0].cls
+    lr = cls.ring_len
+    s0 = td.torcells_span_batched.launches
+    p0 = td.pack_flush_batched.launches
+    kern = td.torcells_step_span_flush_batched(
+        *_on_card(batch)[:10], batch[10], batch[11], *tables, ring_len=lr,
+        tables=span)
+    torch.cuda.synchronize()
+    if (td.torcells_span_batched.launches, td.pack_flush_batched.launches) \
+            != (s0 + 1, p0 + 1):
+        fail("the batched span/pack wrappers did not count one launch each")
+    kern = [o.cpu().numpy() for o in kern]
+    plain = td.torcells_step_span_flush_batched_torch(
+        *_on_card(batch)[:10], batch[10], batch[11], *tables, ring_len=lr)
+    torch.cuda.synchronize()
+    plain = [o.cpu().numpy() for o in plain]
+    twin = td.torcells_step_span_batched_numpy(
+        *(np.array(a) for a in batch), *(t.cpu().numpy() for t in tables),
+        ring_len=lr)
+    max_err = 0
+    for i, name in enumerate(names):
+        for label, other in (("plain version", plain), ("numpy twin", twin)):
+            a, b = kern[i], np.asarray(other[i])
+            if a.shape != b.shape or a.dtype != b.dtype:
+                fail(f"fleet kernels: {name} shape/dtype {a.shape} "
+                     f"{a.dtype} != {label} {b.shape} {b.dtype}")
+            err = int(np.abs(a.astype(np.int64) - b.astype(np.int64)).max())
+            max_err = max(max_err, err)
+            if err:
+                fail(f"fleet kernels: {name} differs from the {label} "
+                     f"(max |diff| {err})")
+    # W serial launches on each lane's real-shaped rows
+    for w, (pl, (st, inj, inj_t, tv, idle)) in enumerate(rows):
+        f, h, c = pl.n_flows, pl.n_nodes, pl.n_chains
+        state = pl._to_device(st)
+        ser = td.torcells_step_window_flush(
+            *state, torch.as_tensor(inj, device="cuda"),
+            torch.as_tensor(inj_t, device="cuda"), tv, idle,
+            *pl._flow_args(), ring_len=lr, tables=pl._span_tables)
+        torch.cuda.synchronize()
+        ser = [o.cpu().numpy() for o in ser]
+        got = (kern[0][w], kern[1][w][:f], kern[2][w][:, :f],
+               kern[3][w][:h], kern[4][w][:f], kern[5][w][:f],
+               kern[6][w][:f], kern[7][w][:h], kern[8][w],
+               _repack_flush(kern[9][w], cls.c2, cls.h2, c, h))
+        for i, name in enumerate(names):
+            if not np.array_equal(got[i], ser[i]):
+                fail(f"fleet kernels: lane {w} {name} differs from its "
+                     "serial torcells_span + pack_flush launch")
+        print(f"lane {w}: t0 {st[0]} -> t_stop {int(kern[0][w])} of "
+              f"{int(tv[-1])}, idle {idle}, forwards {int(kern[8][w])}, "
+              f"chains done {int(kern[9][w][2])}, nodes touched "
+              f"{int(kern[9][w][3])}: batched == plain == twin == serial "
+              "launch, bit-exact", flush=True)
+    if not int(kern[0][0]) < int(rows[0][1][3][-1]):
+        fail("the halt lane did not halt before its last boundary")
+    if int(kern[0][7]) != 0 or int(kern[8][7]) != 0:
+        fail("the filler row moved")
+    if len({int(x) for x in kern[0][:7]}) < 5:
+        fail("the lanes did not stop at different ticks")
+    # the batched pack alone, on the span kernel's outputs
+    st_t = _on_card(batch)
+    args = td.lane_args(batch[0], batch[11], batch[10], "cuda")
+    t_stop, done_in, sent_in = td.torcells_span_batched(
+        *st_t[1:10], tables[2], tables[3], tables[4], tables[5], tables[6],
+        args, lr, span)
+    pk = td.pack_flush_batched(t_stop, done_in, st_t[6], tables[6], st_t[4],
+                               sent_in, st_t[7])
+    pp = td.pack_flush_batched_torch(t_stop, done_in, st_t[6], tables[6],
+                                     st_t[4], sent_in, st_t[7])
+    torch.cuda.synchronize()
+    pack_err = max(int((pk[0] - pp[0]).abs().max()),
+                   int((pk[1] - pp[1]).abs().max()))
+    if pack_err:
+        fail(f"pack_flush_batched differs from its plain version "
+             f"(max |diff| {pack_err})")
+    print(f"fleet kernels at W = 8 (7 lanes + 1 filler): max_abs_err "
+          f"{max_err}; pack_flush_batched alone == plain, max_abs_err "
+          f"{pack_err}", flush=True)
+    return {"span_b_err": max_err, "pack_b_err": pack_err}
+
+
+def time_fleet(planes, fp, lanes) -> dict:
+    """One batched dispatch (span + pack) at W lanes against W serial
+    dispatches (torcells_span + pack_flush each), FLEET_TIME_TICKS ticks
+    with no completion, by CUDA events with the state restored between
+    launches outside the timed interval; the span and pack kernels alone at
+    W = 8; the plain versions on the same inputs; each beside its bound (W
+    lanes' work by span_bound's and pack_bound's rules)."""
+    import numpy as np
+    import torch
+    from shadow_tpu_torch.ops import torcells_device as td
+    rng = np.random.default_rng(31)
+    cls = lanes[0].cls
+    lr = cls.ring_len
+    rows = []
+    for w, pl in enumerate(planes):
+        st = list(busy_state(pl, rng, 20000))
+        st[5] = np.zeros(pl.n_flows, dtype=np.int64)
+        zero = np.zeros(pl.n_flows, dtype=np.int64)
+        rows.append((pl, (st, zero, zero,
+                          20000 + (FLEET_TIME_TICKS // 8)
+                          * np.arange(1, 9), 0)))
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+
+    def timed(run, restore, reps=5):
+        total = 0.0
+        for r in range(reps + 1):
+            restore()
+            torch.cuda._sleep(2_000_000)
+            e0.record()
+            run()
+            e1.record()
+            torch.cuda.synchronize()
+            if r:
+                total += e0.elapsed_time(e1)
+        return total / reps
+
+    out = {}
+    for width in FLEET_WIDTHS:
+        batch, tables, span = fleet_batch(fp, lanes, rows[:width], width)
+        saved = _on_card(batch)
+        live = [a.clone() for a in saved[1:10]]
+        args = td.lane_args(batch[0], batch[11], batch[10], "cuda")
+
+        def restore():
+            for a, b in zip(live, saved[1:10]):
+                a.copy_(b)
+
+        def batched():
+            td.torcells_step_span_flush_batched(
+                batch[0], *live, batch[10], batch[11], *tables, ring_len=lr,
+                tables=span)
+        ms = timed(batched, restore)
+        # W serial dispatches on the lanes' real rows
+        ser_saved = [(pl, pl._to_device(r[0])) for pl, r in rows[:width]]
+        ser_live = [(pl, [a.clone() for a in s[1:]]) for pl, s in ser_saved]
+        zeros = [torch.zeros(pl.n_flows, dtype=torch.int64, device="cuda")
+                 for pl, _ in rows[:width]]
+        tv = rows[0][1][3]
+
+        def ser_restore():
+            for (_, lv), (_, sv) in zip(ser_live, ser_saved):
+                for a, b in zip(lv, sv[1:]):
+                    a.copy_(b)
+
+        def serial():
+            for (pl, lv), z in zip(ser_live, zeros):
+                td.torcells_step_window_flush(
+                    20000, *lv, z, z, tv, 0, *pl._flow_args(),
+                    ring_len=lr, tables=pl._span_tables)
+        serial_ms = timed(serial, ser_restore)
+        row = {"W": width, "ticks": FLEET_TIME_TICKS, "batched_ms": ms,
+               "serial_ms": serial_ms}
+        sb = [span_bound(pl, FLEET_TIME_TICKS) for pl, _ in rows[:width]]
+        pb = [pack_bound(pl.n_chains, pl.n_nodes) for pl, _ in rows[:width]]
+        nbytes = sum(b["bytes"] for b in sb) + sum(b["bytes"] for b in pb)
+        ops = sum(b["ops"] for b in sb) + sum(b["ops"] for b in pb)
+        t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / ALU32_OPS_PER_S * 1e3
+        row.update(bytes=nbytes, ops=ops, bound_ms=max(t_b, t_o),
+                   bound_by="bytes" if t_b >= t_o else "operations")
+        if width == max(FLEET_WIDTHS):
+            # the span kernel alone, and the plain versions, at W = 8
+            def span_only():
+                td.torcells_span_batched(*live, tables[2], tables[3],
+                                         tables[4], tables[5], tables[6],
+                                         args, lr, span)
+            row["span_ms"] = timed(span_only, restore)
+            restore()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            td.torcells_step_span_flush_batched_torch(
+                batch[0], *live, batch[10], batch[11], *tables,
+                ring_len=lr)
+            torch.cuda.synchronize()
+            row["plain_ms"] = (time.perf_counter() - t0) * 1e3
+            row["span_bound"] = sum(b["bytes"] for b in sb), \
+                sum(b["ops"] for b in sb)
+            restore()
+            t_stop, done_in, sent_in = td.torcells_span_batched(
+                *live, tables[2], tables[3], tables[4], tables[5], tables[6],
+                args, lr, span)
+            pargs = (t_stop, done_in, live[5], tables[6], live[3], sent_in,
+                     live[6])
+            row["pack_ms"] = graph_ms(lambda: td.pack_flush_batched(*pargs))
+            e0.record()
+            for _ in range(5):
+                td.pack_flush_batched_torch(*pargs)
+            e1.record()
+            torch.cuda.synchronize()
+            row["pack_plain_ms"] = e0.elapsed_time(e1) / 5
+            pbytes = sum(b["bytes"] for b in pb)
+            pops = sum(b["ops"] for b in pb)
+            row["pack_bound_ms"] = max(pbytes / HBM_BYTES_PER_S,
+                                       pops / ALU32_OPS_PER_S) * 1e3
+            row["pack_bound_by"] = ("bytes" if pbytes / HBM_BYTES_PER_S
+                                    >= pops / ALU32_OPS_PER_S
+                                    else "operations")
+            sbytes, sops = row["span_bound"]
+            row["span_bound_ms"] = max(sbytes / HBM_BYTES_PER_S,
+                                       sops / ALU32_OPS_PER_S) * 1e3
+            row["span_bound_by"] = ("bytes" if sbytes / HBM_BYTES_PER_S
+                                    >= sops / ALU32_OPS_PER_S
+                                    else "operations")
+        out[width] = row
+        print(f"W={width}: one batched dispatch {ms:.4f} ms, {width} serial "
+              f"dispatches {serial_ms:.4f} ms ({FLEET_TIME_TICKS} ticks); "
+              f"bound {row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}, "
+              f"{nbytes} B, {ops} ops)", flush=True)
+    top = out[max(FLEET_WIDTHS)]
+    print(f"W=8: span kernel alone {top['span_ms']:.4f} ms (bound "
+          f"{top['span_bound_ms'] * 1e3:.3f} us, {top['span_bound_by']}); "
+          f"pack kernel alone {top['pack_ms'] * 1e3:.3f} us by graph replay "
+          f"(bound {top['pack_bound_ms'] * 1e3:.3f} us); plain batched step "
+          f"{top['plain_ms']:.1f} ms, plain pack "
+          f"{top['pack_plain_ms'] * 1e3:.1f} us", flush=True)
+    return out
+
+
+def graph_ms(fn, per_graph: int = 20, reps: int = 10) -> float:
+    """A launch's device time by graph replay: ``per_graph`` calls captured
+    in a CUDA graph, replayed ``reps`` times, CUDA events around."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_graph):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        graph.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / (reps * per_graph)
+
+
+def _reset_counts():
+    from shadow_tpu_torch.ops import round_step as rs
+    from shadow_tpu_torch.ops import torcells_device as td
+    for fn in (td.torcells_span, td.pack_flush, td.torcells_span_batched,
+               td.pack_flush_batched, rs.packet_hop_packed):
+        fn.launches = 0
+
+
+def _counts() -> dict:
+    from shadow_tpu_torch.ops import round_step as rs
+    from shadow_tpu_torch.ops import torcells_device as td
+    return {"span": td.torcells_span.launches,
+            "pack": td.pack_flush.launches,
+            "span_b": td.torcells_span_batched.launches,
+            "pack_b": td.pack_flush_batched.launches,
+            "hop": rs.packet_hop_packed.launches}
+
+
+def run_fleet_smoke() -> dict:
+    """``simfleet smoke`` on cuda: 8 fuzz-drawn scenarios, serial and as 8
+    fleet lanes, digest-gated; the counts set to 0 before it."""
+    import tempfile
+    from shadow_tpu_torch.fleet import cli as fleet_cli
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        _reset_counts()
+        t0 = time.perf_counter()
+        rc = fleet_cli.main(["smoke", "--seeds", "8", "--lanes", "8",
+                             "--out", path])
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        with open(path) as f:
+            summary = json.load(f)
+    finally:
+        os.unlink(path)
+    sm = summary["simfleet"]
+    out = {"rc": rc, "pass": summary["pass"], "wall_s": wall,
+           "digest_match": sm["digest_match"],
+           "families": sm["families"], "launches": sm["fleet.launches"],
+           "lane_dispatches": sm["fleet.lane_dispatches"],
+           "compiles": sm["fleet.compiles"],
+           "serial_wall_s": sm["serial_wall_sec"],
+           "fleet_wall_s": sm["fleet_wall_sec"], "counts": counts}
+    print(json.dumps(out), flush=True)
+    if rc != 0 or not summary["pass"] or not sm["digest_match"]:
+        fail(f"simfleet smoke on cuda: rc {rc}, pass {summary['pass']}, "
+             f"digest_match {sm['digest_match']}")
+    if not out["launches"] > 0:
+        fail("simfleet smoke: no batched launches")
+    if not counts["span_b"] == counts["pack_b"] == out["launches"]:
+        fail(f"simfleet smoke: {out['launches']} fleet launches but "
+             f"{counts['span_b']} batched span and {counts['pack_b']} "
+             "batched pack launches")
+    return out
+
+
+def run_sweep_lane(seed: int, lane=None) -> dict:
+    """One lane of the sweep through Controller.run on cuda (as a fleet
+    lane when ``lane`` is given, with a thread-local logger)."""
+    from shadow_tpu_torch.core.checkpoint import state_digest
+    from shadow_tpu_torch.core.controller import Controller
+    from shadow_tpu_torch.core.logger import (SimLogger, set_logger,
+                                              set_thread_logger)
+    if lane is None:
+        set_logger(SimLogger(level="warning"))
+    else:
+        set_thread_logger(SimLogger(level="warning"))
+    try:
+        opts = sweep_options(seed)
+        if lane is not None:
+            opts._fleet_lane = lane
+        ctl = Controller(opts, sweep_config(seed))
+        t0 = time.perf_counter()
+        rc = ctl.run()
+        wall = time.perf_counter() - t0
+        eng = ctl.engine
+        plane = eng.device_plane
+        st = plane.stats()
+        return {"seed": seed, "rc": rc, "hosts": eng.total_host_count(),
+                "digest": state_digest(eng), "events": eng.events_executed,
+                "rounds": eng.rounds_executed, "completed": st["completed"],
+                "circuits": st["circuits"], "forwards": st["forwards"],
+                "dispatches": st["dispatches"], "steps": st["steps"],
+                "mode": st["mode"], "recoveries": st["recoveries"],
+                "materialized": eng.host_table.materialized_count,
+                "flows": plane.n_flows, "chains": plane.n_chains,
+                "nodes": plane.n_nodes, "ring_len": plane.ring_len,
+                "wall_s": wall}
+    finally:
+        if lane is not None:
+            set_thread_logger(None)
+
+
+SWEEP_KEYS = ("digest", "events", "rounds", "completed", "forwards")
+
+
+def run_sweep(serial: dict, trace: bool = False) -> dict:
+    """The 8 lanes as one fleet on cuda (FleetDriver, 8 lanes, one
+    FleetPlane), with the counts set to 0 just before and read just after;
+    under torch.profiler when ``trace``.  Each lane must equal its serial
+    cuda run; lane 1 the JAX package's constants."""
+    import contextlib
+    import torch
+    from shadow_tpu_torch.fleet import FleetDriver, FleetPlane
+    driver = FleetDriver(lanes=len(SWEEP["seeds"]),
+                         plane=FleetPlane(device="cuda"))
+    jobs = [lambda lane, s=s: run_sweep_lane(s, lane) for s in SWEEP["seeds"]]
+    prof = (torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA]) if trace
+        else contextlib.nullcontext())
+    _reset_counts()
+    with prof:
+        t0 = time.perf_counter()
+        lanes = driver.run(jobs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = _counts()
+    stats = driver.plane.metrics()
+    out = {"wall_s": wall, "counts": counts,
+           "lanes": [{k: ln[k] for k in ("seed", "rc", "digest", "events",
+                                         "rounds", "completed", "forwards",
+                                         "dispatches", "steps")}
+                     for ln in lanes], **stats}
+    if trace:
+        out.update(busy_intervals(prof))
+        out["idle_share"] = 1.0 - out["busy_s"] / wall
+    print(json.dumps(out), flush=True)
+    for ln in lanes:
+        ref = serial[ln["seed"]]
+        if ln["rc"] != 0:
+            fail(f"sweep lane {ln['seed']}: exit code {ln['rc']}")
+        for key in SWEEP_KEYS + ("dispatches",):
+            if ln[key] != ref[key]:
+                fail(f"sweep lane {ln['seed']} {key}: fleet {ln[key]} != "
+                     f"serial {ref[key]}")
+    lane1 = next(ln for ln in lanes if ln["seed"] == 1)
+    for key, want in EXPECTED_SWEEP1.items():
+        if lane1[key] != want:
+            fail(f"sweep lane 1 {key}: {lane1[key]} != JAX run's {want}")
+    if not counts["span_b"] == counts["pack_b"] == stats["fleet.launches"] \
+            > 0:
+        fail(f"sweep: {stats['fleet.launches']} fleet launches but "
+             f"{counts['span_b']} batched span and {counts['pack_b']} "
+             "batched pack launches")
+    if counts["span"] or counts["pack"] or counts["hop"]:
+        fail(f"sweep: serial kernels launched on the fleet path: {counts}")
+    if trace:
+        for key in ("span_b", "pack_b"):
+            if out[f"{key}_kernels"] != stats["fleet.launches"]:
+                fail(f"the sweep's trace holds {out[key + '_kernels']} "
+                     f"{key} kernels for {stats['fleet.launches']} fleet "
+                     "launches")
+    print(f"sweep parity: {len(lanes)} lanes == their serial cuda runs "
+          f"(digest, events, rounds, completed, forwards, dispatches); "
+          f"lane 1 == JAX; {stats['fleet.launches']} fleet launches = "
+          f"{counts['span_b']} batched span + {counts['pack_b']} batched "
+          f"pack; {stats['fleet.lane_dispatches']} lane dispatches, "
+          f"occupancy {stats['fleet.lane_occupancy']}; wall {wall:.3f} s",
+          flush=True)
+    return out
+
+
+def run_sweep_serial() -> dict:
+    out = {}
+    for s in SWEEP["seeds"]:
+        _reset_counts()
+        r = run_sweep_lane(s)
+        r["counts"] = _counts()
+        out[s] = r
+        print(json.dumps(r), flush=True)
+        if r["rc"] != 0 or r["completed"] != r["circuits"] \
+                or r["materialized"] != 0 or r["recoveries"] != 0:
+            fail(f"sweep serial seed {s}: rc {r['rc']}, completed "
+                 f"{r['completed']} of {r['circuits']}, materialized "
+                 f"{r['materialized']}, recoveries {r['recoveries']}")
+        if not r["counts"]["span"] == r["counts"]["pack"] \
+                == r["dispatches"]:
+            fail(f"sweep serial seed {s}: {r['dispatches']} dispatches, "
+                 f"counts {r['counts']}")
+    return out
+
+
 PHASES = ("build", "kernels", "times", "tor1k", "tor1k-trace", "tor10k",
-          "tor10k-trace")
+          "tor10k-trace", "fleet-kernels", "fleet-times", "fleet-smoke",
+          "sweep", "sweep-trace")
 
 
 def main(argv=None) -> int:
@@ -958,6 +1601,39 @@ def main(argv=None) -> int:
               f"{tr['span_kernel_s']:.6f} s; pack {tr['pack_kernels']} x "
               f"{tr['pack_kernel_mean_us']:.2f} us; hop {tr['hop_kernels']}"
               f" x {tr['hop_kernel_mean_us']:.3f} us", flush=True)
+    fp = lanes = None
+    if want & {"fleet-kernels", "fleet-times"}:
+        t0 = time.perf_counter()
+        planes = [sweep_plane(s) for s in SWEEP["seeds"]]
+        fp, lanes = fleet_lanes(planes)
+        print(f"sweep lanes' planes built in {time.perf_counter() - t0:.1f} "
+              "s", flush=True)
+    if "fleet-kernels" in want:
+        phase("fleet kernels vs plain versions (the sweep's class, W = 8)")
+        res.update(check_fleet_kernels(planes, fp, lanes))
+    if "fleet-times" in want:
+        phase("fleet times: one batched dispatch vs W serial dispatches")
+        res["fleet_times"] = time_fleet(planes, fp, lanes)
+    planes = fp = lanes = None
+    if "fleet-smoke" in want:
+        phase("simfleet smoke on cuda: 8 fuzz seeds as 8 lanes")
+        res["fleet_smoke"] = run_fleet_smoke()
+    if want & {"sweep", "sweep-trace"}:
+        phase("sweep: genscen tor10k seeds 1..8, each run serially on cuda")
+        res["sweep_serial"] = run_sweep_serial()
+    if "sweep" in want:
+        phase("sweep: the 8 seeds as one fleet of 8 lanes on cuda")
+        res["sweep"] = run_sweep(res["sweep_serial"])
+    if "sweep-trace" in want:
+        phase("trace: the sweep's fleet under torch.profiler")
+        tr = res["sweep_traced"] = run_sweep(res["sweep_serial"], trace=True)
+        print(f"sweep traced: wall {tr['wall_s']:.3f} s, card busy "
+              f"{tr['busy_s']:.6f} s, idle share {tr['idle_share']:.6f}, "
+              f"copies {tr['copy_s']:.6f} s; batched span "
+              f"{tr['span_b_kernels']} x {tr['span_b_kernel_mean_us']:.1f} "
+              f"us = {tr['span_b_kernel_s']:.6f} s; batched pack "
+              f"{tr['pack_b_kernels']} x {tr['pack_b_kernel_mean_us']:.2f} "
+              "us", flush=True)
 
     def get(*keys):
         cur = res
@@ -970,6 +1646,7 @@ def main(argv=None) -> int:
     hop = get("hop_times", MAIN_B) or {}
     span = get("torcells_times", "span") or {}
     pack = get("torcells_times", "pack") or {}
+    fleet = get("fleet_times", max(FLEET_WIDTHS)) or {}
     kernels = [
         {"name": "packet_hop", "route": "cuda",
          "source": "shadow_tpu_torch/ops/csrc/packet_hop.cu",
@@ -991,7 +1668,23 @@ def main(argv=None) -> int:
          "launches": get("tor10k", "pack_launches"),
          "max_abs_err": res.get("pack_err"), "ms": pack.get("ms"),
          "plain_ms": pack.get("plain_ms"), "bound_ms": pack.get("bound_ms"),
-         "bound_by": pack.get("bound_by"), "library_ms": None}]
+         "bound_by": pack.get("bound_by"), "library_ms": None},
+        {"name": "torcells_span_batched", "route": "cuda",
+         "source": "shadow_tpu_torch/ops/csrc/torcells_span_batched.cu",
+         "replaces": "shadow_tpu/ops/torcells_device.py:586",
+         "launches": get("sweep", "counts", "span_b"),
+         "max_abs_err": res.get("span_b_err"), "ms": fleet.get("span_ms"),
+         "plain_ms": fleet.get("plain_ms"),
+         "bound_ms": fleet.get("span_bound_ms"),
+         "bound_by": fleet.get("span_bound_by"), "library_ms": None},
+        {"name": "pack_flush_batched", "route": "cuda",
+         "source": "shadow_tpu_torch/ops/csrc/pack_flush.cu",
+         "replaces": "shadow_tpu/ops/torcells_device.py:586",
+         "launches": get("sweep", "counts", "pack_b"),
+         "max_abs_err": res.get("pack_b_err"), "ms": fleet.get("pack_ms"),
+         "plain_ms": fleet.get("pack_plain_ms"),
+         "bound_ms": fleet.get("pack_bound_ms"),
+         "bound_by": fleet.get("pack_bound_by"), "library_ms": None}]
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     if args.out:

@@ -5,8 +5,9 @@ Engine, computes the lookahead, runs the simulation, reports results
 (master_run :400 flow).
 
 The port runs the Python data plane with the ``tpu`` policy's hop on the
-device, and device-mode clients' bulk cells on the device traffic plane
-(parallel/device_plane.py).  Paths it has not ported refuse with
+device, device-mode clients' bulk cells and the HostTable tier's
+processless flows on the device traffic plane (parallel/device_plane.py),
+and boots hosts as HostTable rows under ``--host-table`` (scale/).  Paths it has not ported refuse with
 NotImplementedError naming their ROADMAP item, before any simulation work;
 they never quietly take another path (:func:`refuse_unported`).
 """
@@ -30,9 +31,12 @@ from .options import Options
 
 
 def has_device_clients(config: Configuration) -> bool:
-    """Whether any process is a device-mode client (its bulk transfer
-    runs on the device traffic plane)."""
+    """Whether any traffic runs on the device traffic plane: a device-mode
+    client process (its bulk transfer) or a processless ``<flow>`` (the
+    HostTable tier's generated scenarios)."""
     for hc in config.hosts:
+        if hc.flows:
+            return True
         for pc in hc.processes:
             args = tokenize_arguments(pc.arguments)
             if args and args[0] == "client" and "device" in args:
@@ -67,11 +71,6 @@ def refuse_unported(options: Options, config: Configuration) -> None:
         get_logger().message(
             "engine", "--dataplane=auto: the port runs the Python data "
             "plane (the C plane is ROADMAP A14)")
-    if getattr(options, "host_table", "auto") == "on" \
-            or any(hc.flows for hc in config.hosts):
-        raise NotImplementedError(
-            "the HostTable tier (--host-table=on, processless flows) is "
-            "not ported yet: ROADMAP A13")
     if options.scheduler_policy == "tpu" and (
             getattr(options, "tpu_devices", 0) > 1
             or getattr(options, "tpu_shard_matrix", False)):
@@ -160,6 +159,18 @@ class Controller:
             log_level=hc.log_level,
             heartbeat_log_level=hc.heartbeat_log_level)
 
+    def _table_mode(self) -> bool:
+        """Whether hosts boot as HostTable rows (scale/hosttable.py):
+        --host-table on/off, or auto = on exactly when the config carries
+        processless device flows (generated scale scenarios) — existing
+        workloads keep the eager path."""
+        mode = getattr(self.options, "host_table", "auto")
+        if mode == "on":
+            return True
+        if mode == "off":
+            return False
+        return any(hc.flows for hc in self.config.hosts)
+
     def setup(self) -> None:
         """Register programs and hosts (master.c:279-392)."""
         opts = self.options
@@ -178,10 +189,16 @@ class Controller:
         from ..scale.memprof import BootProfile
         profile = BootProfile()
         profile.snapshot()
-        self._setup_eager_hosts()
+        if self._table_mode():
+            self._setup_table_hosts()
+        else:
+            self._setup_eager_hosts()
         profile.commit(self.engine.total_host_count())
         profile.install(self.engine)
         self.topology.finalize()
+        # (the JAX package attaches its C data plane here; the port runs
+        # the Python data plane only — --dataplane=native is refused,
+        # ROADMAP A14 — so there is nothing to attach)
 
     def _setup_eager_hosts(self) -> None:
         """The classic boot path: one Host object per quantity expansion."""
@@ -203,6 +220,23 @@ class Controller:
                 self.engine.add_host(host, requested_ip)
                 for pc in hc.processes:
                     self._add_process(host, pc)
+
+    def _setup_table_hosts(self) -> None:
+        """Scale boot path: every host becomes a HostTable row; Host
+        objects materialize lazily (scale/hosttable.py)."""
+        from ..scale.hosttable import HostTable
+        total = sum(hc.quantity for hc in self.config.hosts)
+        table = HostTable(self.engine, total)
+        self.engine.host_table = table
+        for hc in self.config.hosts:
+            table.reserve_group(hc, self._host_params_kwargs(hc),
+                                self._add_process)
+            grp = table.groups[-1]
+            for pc in hc.processes:
+                path = self._program_paths.get(pc.plugin, pc.plugin)
+                table.add_group_process_spec(
+                    grp, pc, path, tokenize_arguments(pc.arguments))
+        table.freeze()
 
     def _add_process(self, host: Host, pc) -> None:
         path = self._program_paths.get(pc.plugin, pc.plugin)

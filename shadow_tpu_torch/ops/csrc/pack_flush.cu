@@ -132,3 +132,119 @@ extern "C" int pack_flush_launch(const void* forwards,
       c, h, cc, hh);
   return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// pack_flush_batched: the fleet plane's packed flushes, one block per lane.
+//
+// Replaces the flush half of the JAX package's
+// shadow_tpu/ops/torcells_device.py:586 torcells_step_span_flush_batched
+// (_pack_flush_jnp :337 under jax.vmap), after the span half
+// csrc/torcells_span_batched.cu.  The plain torch version is
+// shadow_tpu_torch/ops/torcells_device.py:pack_flush_batched_torch.
+//
+// Block w packs lane w, in the serial layout above with no caps, into row
+// w of buf [W, 5 + 2C + 2H], from the lane's state after the span and its
+// entry snapshots (done_in = done_tick[last_flow], sent_in = node_sent):
+//   newly[c]   = done_tick[last_flow[c]] >= 0 && done_in[c] < 0
+//   delta[n]   = node_sent[n] - sent_in[n]
+//   [0] forwards = sum(delta) / CELL (each served cell added one CELL to
+//       its node's node_sent), [1] sum of delivered[last_flow], [2] n_done,
+//   [3] n_touched, [4] t_stop[w]
+// and forwards[w] = [0].  The chunked block scans are the serial kernel's;
+// the two sums come from the same scan's totals, so every number is exact
+// and in a fixed order.  Latency-bound like the serial pack: W blocks of
+// one SM each walk C and H in chunks of 1024.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+constexpr int64_t PACK_CELL_WIRE_BYTES = 512 + 66;  // core/defs.py
+
+__global__ void __launch_bounds__(THREADS)
+pack_flush_batched_kernel(const int64_t* t_stop, const int64_t* done_in,
+                          const int64_t* done_tick, const int64_t* last_flow,
+                          const int64_t* delivered, const int64_t* sent_in,
+                          const int64_t* node_sent, int64_t* buf,
+                          int64_t* forwards, int64_t f, int64_t c,
+                          int64_t h) {
+  const int64_t w = blockIdx.x;
+  const int64_t len = HEADER + 2 * c + 2 * h;
+  int64_t* out = buf + w * len;
+  const int64_t* dt = done_tick + w * f;
+  const int64_t* dv = delivered + w * f;
+  const int64_t* lf = last_flow + w * c;
+  const int64_t* din = done_in + w * c;
+  const int64_t* sin = sent_in + w * h;
+  const int64_t* sent = node_sent + w * h;
+  for (int64_t i = HEADER + threadIdx.x; i < len; i += THREADS) out[i] = 0;
+  __syncthreads();
+
+  int64_t carry = 0, dsum = 0;
+  for (int64_t base = 0; base < c; base += THREADS) {
+    const int64_t i = base + threadIdx.x;
+    int64_t sel = 0, dl = -1, dv_i = 0;
+    if (i < c) {
+      const int64_t k = lf[i];
+      dl = dt[k];
+      dv_i = dv[k];
+      sel = (dl >= 0 && din[i] < 0) ? 1 : 0;
+    }
+    int64_t chunk, chunk_dv;
+    const int64_t pos = carry + block_exclusive_scan(sel, &chunk);
+    block_exclusive_scan(dv_i, &chunk_dv);
+    if (sel) {
+      out[HEADER + pos] = i;
+      out[HEADER + c + pos] = dl;
+    }
+    carry += chunk;
+    dsum += chunk_dv;
+  }
+  const int64_t n_done = carry;
+
+  carry = 0;
+  int64_t bytes = 0;
+  for (int64_t base = 0; base < h; base += THREADS) {
+    const int64_t i = base + threadIdx.x;
+    const int64_t d = i < h ? sent[i] - sin[i] : 0;
+    const int64_t sel = d != 0 ? 1 : 0;
+    int64_t chunk, chunk_d;
+    const int64_t pos = carry + block_exclusive_scan(sel, &chunk);
+    block_exclusive_scan(d, &chunk_d);
+    if (sel) {
+      out[HEADER + 2 * c + pos] = i;
+      out[HEADER + 2 * c + h + pos] = d;
+    }
+    carry += chunk;
+    bytes += chunk_d;
+  }
+
+  if (threadIdx.x == 0) {
+    const int64_t fwd = bytes / PACK_CELL_WIRE_BYTES;
+    out[0] = fwd;
+    out[1] = dsum;
+    out[2] = n_done;
+    out[3] = carry;
+    out[4] = t_stop[w];
+    forwards[w] = fwd;
+  }
+}
+
+}  // namespace
+
+// Launch on `stream` (a cudaStream_t passed as a pointer), one block per
+// lane.  Does not synchronise.  Returns cudaGetLastError(): 0 when the
+// launch was accepted.
+extern "C" int pack_flush_batched_launch(
+    const void* t_stop, const void* done_in, const void* done_tick,
+    const void* last_flow, const void* delivered, const void* sent_in,
+    const void* node_sent, void* buf, void* forwards, int64_t w, int64_t f,
+    int64_t c, int64_t h, void* stream) {
+  if (w < 1 || w > 65535) return (int)cudaErrorInvalidValue;
+  pack_flush_batched_kernel<<<(unsigned)w, THREADS, 0,
+                              (cudaStream_t)stream>>>(
+      (const int64_t*)t_stop, (const int64_t*)done_in,
+      (const int64_t*)done_tick, (const int64_t*)last_flow,
+      (const int64_t*)delivered, (const int64_t*)sent_in,
+      (const int64_t*)node_sent, (int64_t*)buf, (int64_t*)forwards, f, c, h);
+  return (int)cudaGetLastError();
+}

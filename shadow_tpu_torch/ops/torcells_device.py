@@ -22,7 +22,15 @@ Three layers, each testable on its own:
   ``csrc/pack_flush.cu``) on a CUDA tensor and counts the launch in its
   ``.launches``;
 * the dispatch :func:`torcells_step_window_flush`: on CPU tensors the plain
-  versions, on CUDA tensors the two kernels, nothing else.
+  versions, on CUDA tensors the two kernels, nothing else;
+* the fleet plane's batched step :func:`torcells_step_span_flush_batched`
+  (the JAX package's vmapped ``torcells_step_span_flush_batched``): W
+  independent lanes in one launch each of ``csrc/torcells_span_batched.cu``
+  and the batched entry of ``csrc/pack_flush.cu`` (wrappers
+  :func:`torcells_span_batched`, :func:`pack_flush_batched`), with its
+  plain version :func:`torcells_step_span_flush_batched_torch` (a loop of
+  :func:`torcells_step_window_flush_reference` over lanes) and the numpy
+  twin :func:`torcells_step_span_batched_numpy`.
 
 On the card the carried state is updated in place (the JAX package donated
 it instead); callers treat the state they pass as consumed.
@@ -275,6 +283,25 @@ def torcells_step_window_numpy_flush(t0, queued, ring, tokens, delivered,
     return (*out, flush)
 
 
+def torcells_step_span_batched_numpy(t0, queued, ring, tokens, delivered,
+                                     target, done_tick, node_sent, inject,
+                                     inject_target, targets, idle_ticks,
+                                     flow_node, flow_lat, flow_succ,
+                                     seg_start, refill, capacity, last_flow,
+                                     ring_len: int):
+    """Host twin of torcells_step_span_flush_batched: lanes looped through
+    the unbatched numpy flush twin and re-stacked (same 10-tuple/leading-
+    axis contract) — the parity oracle for the vmapped program."""
+    outs = [torcells_step_window_numpy_flush(
+        np.int64(t0[w]), queued[w], ring[w], tokens[w], delivered[w],
+        target[w], done_tick[w], node_sent[w], inject[w], inject_target[w],
+        targets[w], int(idle_ticks[w]), flow_node[w], flow_lat[w],
+        flow_succ[w], seg_start[w], refill[w], capacity[w], last_flow[w],
+        ring_len) for w in range(len(t0))]
+    return tuple(np.stack([np.asarray(o[i]) for o in outs])
+                 for i in range(10))
+
+
 # ---------------------------------------------------------------------------
 # Plain torch versions (the JAX functions' semantics, any device)
 # ---------------------------------------------------------------------------
@@ -427,6 +454,29 @@ def torcells_step_window_flush_reference(
                              done_last, out[7] - node_sent_in, cap_chains,
                              cap_nodes)
     return (*out, flush)
+
+
+def torcells_step_span_flush_batched_torch(
+        t0, queued, ring, tokens, delivered, target, done_tick, node_sent,
+        inject, inject_target, targets, idle_ticks, flow_node, flow_lat,
+        flow_succ, seg_start, refill, capacity, last_flow, ring_len: int):
+    """Plain torch version of the JAX package's vmapped
+    ``torcells_step_span_flush_batched``: every operand carries a leading
+    lane axis [W] (``t0`` and ``idle_ticks`` [W], ``targets`` [W, P]),
+    each lane runs :func:`torcells_step_window_flush_reference` on its own
+    row, and the ten outputs come back stacked ([W] t_stop and forwards,
+    [W, ...] state, [W, flush_len] flushes).  A lane whose span has ended
+    is frozen at its halt state, as under vmap; a lane whose targets equal
+    its t0 never starts.  Pure: no input is changed."""
+    outs = []
+    for w in range(queued.shape[0]):
+        outs.append(torcells_step_window_flush_reference(
+            int(t0[w]), queued[w], ring[w], tokens[w], delivered[w],
+            target[w], done_tick[w], node_sent[w], inject[w],
+            inject_target[w], targets[w], int(idle_ticks[w]), flow_node[w],
+            flow_lat[w], flow_succ[w], seg_start[w], refill[w], capacity[w],
+            last_flow[w], ring_len))
+    return tuple(torch.stack([o[i] for o in outs]) for i in range(10))
 
 
 # ---------------------------------------------------------------------------
@@ -661,3 +711,271 @@ def from_jax_state(state, flow_args, device) -> Tuple[tuple, tuple]:
     tables = tuple(torch.as_tensor(np.ascontiguousarray(
         np.asarray(a), dtype=np.int64), device=device) for a in flow_args)
     return tuple(out), tables
+
+
+# ---------------------------------------------------------------------------
+# The fleet plane's batched step: W independent lanes per launch
+# ---------------------------------------------------------------------------
+
+# the batched span kernel keeps each lane's loop control in shared memory
+# (csrc/torcells_span_batched.cu MAX_LANES)
+MAX_LANES = 256
+
+
+def lane_span_tables(flow_node, flow_lat, flow_succ, seg_start,
+                     n_nodes: int, ring_len: int) -> Tuple[np.ndarray,
+                                                           np.ndarray]:
+    """What the batched span kernel derives from one lane's flow table
+    (numpy, [F] each): ``node_off`` [H+1] (node n paces flows
+    ``node_off[n]:node_off[n+1]``) and ``arr_lat`` [F].  The kernel walks a
+    node's flows serially and restarts the greedy allocation at every flow
+    that opens a ``seg_start`` segment, which is the JAX segmented cumsum
+    exactly when flow_node is sorted and every segment is a contiguous run
+    of one node's flows; it needs every arrival latency in [1, ring_len).
+    A table breaking either is refused here.  (Unlike the serial kernel's
+    :class:`SpanTables`, a node's run may hold several segments: the fleet's
+    padding flows are each their own segment.)"""
+    fn = np.asarray(flow_node, dtype=np.int64)
+    ss = np.asarray(seg_start, dtype=np.int64)
+    succ = np.asarray(flow_succ, dtype=np.int64)
+    lat = np.asarray(flow_lat, dtype=np.int64)
+    f = len(fn)
+    if f and (np.any(np.diff(fn) < 0) or fn[0] < 0 or fn[-1] >= n_nodes):
+        raise ValueError("torcells_span_batched: flow_node must be sorted "
+                         "and in [0, H)")
+    if f:
+        cont = (ss == np.r_[-1, ss[:-1]]) & (fn == np.r_[-1, fn[:-1]])
+        if not np.all((ss == np.arange(f)) | cont):
+            raise ValueError("torcells_span_batched: every seg_start "
+                             "segment must be a contiguous run of one "
+                             "node's flows")
+    is_last = succ < 0
+    arr_lat = np.zeros(f, dtype=np.int64)
+    np.add.at(arr_lat, np.maximum(succ, 0), np.where(is_last, 0, lat))
+    has_pred = np.zeros(f, dtype=bool)
+    has_pred[succ[succ >= 0]] = True
+    if np.any(has_pred & ((arr_lat < 1) | (arr_lat >= ring_len))):
+        raise ValueError("torcells_span_batched: every arrival latency "
+                         "must be in [1, ring_len)")
+    node_off = np.searchsorted(fn, np.arange(n_nodes + 1),
+                               side="left").astype(np.int64)
+    return node_off, arr_lat
+
+
+class BatchedSpanTables:
+    """The batched span kernel's derived tables, [W]-leading tensors on one
+    device: ``node_off`` [W, H+1] and ``arr_lat`` [W, F].  Built from the
+    [W]-leading flow tables (:meth:`build`), or stacked from per-lane
+    :func:`lane_span_tables` results, which the fleet plane computes once
+    per lane."""
+
+    __slots__ = ("node_off", "arr_lat")
+
+    def __init__(self, node_off: torch.Tensor, arr_lat: torch.Tensor):
+        self.node_off = node_off
+        self.arr_lat = arr_lat
+
+    @classmethod
+    def build(cls, flow_node, flow_lat, flow_succ, seg_start, n_nodes: int,
+              ring_len: int) -> "BatchedSpanTables":
+        host = [t.cpu().numpy() for t in (flow_node, flow_lat, flow_succ,
+                                           seg_start)]
+        lanes = [lane_span_tables(*(a[w] for a in host), n_nodes, ring_len)
+                 for w in range(flow_node.shape[0])]
+        dev = flow_node.device
+        return cls(torch.as_tensor(np.stack([n for n, _ in lanes]),
+                                   device=dev),
+                   torch.as_tensor(np.stack([a for _, a in lanes]),
+                                   device=dev))
+
+
+_SPAN_B_ARGTYPES = [_VP] * 21 + [_I64] * 6 + [_VP]
+_PACK_B_ARGTYPES = [_VP] * 9 + [_I64] * 4 + [_VP]
+
+
+def lane_args(t0, idle_ticks, targets, device) -> torch.Tensor:
+    """The per-lane launch words as one [W, 2 + P] int64 tensor on
+    ``device``: t0, idle ticks, then the lane's P superwindow boundaries."""
+    t0 = np.asarray(t0.cpu() if torch.is_tensor(t0) else t0,
+                    dtype=np.int64).reshape(-1, 1)
+    idle = np.asarray(idle_ticks.cpu() if torch.is_tensor(idle_ticks)
+                      else idle_ticks, dtype=np.int64).reshape(-1, 1)
+    tv = np.asarray(targets.cpu() if torch.is_tensor(targets) else targets,
+                    dtype=np.int64)
+    if tv.ndim != 2 or tv.shape[0] != t0.shape[0] or tv.shape[1] < 1:
+        raise ValueError(f"torcells_span_batched: targets must be [W, P], "
+                         f"got {tv.shape} for W = {t0.shape[0]}")
+    return torch.as_tensor(np.ascontiguousarray(
+        np.concatenate([t0, idle, tv], axis=1)), device=device)
+
+
+def torcells_span_batched(queued, ring, tokens, delivered, target,
+                          done_tick, node_sent, inject, inject_target,
+                          flow_succ, seg_start, refill, capacity, last_flow,
+                          args: torch.Tensor, ring_len: int,
+                          tables: BatchedSpanTables):
+    """Launch csrc/torcells_span_batched.cu on [W]-leading CUDA tensors: every
+    lane's superwindow in one cooperative launch on the current stream, no
+    synchronisation; ``args`` is :func:`lane_args`.  The state tensors are
+    updated in place.  Returns ``t_stop`` [W] and the pack's inputs:
+    ``done_in`` [W, C] (done_tick[last_flow] at entry) and ``sent_in``
+    [W, H] (node_sent at entry).  Counts ``torcells_span_batched.launches``."""
+    dev = queued.device
+    if dev.type != "cuda":
+        raise ValueError(f"torcells_span_batched: needs CUDA tensors, got "
+                         f"{dev}")
+    w, f = queued.shape
+    h = refill.shape[1]
+    c = last_flow.shape[1]
+    p = args.shape[1] - 2
+    if not 1 <= w <= MAX_LANES or p < 1:
+        raise ValueError(f"torcells_span_batched: 1 to {MAX_LANES} lanes "
+                         f"and at least one target, got W={w}, P={p}")
+    i64 = torch.int64
+    for name, t, shape in (("queued", queued, (w, f)),
+                           ("tokens", tokens, (w, h)),
+                           ("delivered", delivered, (w, f)),
+                           ("target", target, (w, f)),
+                           ("done_tick", done_tick, (w, f)),
+                           ("node_sent", node_sent, (w, h)),
+                           ("inject", inject, (w, f)),
+                           ("inject_target", inject_target, (w, f)),
+                           ("flow_succ", flow_succ, (w, f)),
+                           ("seg_start", seg_start, (w, f)),
+                           ("refill", refill, (w, h)),
+                           ("capacity", capacity, (w, h)),
+                           ("last_flow", last_flow, (w, c)),
+                           ("args", args, (w, p + 2)),
+                           ("node_off", tables.node_off, (w, h + 1)),
+                           ("arr_lat", tables.arr_lat, (w, f))):
+        _check(f"torcells_span_batched: {name}", t, i64, shape, dev)
+    _check("torcells_span_batched: ring", ring, RING_TORCH_DTYPE,
+           (w, ring_len, f), dev)
+    t_stop = torch.empty(w, dtype=i64, device=dev)
+    flags = torch.empty(3 * w, dtype=i64, device=dev)
+    done_in = torch.empty((w, c), dtype=i64, device=dev)
+    sent_in = torch.empty((w, h), dtype=i64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _bound("torcells_span_batched", "torcells_span_batched_launch",
+                _SPAN_B_ARGTYPES)(
+        queued.data_ptr(), ring.data_ptr(), tokens.data_ptr(),
+        delivered.data_ptr(), target.data_ptr(), done_tick.data_ptr(),
+        node_sent.data_ptr(), inject.data_ptr(), inject_target.data_ptr(),
+        tables.node_off.data_ptr(), tables.arr_lat.data_ptr(),
+        seg_start.data_ptr(), flow_succ.data_ptr(), refill.data_ptr(),
+        capacity.data_ptr(), last_flow.data_ptr(), args.data_ptr(),
+        t_stop.data_ptr(), flags.data_ptr(), done_in.data_ptr(),
+        sent_in.data_ptr(), w, f, h, c, int(ring_len), p, stream)
+    if rc != 0:
+        raise RuntimeError(f"torcells_span_batched kernel launch failed: "
+                           f"CUDA error {rc} (W={w}, F={f}, H={h}, C={c}, "
+                           f"L={ring_len})")
+    torcells_span_batched.launches += 1
+    return t_stop, done_in, sent_in
+
+
+torcells_span_batched.launches = 0
+
+
+def pack_flush_batched_torch(t_stop, done_in, done_tick, last_flow,
+                             delivered, sent_in, node_sent):
+    """Plain torch version of the batched pack: per lane, the newly-done
+    chains (done_tick[last_flow] set now, not at entry), the nodes whose
+    node_sent moved, the delivered sum over chain exits and the forwards
+    (every served cell added CELL_WIRE_BYTES to its node's node_sent, so
+    forwards = the sent bytes' total / CELL_WIRE_BYTES), packed as
+    :func:`pack_flush_torch` packs one lane.  Returns (flush [W, len],
+    forwards [W])."""
+    bufs, fwds = [], []
+    for w in range(done_in.shape[0]):
+        done_last = done_tick[w][last_flow[w]]
+        newly = (done_last >= 0) & (done_in[w] < 0)
+        delta = node_sent[w] - sent_in[w]
+        fwd = torch.div(delta.sum(), CELL_WIRE_BYTES, rounding_mode="floor")
+        bufs.append(pack_flush_torch(fwd, delivered[w][last_flow[w]].sum(),
+                                     t_stop[w], newly, done_last, delta))
+        fwds.append(fwd)
+    return torch.stack(bufs), torch.stack(fwds)
+
+
+def pack_flush_batched(t_stop, done_in, done_tick, last_flow, delivered,
+                       sent_in, node_sent):
+    """The batched pack on CUDA tensors: one launch of the batched entry of
+    csrc/pack_flush.cu (one block per lane) on the current stream, no
+    synchronisation.  Returns (flush [W, 5 + 2C + 2H], forwards [W]), as
+    :func:`pack_flush_batched_torch` does; CPU tensors run that.  Counts
+    ``pack_flush_batched.launches``."""
+    dev = node_sent.device
+    if dev.type == "cpu":
+        return pack_flush_batched_torch(t_stop, done_in, done_tick,
+                                        last_flow, delivered, sent_in,
+                                        node_sent)
+    if dev.type != "cuda":
+        raise ValueError(f"pack_flush_batched: unsupported device {dev}")
+    w, f = done_tick.shape
+    c = last_flow.shape[1]
+    h = node_sent.shape[1]
+    i64 = torch.int64
+    for name, t, shape in (("t_stop", t_stop, (w,)),
+                           ("done_in", done_in, (w, c)),
+                           ("done_tick", done_tick, (w, f)),
+                           ("last_flow", last_flow, (w, c)),
+                           ("delivered", delivered, (w, f)),
+                           ("sent_in", sent_in, (w, h)),
+                           ("node_sent", node_sent, (w, h))):
+        _check(f"pack_flush_batched: {name}", t, i64, shape, dev)
+    buf = torch.empty((w, flush_len(c, h)), dtype=i64, device=dev)
+    forwards = torch.empty(w, dtype=i64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _bound("pack_flush", "pack_flush_batched_launch", _PACK_B_ARGTYPES)(
+        t_stop.data_ptr(), done_in.data_ptr(), done_tick.data_ptr(),
+        last_flow.data_ptr(), delivered.data_ptr(), sent_in.data_ptr(),
+        node_sent.data_ptr(), buf.data_ptr(), forwards.data_ptr(), w, f, c,
+        h, stream)
+    if rc != 0:
+        raise RuntimeError(f"pack_flush_batched kernel launch failed: CUDA "
+                           f"error {rc} (W={w}, C={c}, H={h})")
+    pack_flush_batched.launches += 1
+    return buf, forwards
+
+
+pack_flush_batched.launches = 0
+
+
+def torcells_step_span_flush_batched(t0, queued, ring, tokens, delivered,
+                                     target, done_tick, node_sent, inject,
+                                     inject_target, targets, idle_ticks,
+                                     flow_node, flow_lat, flow_succ,
+                                     seg_start, refill, capacity, last_flow,
+                                     ring_len: int,
+                                     tables: Optional[BatchedSpanTables]
+                                     = None):
+    """The fleet plane's step: the JAX package's vmapped
+    ``torcells_step_span_flush_batched`` argument list and 10-tuple, every
+    operand with a leading lane axis [W] (``t0``, ``idle_ticks`` [W];
+    ``targets`` [W, P]).  On CPU tensors the plain version
+    :func:`torcells_step_span_flush_batched_torch`; on CUDA tensors one
+    launch of the batched span kernel and one of the batched pack, on the
+    current stream, with the carried state updated in place.  ``tables``
+    (:class:`BatchedSpanTables` of these flow tables) saves re-deriving
+    them."""
+    if queued.device.type == "cpu":
+        return torcells_step_span_flush_batched_torch(
+            t0, queued, ring, tokens, delivered, target, done_tick,
+            node_sent, inject, inject_target, targets, idle_ticks,
+            flow_node, flow_lat, flow_succ, seg_start, refill, capacity,
+            last_flow, ring_len)
+    if tables is None:
+        tables = BatchedSpanTables.build(flow_node, flow_lat, flow_succ,
+                                         seg_start, refill.shape[1],
+                                         ring_len)
+    args = lane_args(t0, idle_ticks, targets, queued.device)
+    t_stop, done_in, sent_in = torcells_span_batched(
+        queued, ring, tokens, delivered, target, done_tick, node_sent,
+        inject, inject_target, flow_succ, seg_start, refill, capacity,
+        last_flow, args, ring_len, tables)
+    flush, forwards = pack_flush_batched(t_stop, done_in, done_tick,
+                                         last_flow, delivered, sent_in,
+                                         node_sent)
+    return (t_stop, queued, ring, tokens, delivered, target, done_tick,
+            node_sent, forwards, flush)

@@ -65,8 +65,10 @@ kernel (ops/torcells_device.torcells_step_window_flush) on the plane's own
 CUDA stream, with the carried state updated in place (the JAX package
 donated it instead).  The flush comes back through a pinned host buffer
 and an event (:class:`_FlushHandle`).  ``--device cpu`` runs the plain
-torch versions.  The fleet lane (ROADMAP A8) and the multi-device mesh
-(ROADMAP A10) are not ported and raise NotImplementedError.  There is no
+torch versions.  As a fleet lane (fleet/plane.py) the plane's dispatches
+ride the fleet's batched launch instead, synchronously.  The multi-device
+mesh (ROADMAP A10) is not ported and raises NotImplementedError.  There is
+no
 hidden fallback: the numpy-twin recovery ladder runs only for the
 injected ``--fault-inject device-dispatch[-hang]:N`` /
 ``demote-repromote:N`` drills; a real dispatch failure (a kernel that does
@@ -523,14 +525,23 @@ class DeviceTrafficPlane:
         self._replay_base = None   # state stash at re-promotion: a second
                                    # failure replays base + log, then the
                                    # numpy demotion is permanent
-        # fleet lane: an engine run as a fleet batch lane
-        # carries a FleetLane on its options, and the JAX package's plane
-        # then rides the shared vmapped program; not ported
-        if getattr(engine.options, "_fleet_lane", None) is not None \
-                and mode == "device":
-            raise NotImplementedError(
-                "the fleet plane (batched lanes over one vmapped kernel) "
-                "is not ported yet: ROADMAP A8")
+        # fleet lane: an engine run as a fleet batch lane carries a
+        # FleetLane on its options; this plane's device dispatches then
+        # ride the shared batched launch (lane.dispatch pads to the shape
+        # class, the batched kernels advance every parked lane at once,
+        # the lane hands back this plane's row).  The lane path is
+        # synchronous (the digest-pinned --device-plane-sync shape).  Flush
+        # caps stay off: the lane's flush section is always full-length
+        # (repacked host-side), so the capped variant would only add an
+        # overflow path the batch cannot re-run.
+        self._lane = None
+        lane = getattr(engine.options, "_fleet_lane", None)
+        if lane is not None and mode == "device":
+            self._flush_caps = None
+            self._lane = lane
+            lane.attach_plane(self)
+            from ..obs.metrics import fleet_source
+            engine.metrics.source("fleet", fleet_source(lane.plane))
 
     # -- static layout ----------------------------------------------------
     def _build_layout(self, engine) -> None:
@@ -838,6 +849,10 @@ class DeviceTrafficPlane:
         dispatch pays no nvcc build.  No plane state is touched."""
         if self.mode != "device":
             return
+        if self._lane is not None:
+            # fleet lanes share the batched launch; a per-lane warmup would
+            # launch the unbatched kernels nobody calls
+            return
         from ..ops.torcells_device import (RING_DTYPE,
                                            torcells_step_window_flush)
         f, h = self.n_flows, self.n_nodes
@@ -1079,9 +1094,17 @@ class DeviceTrafficPlane:
                                        int(idle)))
         state = (np.int64(self._ticks_synced), *self._state[1:])
         tvec = self._pad_targets(targets)
-        # (the JAX package's mesh and fleet-lane launches are not ported:
-        # the plane refused them at construction, ROADMAP A10 / A8)
-        if self.mode == "device":
+        if self.mode == "device" and self._lane is not None:
+            # fleet lane: the dispatch parks at the shared plane's barrier
+            # and returns this lane's row of the batched launch — the state
+            # as tensors on the plane's device and an already-materialized
+            # numpy flush, so consume() runs unchanged (the collect is a
+            # no-op np.asarray).  Synchronous by construction: the
+            # digest-pinned --device-plane-sync shape.
+            out = self._lane.dispatch(state, inject, inject_target, tvec,
+                                      int(idle))
+            handle = out[9]
+        elif self.mode == "device":
             out, handle = self._launch(state, inject, inject_target, tvec,
                                        idle)
         else:

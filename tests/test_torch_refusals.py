@@ -22,8 +22,6 @@ DEVICE_TOR = tor_network(2, n_clients=1, n_servers=1, device_data=True)
 @pytest.mark.parametrize("xml,opts,item", [
     (ECHO, {"processes": 2}, "A9"),
     (ECHO, {"dataplane": "native"}, "A14"),
-    (ECHO, {"host_table": "on"}, "A13"),
-    (FLOW, {}, "A13"),
     (ECHO, {"scheduler_policy": "tpu", "tpu_devices": 2}, "B7"),
     (ECHO, {"scheduler_policy": "tpu", "tpu_shard_matrix": True}, "B7"),
     (DEVICE_TOR, {"cost_model": "COSTMODEL.json"}, "A7"),
@@ -38,6 +36,37 @@ def test_unported_paths_raise(xml, opts, item):
         run_simulation(options, cfg)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         Controller(options, cfg)
+
+
+@pytest.mark.parametrize("xml,opts", [
+    (ECHO, {"host_table": "on"}),
+    (FLOW, {}),
+])
+def test_host_table_configs_run_and_equal_jax(xml, opts):
+    """The HostTable tier is ported: --host-table=on and a processless
+    flow (which boots the table by default and rides the device plane)
+    run, with the JAX package's digest and event count."""
+    import io
+
+    from shadow_tpu.core import configuration as jconfiguration
+    from shadow_tpu.core.checkpoint import state_digest as jdigest
+    from shadow_tpu.core.controller import Controller as JController
+    from shadow_tpu.core.logger import SimLogger as JSimLogger
+    from shadow_tpu.core.logger import set_logger as jset_logger
+    from shadow_tpu.core.options import Options as JOptions
+    from shadow_tpu_torch.core.checkpoint import state_digest
+    from shadow_tpu_torch.core.logger import SimLogger, set_logger
+    set_logger(SimLogger(stream=io.StringIO(), level="warning"))
+    ctrl = Controller(Options(device="cpu", stop_time_sec=5, **opts),
+                      configuration.parse_xml(xml))
+    assert ctrl.run() == 0
+    assert ctrl.engine.host_table is not None
+    jset_logger(JSimLogger(stream=io.StringIO(), level="warning"))
+    jctrl = JController(JOptions(stop_time_sec=5, **opts),
+                        jconfiguration.parse_xml(xml))
+    assert jctrl.run() == 0
+    assert (state_digest(ctrl.engine), ctrl.engine.events_executed) == \
+        (jdigest(jctrl.engine), jctrl.engine.events_executed)
 
 
 @pytest.mark.parametrize("path", ["exec:/bin/true", "pool:/x/plugin.so",
