@@ -56,7 +56,26 @@ result line:
     per fleet launch, no serial kernel launched;
 13. the sweep's fleet under ``torch.profiler``: one batched span and one
     batched pack kernel per fleet launch, the card's busy time and idle
-    share.
+    share;
+14. model kernels vs plain versions: ``phold`` (1,024 hosts x 16,384
+    messages, to 3 s), ``saturate`` (4,096 interfaces x 30,000 ticks),
+    ``torcells_run`` (200 relays, 2,000 circuits, 200 cells each, to
+    completion) and ``torcells_step_window`` (split windows and an idle
+    fold, through ``torcells_span``), ``admit_sorted`` (N in {256, 8,192,
+    65,536} over 2,050 hosts, and a batch with invalid lanes inside it):
+    each bit-exact against its plain torch version on the card;
+15. model times: each of those kernels at the main path's inputs (CUDA
+    events; graph replay for ``admit_sorted``) beside its bound;
+16. the model workloads: ``tools/modelbench.py`` on cuda at bench.py's
+    sizes, every count equal to the JAX package's (EXPECTED_MODELS), one
+    launch of its kernel per device call;
+17. the model workloads under ``torch.profiler`` (without the engine twin,
+    which launches no kernel): one kernel of each kind per counted launch,
+    the card's busy time and idle share.
+
+Each trace (6, 8, 13, 17) runs its slice between two marker kernels; the
+profiler at times drops the card's events at the start of its window, and a
+trace that lost a marker is taken again, at most three times in all.
 
 ``--phases`` runs a subset (with no arguments it runs them all).  The line
 before the last is the card; the one before it the kernel table as JSON;
@@ -67,6 +86,7 @@ or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -112,7 +132,9 @@ OPS_PER_LANE = 132
 
 
 def fail(msg: str) -> None:
+    # on both streams: a caller that keeps only the end of one still sees why
     print(f"chip_smoke: FAIL: {msg}", flush=True)
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -693,26 +715,111 @@ def tor1k_config():
 TRACED_KERNELS = {"hop": "packet_hop_kernel", "span": "torcells_span_kernel",
                   "pack": "pack_flush_kernel",
                   "span_b": "torcells_span_batched_kernel",
-                  "pack_b": "pack_flush_batched_kernel"}
+                  "pack_b": "pack_flush_batched_kernel",
+                  "phold": "phold_kernel", "saturate": "saturate_kernel",
+                  "torcells_run": "torcells_run_kernel",
+                  "admit_sorted": "admit_sorted_kernel"}
+
+
+# The kernel of torch.cuda._sleep, launched as a marker at each end of a
+# trace (no slice launches it), with the card idle for MARKER_GUARD_S
+# between the marker and the trace's edge; before the first marker, a
+# lead-in of LEAD_IN one-element adds, LEAD_IN_GAP_S apart.
+MARKER = "spin"
+MARKER_CYCLES = 1000
+MARKER_GUARD_S = 0.5
+LEAD_IN = 2000
+LEAD_IN_GAP_S = 0.0005
+TRACE_TAKES = 3
+
+
+class IncompleteTrace(Exception):
+    """A trace that lacks one of its two marker kernels: the profiler
+    dropped the card's events at an end of its window."""
+
+
+@contextlib.contextmanager
+def card_trace(trace: bool):
+    """The card's activity over the body under torch.profiler (nothing when
+    not ``trace``), the profile as the context's value, the body between
+    two marker kernels.
+
+    On the H100 machine the profiler drops the first device events of a
+    trace, or all of them: of every trace after one with many events (the
+    tor1k slice's) and of one trace in a few anyway (tools/trace_probe.py,
+    PERF.md).  A lead-in of small kernels takes the first loss; the body's
+    events are those from the first marker to the second, and a trace that
+    kept both markers kept them all.  busy_intervals refuses one that did
+    not (IncompleteTrace), and retake() takes the slice again."""
+    if not trace:
+        yield None
+        return
+    import torch
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+    prof.marker_host_s = []
+    with prof:
+        t_open = time.perf_counter()
+        torch.cuda.synchronize()
+        time.sleep(MARKER_GUARD_S)
+        lead = torch.zeros(1, device="cuda")
+        for _ in range(LEAD_IN):
+            lead.add_(1)
+            time.sleep(LEAD_IN_GAP_S)
+        torch.cuda.synchronize()
+        prof.marker_host_s.append(time.perf_counter() - t_open)
+        torch.cuda._sleep(MARKER_CYCLES)
+        torch.cuda.synchronize()
+        yield prof
+        torch.cuda.synchronize()
+        prof.marker_host_s.append(time.perf_counter() - t_open)
+        torch.cuda._sleep(MARKER_CYCLES)
+        torch.cuda.synchronize()
+        time.sleep(MARKER_GUARD_S)
+
+
+def retake(run):
+    """``run()`` (a traced slice, built anew each time) again while its
+    trace is incomplete, at most TRACE_TAKES times in all."""
+    for take in range(1, TRACE_TAKES + 1):
+        try:
+            return run()
+        except IncompleteTrace as e:
+            print(f"trace: take {take} incomplete ({e}); the slice runs "
+                  "again", flush=True)
+    fail(f"{TRACE_TAKES} traces in a row dropped the card's events at an "
+         "end of their window")
 
 
 def busy_intervals(prof) -> dict:
-    """The card's time in a profile: every kernel, copy and set interval on
-    the device, merged where they overlap; the port's kernels among them
-    (count, total and mean time of each); and the copies' total time."""
+    """The card's time in a profile between its two markers: every kernel,
+    copy and set interval on the device, merged where they overlap; the
+    port's kernels among them (count, total and mean time of each); and the
+    copies' total time."""
     from torch.autograd import DeviceType
+    events = [(e.time_range.start, e.time_range.end, e.name)
+              for e in prof.events() if e.device_type == DeviceType.CUDA]
+    markers = sorted(a for a, _b, name in events if MARKER in name)
+    if len(markers) != 2:
+        rest = sorted(a for a, _b, name in events if MARKER not in name)
+        first = f"{rest[0] * 1e-6:.4f}" if rest else "none"
+        raise IncompleteTrace(
+            f"{len(markers)} of its 2 marker kernels: launched at "
+            f"{[round(t, 4) for t in prof.marker_host_s]} s on the host's "
+            f"clock, kept at {[round(t * 1e-6, 4) for t in markers]} s on "
+            f"the trace's; {len(rest)} other device events, the first at "
+            f"{first} s")
     spans = []
     per = {k: [] for k in TRACED_KERNELS}
     copy_us = 0.0
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+    for a, b, name in events:
+        if MARKER in name or not markers[0] < a < markers[1]:
             continue
-        a, b = e.time_range.start, e.time_range.end
         spans.append((a, b))
-        for key, name in TRACED_KERNELS.items():
-            if name in e.name:
+        for key, kname in TRACED_KERNELS.items():
+            if kname in name:
                 per[key].append(b - a)
-        if "Memcpy" in e.name or "memcpy" in e.name:
+        if "Memcpy" in name or "memcpy" in name:
             copy_us += b - a
     spans.sort()
     busy_us, end = 0.0, float("-inf")
@@ -721,7 +828,8 @@ def busy_intervals(prof) -> dict:
             busy_us += b - max(a, end)
             end = b
     out = {"device_events": len(spans), "busy_s": busy_us * 1e-6,
-           "copy_s": copy_us * 1e-6}
+           "copy_s": copy_us * 1e-6, "markers_host_s": prof.marker_host_s,
+           "markers_trace_s": [t * 1e-6 for t in markers]}
     for key, us in per.items():
         out[f"{key}_kernels"] = len(us)
         out[f"{key}_kernel_s"] = sum(us) * 1e-6
@@ -730,7 +838,6 @@ def busy_intervals(prof) -> dict:
 
 
 def run_slice(policy: str, trace: bool = False) -> dict:
-    import contextlib
     import torch
     from shadow_tpu_torch.core.checkpoint import state_digest
     from shadow_tpu_torch.core.controller import Controller
@@ -743,11 +850,8 @@ def run_slice(policy: str, trace: bool = False) -> dict:
     opts = Options(scheduler_policy=policy, device="cuda", seed=TOR1K["seed"],
                    stop_time_sec=int(cfg.stop_time_sec), log_level="warning")
     ctl = Controller(opts, cfg)
-    prof = (torch.profiler.profile(
-        activities=[torch.profiler.ProfilerActivity.CUDA]) if trace
-        else contextlib.nullcontext())
     rs.packet_hop_packed.launches = 0
-    with prof:
+    with card_trace(trace) as prof:
         t0 = time.perf_counter()
         rc = ctl.run()
         torch.cuda.synchronize()
@@ -802,7 +906,6 @@ def check_slice(tpu: dict, glob: dict) -> None:
 def run_tor10k(trace: bool = False) -> dict:
     """The tor10k slice through Controller.run on cuda, with every kernel
     count set to 0 just before it and read just after."""
-    import contextlib
     import torch
     from shadow_tpu_torch.core.checkpoint import state_digest
     from shadow_tpu_torch.core.controller import Controller
@@ -811,13 +914,10 @@ def run_tor10k(trace: bool = False) -> dict:
     from shadow_tpu_torch.ops import torcells_device as td
     set_logger(SimLogger(level="warning"))
     ctl = Controller(tor10k_options(), tor10k_config())
-    prof = (torch.profiler.profile(
-        activities=[torch.profiler.ProfilerActivity.CUDA]) if trace
-        else contextlib.nullcontext())
     td.torcells_span.launches = 0
     td.pack_flush.launches = 0
     rs.packet_hop_packed.launches = 0
-    with prof:
+    with card_trace(trace) as prof:
         t0 = time.perf_counter()
         rc = ctl.run()
         torch.cuda.synchronize()
@@ -1313,22 +1413,28 @@ def graph_ms(fn, per_graph: int = 20, reps: int = 10) -> float:
     return e0.elapsed_time(e1) / (reps * per_graph)
 
 
-def _reset_counts():
+def _wrappers() -> dict:
+    """Every kernel wrapper of the port, by the key its count goes under."""
+    from shadow_tpu_torch.ops import bandwidth as bw
+    from shadow_tpu_torch.ops import phold_device as pd
     from shadow_tpu_torch.ops import round_step as rs
+    from shadow_tpu_torch.ops import saturate_device as sd
     from shadow_tpu_torch.ops import torcells_device as td
-    for fn in (td.torcells_span, td.pack_flush, td.torcells_span_batched,
-               td.pack_flush_batched, rs.packet_hop_packed):
+    return {"span": td.torcells_span, "pack": td.pack_flush,
+            "span_b": td.torcells_span_batched,
+            "pack_b": td.pack_flush_batched, "hop": rs.packet_hop_packed,
+            "phold": pd.phold_run, "saturate": sd.saturate_run,
+            "torcells_run": td.torcells_run,
+            "admit_sorted": bw.admit_sorted}
+
+
+def _reset_counts():
+    for fn in _wrappers().values():
         fn.launches = 0
 
 
 def _counts() -> dict:
-    from shadow_tpu_torch.ops import round_step as rs
-    from shadow_tpu_torch.ops import torcells_device as td
-    return {"span": td.torcells_span.launches,
-            "pack": td.pack_flush.launches,
-            "span_b": td.torcells_span_batched.launches,
-            "pack_b": td.pack_flush_batched.launches,
-            "hop": rs.packet_hop_packed.launches}
+    return {key: fn.launches for key, fn in _wrappers().items()}
 
 
 def run_fleet_smoke() -> dict:
@@ -1415,17 +1521,13 @@ def run_sweep(serial: dict, trace: bool = False) -> dict:
     FleetPlane), with the counts set to 0 just before and read just after;
     under torch.profiler when ``trace``.  Each lane must equal its serial
     cuda run; lane 1 the JAX package's constants."""
-    import contextlib
     import torch
     from shadow_tpu_torch.fleet import FleetDriver, FleetPlane
     driver = FleetDriver(lanes=len(SWEEP["seeds"]),
                          plane=FleetPlane(device="cuda"))
     jobs = [lambda lane, s=s: run_sweep_lane(s, lane) for s in SWEEP["seeds"]]
-    prof = (torch.profiler.profile(
-        activities=[torch.profiler.ProfilerActivity.CUDA]) if trace
-        else contextlib.nullcontext())
     _reset_counts()
-    with prof:
+    with card_trace(trace) as prof:
         t0 = time.perf_counter()
         lanes = driver.run(jobs)
         torch.cuda.synchronize()
@@ -1496,9 +1598,467 @@ def run_sweep_serial() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The device-resident model workloads (phold, saturate, torcells_run,
+# admit_sorted)
+# ---------------------------------------------------------------------------
+
+# shadow_tpu_torch/tools/modelbench.py at its FULL sizes (bench.py's
+# bench_phold: PHOLD 1,024 hosts x 16,384 messages to 30 s, 4,096
+# saturated interfaces x 30,000 ticks, DeviceTorCells(200 relays, 2,000
+# circuits) with 200 cells each, the 64-host engine PHOLD twin to 30 s;
+# and one BandwidthKernel batch of 65,536 packets to 2,050 hosts).
+# EXPECTED_MODELS was made with the JAX package on the CPU (phold_run,
+# saturate_run, torcells_run and admit_sorted on one XLA CPU device, the
+# engine twin under shadow_tpu's Controller, global policy);
+# tests/test_torch_modelbench.py reproduces it (pytest -m slow).
+EXPECTED_MODELS = {
+    "phold_device_hops": 6523464,
+    "phold_device_digest": "1b460b703047cc3e250ca88d422d9f01"
+                           "7b80b5f3efadc7a4a9b189c318015e0b",
+    "saturate_device_delivered_pkts": 76097359,
+    "saturate_device_dropped_pkts": 5822641,
+    "torcells_device_ticks": 1566,
+    "torcells_device_cell_forwards": 2000000,
+    "torcells_device_delivered": 400000,
+    "bandwidth_device_admits_digest": "a7592175aa1a113be1be2b4422353e77"
+                                      "ea44bfc04c0a997e837c5a060fe59eea",
+    "bandwidth_device_delayed": 43827,
+    "phold_engine_events": 706149,
+}
+# the kernel-vs-plain check runs PHOLD to 3 s (the plain version pays a few
+# hundred launches a window); the JAX package's hops by then
+PHOLD_CHECK_NS = 3_000_000_000
+PHOLD_CHECK_HOPS = 661533
+ADMIT_SIZES = (256, 8192, 65536)
+ADMIT_HOSTS = 2050
+# 32-bit operations: saturate per host and tick (two int64 compares, the
+# admission min/max, four adds, two 32-bit divisions, the refill min, the
+# drains' min/mul/sub); admit_sorted per lane (two int64 divisions ~40,
+# max/min/sub/mul ~20); phold per hop (the cipher ~120, the modulo ~20, the
+# gather and updates ~30) and per message and window (the minimum and the
+# ripe compare, two int64 compares)
+SAT_OPS_PER_TICK = 40
+ADMIT_OPS_PER_LANE = 60
+PHOLD_OPS_PER_HOP = 170
+PHOLD_OPS_PER_MSG_WINDOW = 4
+MODEL_KERNELS = ("phold", "saturate", "torcells_run", "admit_sorted")
+
+
+def _card():
+    import torch
+    return torch.device("cuda", 0)
+
+
+def _bound_row(nbytes: int, ops: int) -> dict:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ALU32_OPS_PER_S * 1e3
+    return {"bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def phold_bound(h: int, m: int, hops: int, windows: int) -> dict:
+    """The latency matrix and the message state read once, the state written
+    once; the hops' and the windows' 32-bit operations."""
+    return _bound_row(8 * h * h + 2 * 12 * m + 16,
+                      hops * PHOLD_OPS_PER_HOP
+                      + windows * m * PHOLD_OPS_PER_MSG_WINDOW)
+
+
+def saturate_bound(h: int, ticks: int) -> dict:
+    return _bound_row(8 * 8 * h, h * ticks * SAT_OPS_PER_TICK)
+
+
+def torcells_run_bound(f: int, h: int, ticks: int) -> dict:
+    """The five flow tables and two node tables read once, delivered and
+    two scalars written once; every tick's per-flow and per-node work
+    (span_bound's counts)."""
+    return _bound_row(8 * (5 * f + 2 * h) + 8 * f + 16,
+                      ticks * (f * SPAN_OPS_PER_FLOW + h * SPAN_OPS_PER_NODE))
+
+
+def admit_bound(n: int, runs: int) -> dict:
+    return _bound_row(n * (4 + 8 + 8 + 1) + 3 * 8 * runs + 8 * n,
+                      n * ADMIT_OPS_PER_LANE)
+
+
+def _events_ms(fn, reps: int = 3):
+    """Mean device time of ``fn`` by CUDA events, one call per interval,
+    the card kept busy while the host issues it; returns (last result,
+    ms)."""
+    import torch
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    total, out = 0.0, None
+    for _ in range(reps):
+        torch.cuda._sleep(2_000_000)
+        e0.record()
+        out = fn()
+        e1.record()
+        torch.cuda.synchronize()
+        total += e0.elapsed_time(e1)
+    return out, total / reps
+
+
+def _host_ms(fn):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _max_err(pairs) -> int:
+    import torch
+    err = 0
+    for a, b in pairs:
+        a = torch.as_tensor(a).to(torch.int64).cpu()
+        b = torch.as_tensor(b).to(torch.int64).cpu()
+        if a.shape != b.shape:
+            fail(f"shapes differ: {tuple(a.shape)} vs {tuple(b.shape)}")
+        if a.numel():
+            err = max(err, int((a - b).abs().max()))
+    return err
+
+
+def admit_case(n: int, seed: int, invalid: float = 0.0):
+    """``n`` packets to ADMIT_HOSTS hosts drawn as the JAX package's
+    tests/test_bandwidth_ops.py draws a batch, sorted by (dst, arrival,
+    order) as BandwidthKernel sorts it; with ``invalid`` > 0 that share of
+    lanes inside the batch is marked invalid.  Numpy (dst int32, sizes,
+    arrive, valid, tokens0, refill, capacity) and the number of host runs."""
+    import numpy as np
+    from shadow_tpu_torch.ops.bandwidth import bucket_params
+    from shadow_tpu_torch.tools.modelbench import admission_batch
+    rates, dst, pkt, arrive, tok0 = admission_batch(
+        {"bw_seed": seed, "bw_hosts": ADMIT_HOSTS, "bw_pkts": n})
+    refill, cap = bucket_params(rates)
+    order = np.lexsort((np.arange(n), arrive, dst))
+    valid = np.ones(n, dtype=bool)
+    if invalid:
+        valid = np.random.default_rng(seed + 1).random(n) >= invalid
+    d = dst[order]
+    dv = d[valid]
+    runs = int(np.count_nonzero(np.r_[True, dv[1:] != dv[:-1]])) \
+        if dv.size else 0
+    return (d, pkt[order], arrive[order], valid, tok0, refill, cap), runs
+
+
+def check_models() -> dict:
+    """Each model kernel against its plain torch version on the card, on the
+    same inputs, bit-exact on every output, at bench.py's full widths:
+    phold (1,024 x 16,384, to 3 s), saturate (4,096 interfaces x 30,000
+    ticks), torcells_run (the bench instance to completion) and the
+    windowed step (split windows with an idle fold, through torcells_span),
+    admit_sorted (N in ADMIT_SIZES over 2,050 hosts, and one batch with
+    invalid lanes inside it).  Returns each one's error, its plain
+    version's time and its kernel's time on the checked input, and the
+    inputs on the card (for time_models)."""
+    import numpy as np
+    import torch
+    from shadow_tpu_torch.ops import bandwidth as bw
+    from shadow_tpu_torch.ops import phold_device as pd
+    from shadow_tpu_torch.ops import saturate_device as sd
+    from shadow_tpu_torch.ops import torcells_device as td
+    from shadow_tpu_torch.tools import modelbench as mb
+    dev = _card()
+    sizes = mb.FULL
+    out, inputs = {}, {}
+
+    p = pd.DevicePhold(sizes["phold_hosts"], sizes["phold_msgs"],
+                       seed=sizes["phold_seed"])
+    inputs["phold"] = (p.latency, torch.as_tensor(p.msg_host, device=dev),
+                       torch.as_tensor(p.msg_time, device=dev),
+                       (p.key_lo, p.key_hi))
+    args = inputs["phold"] + (PHOLD_CHECK_NS,)
+    kern, ms = _events_ms(lambda: pd.phold_run(*args, with_windows=True), 1)
+    plain, plain_ms = _host_ms(lambda: pd.phold_run_torch(
+        *args, with_windows=True))
+    err = _max_err(zip(kern, plain))
+    if err or int(kern[2]) != PHOLD_CHECK_HOPS:
+        fail(f"phold kernel vs plain version at 3 s: max_abs_err {err}, "
+             f"hops {int(kern[2])} (plain {int(plain[2])}, JAX "
+             f"{PHOLD_CHECK_HOPS})")
+    out["phold"] = {"err": err, "ms_check": ms, "plain_ms": plain_ms,
+                    "horizon_s": PHOLD_CHECK_NS / 1e9,
+                    "hops": int(kern[2]), "windows": int(kern[3])}
+    print(f"phold 1024 x 16384 to 3 s: kernel == plain version bit-exact "
+          f"(max_abs_err {err}), hops {int(kern[2])} == JAX, windows "
+          f"{int(kern[3])}; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms",
+          flush=True)
+
+    bwv, first, npk = mb.saturate_flows(sizes)
+    sat = sd.DeviceSaturate(bwv)
+    args = inputs["saturate"] = (
+        torch.as_tensor(first, device=dev), torch.as_tensor(npk, device=dev),
+        sat.size, sat._refill, sat._capacity, sat.qcap_pkts,
+        sizes["sat_ticks"])
+    kern, ms = _events_ms(lambda: sd.saturate_run(*args), 1)
+    plain, plain_ms = _host_ms(lambda: sd.saturate_run_torch(*args))
+    err = _max_err(zip(kern, plain))
+    sums = (int(kern[0].sum()), int(kern[1].sum()))
+    if err or sums != (EXPECTED_MODELS["saturate_device_delivered_pkts"],
+                       EXPECTED_MODELS["saturate_device_dropped_pkts"]):
+        fail(f"saturate kernel vs plain version: max_abs_err {err}, "
+             f"delivered/dropped {sums}")
+    out["saturate"] = {"err": err, "ms_check": ms, "plain_ms": plain_ms}
+    print(f"saturate 4096 x 30000 ticks: kernel == plain version bit-exact "
+          f"on delivered, dropped, queue, tokens (max_abs_err {err}); "
+          f"delivered {sums[0]} dropped {sums[1]} == JAX; kernel {ms:.3f} "
+          f"ms, plain {plain_ms:.1f} ms", flush=True)
+
+    tc = td.DeviceTorCells(sizes["tc_relays"], sizes["tc_circuits"],
+                           seed=sizes["tc_seed"],
+                           relay_bw_kibps=sizes["tc_bw"])
+    q0 = torch.as_tensor(tc._args(sizes["tc_cells"])[0], device=dev)
+    inputs["torcells_run"] = (tc, q0)
+    kern, ms = _events_ms(lambda: td.torcells_run(
+        q0, *tc.tensors, tc.ring_len, sizes["tc_max_ticks"],
+        tables=tc.tables), 1)
+    plain, plain_ms = _host_ms(lambda: td.torcells_run_torch(
+        q0, *tc.tensors, tc.ring_len, sizes["tc_max_ticks"],
+        arr_lat=tc.tables.arr_lat))
+    err = _max_err(zip(kern, plain))
+    if err or int(kern[1]) != EXPECTED_MODELS["torcells_device_ticks"]:
+        fail(f"torcells_run kernel vs plain version: max_abs_err {err}, "
+             f"ticks {int(kern[1])}")
+    fn = tc.flows["flow_node"]
+    out["torcells_run"] = {"err": err, "ms_check": ms, "plain_ms": plain_ms,
+                           "ticks": int(kern[1]), "f": tc.n_flows,
+                           "h": len(tc.refill),
+                           "longest_node_run": int(np.bincount(fn).max())}
+    print(f"torcells_run F {tc.n_flows} H {len(tc.refill)} ring_len "
+          f"{tc.ring_len} (longest node run "
+          f"{out['torcells_run']['longest_node_run']} flows): kernel == "
+          f"plain version bit-exact (max_abs_err {err}), ticks "
+          f"{int(kern[1])}, forwards {int(kern[2])}; kernel {ms:.3f} ms, "
+          f"plain {plain_ms:.1f} ms", flush=True)
+    run_delivered, run_ticks, run_fwd = kern
+    out["window_err"] = check_windows(tc, q0, sizes["tc_cells"],
+                                      run_delivered, run_ticks, run_fwd)
+
+    rows, inputs["admit"] = {}, {}
+    for n, invalid in [(n, 0.0) for n in ADMIT_SIZES] + [(8192, 0.25)]:
+        arrays, runs = admit_case(n, seed=n + (1 if invalid else 0),
+                                  invalid=invalid)
+        targs = tuple(torch.as_tensor(a, device=dev) for a in arrays)
+        kern = bw.admit_sorted(*targs)
+        plain = bw.admit_sorted_torch(*targs)
+        err = _max_err([(kern, plain)])
+        if err:
+            fail(f"admit_sorted N={n} (invalid share {invalid}): kernel "
+                 f"vs plain version max_abs_err {err}")
+        valid = arrays[3]
+        if invalid and bool(kern.cpu().numpy()[~valid].any()):
+            fail("admit_sorted wrote an invalid lane")
+        key = f"{n}_invalid" if invalid else n
+        rows[key] = {"err": err, "runs": runs}
+        inputs["admit"][key] = targs
+        print(f"admit_sorted N={n:6d} over {ADMIT_HOSTS} hosts"
+              f"{', a quarter of the lanes invalid' if invalid else ''}: "
+              f"kernel == plain version bit-exact (max_abs_err {err}), "
+              f"{runs} host runs, {int((kern > targs[2]).sum())} packets "
+              "delayed", flush=True)
+    out["admit"] = rows
+    return out, inputs
+
+
+def check_windows(tc, q0, cells: int, run_delivered, run_ticks,
+                  run_fwd) -> int:
+    """``torcells_step_window`` on the card (the span kernel with one
+    boundary) against its plain version at the bench shape: windows of 7,
+    93, 500 and the rest of the run's ticks, then an idle fold with no tick
+    (n_ticks 0, 100 idle ticks) and 100 more ticks; each bit-exact on all
+    nine outputs.  The split windows must end where torcells_run ends
+    (delivered, forwards), and so must one window of the run's length."""
+    import torch
+    from shadow_tpu_torch.ops import torcells_device as td
+    dev = q0.device
+    f, h, lr = tc.n_flows, len(tc.refill), tc.ring_len
+    last = torch.as_tensor(tc.flows["flow_stage"] == 4, device=dev)
+    inj_t = torch.where(last, torch.full_like(q0, cells),
+                        torch.zeros_like(q0))
+    zero = torch.zeros_like(q0)
+
+    def zero_state():
+        return [0, torch.zeros(f, dtype=torch.int64, device=dev),
+                torch.zeros((lr, f), dtype=torch.int32, device=dev),
+                tc.tensors[5].clone(),
+                torch.zeros(f, dtype=torch.int64, device=dev),
+                torch.zeros(f, dtype=torch.int64, device=dev),
+                torch.full((f,), -1, dtype=torch.int64, device=dev),
+                torch.zeros(h, dtype=torch.int64, device=dev)]
+
+    state = zero_state()
+    err = 0
+    forwards = 0
+    rest = int(run_ticks) - 600
+    for i, (n, idle) in enumerate(((7, 0), (93, 0), (500, 0), (rest, 0),
+                                   (0, 100), (100, 0))):
+        inj, it = (q0, inj_t) if i == 0 else (zero, zero)
+        plain = td.torcells_step_window_torch(
+            state[0], *state[1:], inj, it, n, idle, *tc.tensors, lr,
+            arr_lat=tc.tables.arr_lat)
+        live = [state[0]] + [a.clone() for a in state[1:]]
+        kern = td.torcells_step_window(live[0], *live[1:], inj, it, n, idle,
+                                       *tc.tensors, lr, tables=tc.tables)
+        e = _max_err(zip(kern, plain))
+        if e:
+            fail(f"torcells_step_window window {i} ({n} ticks, idle "
+                 f"{idle}): kernel vs plain version max_abs_err {e}")
+        err = max(err, e)
+        forwards += int(kern[8])
+        state = [int(kern[0])] + list(kern[1:8])
+        if i == 3 and not (torch.equal(state[4], run_delivered)
+                           and forwards == int(run_fwd)):
+            fail("torcells_step_window split 7 + 93 + 500 + the rest "
+                 "differs from torcells_run")
+        print(f"torcells_step_window {n} ticks (idle {idle}): kernel == "
+              f"plain version bit-exact on all nine outputs, t -> "
+              f"{state[0]}, forwards {int(kern[8])}", flush=True)
+    one = zero_state()
+    whole = td.torcells_step_window(one[0], *one[1:], q0, inj_t,
+                                    int(run_ticks), 0, *tc.tensors, lr,
+                                    tables=tc.tables)
+    if not (torch.equal(whole[4], run_delivered)
+            and int(whole[8]) == int(run_fwd)):
+        fail("one torcells_step_window of the run's length differs from "
+             "torcells_run")
+    done = int((whole[6] >= 0).sum())
+    print(f"the split windows and one window of {int(run_ticks)} ticks == "
+          f"torcells_run (delivered, forwards {int(whole[8])}); {done} "
+          "chains done", flush=True)
+    return err
+
+
+def time_models(checked: dict, inputs: dict) -> dict:
+    """Each model kernel's device time at the main path's inputs (those of
+    check_models) beside its bound: phold to 30 s, saturate and
+    torcells_run at bench.py's sizes (CUDA events, one launch per
+    interval), admit_sorted at each N by graph replay (launch-bound); the
+    plain versions' times from the check."""
+    from shadow_tpu_torch.ops import bandwidth as bw
+    from shadow_tpu_torch.ops import phold_device as pd
+    from shadow_tpu_torch.ops import saturate_device as sd
+    from shadow_tpu_torch.ops import torcells_device as td
+    from shadow_tpu_torch.tools import modelbench as mb
+    sizes = mb.FULL
+    out = {}
+
+    args = inputs["phold"]
+    res, ms = _events_ms(lambda: pd.phold_run(
+        *args, sizes["phold_horizon_ns"], with_windows=True), 2)
+    _r3, ms3 = _events_ms(lambda: pd.phold_run(*args, PHOLD_CHECK_NS), 2)
+    row = {"ms": ms, "ms_3s": ms3, "plain_ms": checked["phold"]["plain_ms"],
+           "plain_horizon_s": PHOLD_CHECK_NS / 1e9, "hops": int(res[2]),
+           "windows": int(res[3]),
+           "us_per_window": ms * 1e3 / max(int(res[3]), 1)}
+    row.update(phold_bound(sizes["phold_hosts"], sizes["phold_msgs"],
+                           int(res[2]), int(res[3])))
+    out["phold"] = row
+    print(f"phold to 30 s: {ms:.3f} ms ({int(res[3])} windows, "
+          f"{row['us_per_window']:.3f} us a window, {int(res[2])} hops); to "
+          f"3 s {ms3:.3f} ms against the plain version's "
+          f"{row['plain_ms']:.1f} ms; bound {row['bound_ms'] * 1e3:.3f} us "
+          f"({row['bound_by']}, {row['bytes']} B, {row['ops']} ops)",
+          flush=True)
+
+    _res, ms = _events_ms(lambda: sd.saturate_run(*inputs["saturate"]))
+    row = {"ms": ms, "plain_ms": checked["saturate"]["plain_ms"],
+           "us_per_tick": ms * 1e3 / sizes["sat_ticks"]}
+    row.update(saturate_bound(sizes["sat_ifs"], sizes["sat_ticks"]))
+    out["saturate"] = row
+    print(f"saturate 4096 x 30000: {ms:.3f} ms ({row['us_per_tick']:.4f} us "
+          f"a tick), plain {row['plain_ms']:.1f} ms; bound "
+          f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']})", flush=True)
+
+    tc, q0 = inputs["torcells_run"]
+    res, ms = _events_ms(lambda: td.torcells_run(
+        q0, *tc.tensors, tc.ring_len, sizes["tc_max_ticks"],
+        tables=tc.tables))
+    ticks = int(res[1])
+    row = {"ms": ms, "plain_ms": checked["torcells_run"]["plain_ms"],
+           "ticks": ticks, "us_per_tick": ms * 1e3 / ticks}
+    row.update(torcells_run_bound(tc.n_flows, len(tc.refill), ticks))
+    out["torcells_run"] = row
+    print(f"torcells_run to completion: {ms:.3f} ms ({ticks} ticks, "
+          f"{row['us_per_tick']:.3f} us a tick), plain {row['plain_ms']:.1f}"
+          f" ms; bound {row['bound_ms'] * 1e3:.3f} us ({row['bound_by']})",
+          flush=True)
+
+    admit = {}
+    for n in ADMIT_SIZES:
+        case = checked["admit"][n]
+        targs = inputs["admit"][n]
+        ms = graph_ms(lambda: bw.admit_sorted(*targs))
+        _p, plain_ms = _events_ms(lambda: bw.admit_sorted_torch(*targs))
+        row = {"N": n, "ms": ms, "plain_ms": plain_ms, "runs": case["runs"]}
+        row.update(admit_bound(n, case["runs"]))
+        admit[n] = row
+        print(f"admit_sorted N={n:6d}: {ms * 1e3:.2f} us (graph replay), "
+              f"plain {plain_ms:.2f} ms; bound {row['bound_ms'] * 1e3:.3f} "
+              f"us ({row['bound_by']}, {row['bytes']} B)", flush=True)
+    out["admit"] = admit
+    return out
+
+
+def run_models(trace: bool = False) -> dict:
+    """The model workloads (tools/modelbench.py at FULL sizes) on cuda, with
+    every kernel count set to 0 just before and read just after; under
+    torch.profiler when ``trace`` (the engine twin, which launches no
+    kernel, left out).  Every count must equal EXPECTED_MODELS and every
+    device call must have made one launch of its kernel."""
+    import torch
+    from shadow_tpu_torch.tools import modelbench as mb
+    _reset_counts()
+    with card_trace(trace) as prof:
+        t0 = time.perf_counter()
+        out = mb.run("cuda", mb.FULL, engine=not trace)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = _counts()
+    out["wall_s"] = wall
+    out["counts"] = counts
+    if trace:
+        out.update(busy_intervals(prof))
+        out["idle_share"] = 1.0 - out["busy_s"] / wall
+    print(json.dumps(out), flush=True)
+    for key, want in EXPECTED_MODELS.items():
+        if trace and key.startswith("phold_engine"):
+            continue
+        if out[key] != want:
+            fail(f"models {key}: {out[key]} != JAX run's {want}")
+    for key in MODEL_KERNELS:
+        # a warm-up call and a timed call per workload, one launch each
+        if not counts[key] == out["launches"][key] == 2:
+            fail(f"models: {key} launched {counts[key]} times "
+                 f"(the workload counted {out['launches'][key]}), not 2")
+    others = {k: v for k, v in counts.items() if k not in MODEL_KERNELS}
+    if any(others.values()):
+        fail(f"models: other kernels launched on the model path: {others}")
+    if trace:
+        for key in MODEL_KERNELS:
+            if out[f"{key}_kernels"] != counts[key]:
+                fail(f"the models' trace holds {out[key + '_kernels']} "
+                     f"{key} kernels for {counts[key]} counted launches")
+    print(f"models parity: phold hops {out['phold_device_hops']} digest "
+          f"{out['phold_device_digest'][:16]}..., saturate delivered "
+          f"{out['saturate_device_delivered_pkts']} dropped "
+          f"{out['saturate_device_dropped_pkts']}, torcells ticks "
+          f"{out['torcells_device_ticks']} forwards "
+          f"{out['torcells_device_cell_forwards']}, admission digest "
+          f"{out['bandwidth_device_admits_digest'][:16]}..."
+          + ("" if trace else f", engine events "
+             f"{out['phold_engine_events']}")
+          + f" == JAX; launches {counts}", flush=True)
+    return out
+
+
 PHASES = ("build", "kernels", "times", "tor1k", "tor1k-trace", "tor10k",
           "tor10k-trace", "fleet-kernels", "fleet-times", "fleet-smoke",
-          "sweep", "sweep-trace")
+          "sweep", "sweep-trace", "model-kernels", "model-times", "models",
+          "models-trace")
 
 
 def main(argv=None) -> int:
@@ -1558,7 +2118,8 @@ def main(argv=None) -> int:
               flush=True)
     if "tor1k-trace" in want:
         phase("trace: tor1k under --scheduler-policy=tpu on cuda, profiled")
-        traced = res["tor1k_traced"] = run_slice("tpu", trace=True)
+        traced = res["tor1k_traced"] = retake(
+            lambda: run_slice("tpu", trace=True))
         if "tor1k_tpu" in res and traced["digest"] != res["tor1k_tpu"][
                 "digest"]:
             fail("the profiled tpu run's digest differs from the "
@@ -1582,7 +2143,7 @@ def main(argv=None) -> int:
     if "tor10k-trace" in want:
         phase("trace: tor10k under --scheduler-policy=tpu on cuda, "
               "profiled")
-        tr = res["tor10k_traced"] = run_tor10k(trace=True)
+        tr = res["tor10k_traced"] = retake(lambda: run_tor10k(trace=True))
         check_tor10k(tr)
         if "tor10k" in res and tr["digest"] != res["tor10k"]["digest"]:
             fail("the profiled tor10k run's digest differs from the "
@@ -1626,7 +2187,8 @@ def main(argv=None) -> int:
         res["sweep"] = run_sweep(res["sweep_serial"])
     if "sweep-trace" in want:
         phase("trace: the sweep's fleet under torch.profiler")
-        tr = res["sweep_traced"] = run_sweep(res["sweep_serial"], trace=True)
+        tr = res["sweep_traced"] = retake(
+            lambda: run_sweep(res["sweep_serial"], trace=True))
         print(f"sweep traced: wall {tr['wall_s']:.3f} s, card busy "
               f"{tr['busy_s']:.6f} s, idle share {tr['idle_share']:.6f}, "
               f"copies {tr['copy_s']:.6f} s; batched span "
@@ -1634,6 +2196,28 @@ def main(argv=None) -> int:
               f"us = {tr['span_b_kernel_s']:.6f} s; batched pack "
               f"{tr['pack_b_kernels']} x {tr['pack_b_kernel_mean_us']:.2f} "
               "us", flush=True)
+
+    if want & {"model-kernels", "model-times"}:
+        phase("model kernels vs plain versions (phold, saturate, "
+              "torcells_run and the windowed step, admit_sorted)")
+        res["models_checked"], model_inputs = check_models()
+    if "model-times" in want:
+        phase("model times: each kernel at the main path's inputs")
+        res["model_times"] = time_models(res["models_checked"],
+                                         model_inputs)
+    model_inputs = None
+    if "models" in want:
+        phase("models: the model workloads (modelbench) on cuda")
+        res["models"] = run_models()
+    if "models-trace" in want:
+        phase("trace: the model workloads under torch.profiler")
+        tr = res["models_traced"] = retake(lambda: run_models(trace=True))
+        print(f"models traced: wall {tr['wall_s']:.3f} s, card busy "
+              f"{tr['busy_s']:.6f} s, idle share {tr['idle_share']:.6f}, "
+              f"copies {tr['copy_s']:.6f} s; "
+              + "; ".join(f"{k} {tr[k + '_kernels']} x "
+                          f"{tr[k + '_kernel_mean_us']:.1f} us"
+                          for k in MODEL_KERNELS), flush=True)
 
     def get(*keys):
         cur = res
@@ -1685,6 +2269,36 @@ def main(argv=None) -> int:
          "plain_ms": fleet.get("pack_plain_ms"),
          "bound_ms": fleet.get("pack_bound_ms"),
          "bound_by": fleet.get("pack_bound_by"), "library_ms": None}]
+    checked = res.get("models_checked") or {}
+    mt = res.get("model_times") or {}
+    admit = (mt.get("admit") or {}).get(max(ADMIT_SIZES)) or {}
+    model_rows = (
+        ("phold", "shadow_tpu/ops/phold_device.py:38", mt.get("phold")),
+        ("saturate", "shadow_tpu/ops/saturate_device.py:46",
+         mt.get("saturate")),
+        ("torcells_run", "shadow_tpu/ops/torcells_device.py:104",
+         mt.get("torcells_run")),
+        ("admit_sorted", "shadow_tpu/ops/bandwidth.py:67", admit))
+    for name, replaces, row in model_rows:
+        row = row or {}
+        errs = checked.get("admit") if name == "admit_sorted" else None
+        err = (max(r["err"] for r in errs.values()) if errs
+               else (checked.get(name) or {}).get("err"))
+        if name == "torcells_run" and err is not None:
+            err = max(err, checked.get("window_err", 0))
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"shadow_tpu_torch/ops/csrc/{name}.cu",
+            "replaces": replaces,
+            "launches": get("models", "counts", name),
+            "max_abs_err": err, "ms": row.get("ms"),
+            "plain_ms": row.get("plain_ms"), "bound_ms": row.get("bound_ms"),
+            "bound_by": row.get("bound_by"), "library_ms": None})
+    # phold's plain version runs to 3 s (the kernel's ms is to 30 s, the
+    # main path's horizon; its time to 3 s is model_times' ms_3s)
+    kernels[-4]["plain_horizon_s"] = (mt.get("phold") or {}).get(
+        "plain_horizon_s")
+    kernels[-4]["ms_at_plain_horizon"] = (mt.get("phold") or {}).get("ms_3s")
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     if args.out:

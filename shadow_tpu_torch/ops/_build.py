@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, at first use, into ``build/`` beside this
 file (listed in .gitignore), and loaded with ``ctypes``.  A library's file
-name carries a hash of its source and flags, so an edited source is rebuilt
-and a stale one is never loaded.  :func:`build` compiles several sources at
+name carries a hash of its source, of the ``csrc/`` headers it includes
+(``#include "x.cuh"``) and of the flags, so an edited source or header is
+rebuilt and a stale library is never loaded.  :func:`build` compiles several sources at
 once, one ``nvcc`` process each, all started together.
 
 Nothing here runs at import: the CPU tests import every module, and there
@@ -17,15 +18,19 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional
+
+import torch
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_HERE, "build")
 KERNELS = ("packet_hop", "torcells_span", "pack_flush",
-           "torcells_span_batched")
+           "torcells_span_batched", "saturate", "admit_sorted", "phold",
+           "torcells_run")
 
 # never --use_fast_math: the hop's uniform and its comparison against the
 # f32 reliability must round exactly as the plain torch version does;
@@ -54,9 +59,27 @@ def nvcc_path() -> str:
     return found
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources(path: str, seen: List[str]) -> List[str]:
+    """``path`` and, depth first, every header it includes by a quoted
+    name from its own directory."""
+    if path in seen:
+        return seen
+    seen.append(path)
+    with open(path, "rb") as f:
+        text = f.read()
+    for inc in _LOCAL_INCLUDE.findall(text):
+        _sources(os.path.join(os.path.dirname(path), inc.decode()), seen)
+    return seen
+
+
 def library_path(name: str) -> str:
-    with open(source_path(name), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(source_path(name), []):
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
@@ -99,3 +122,24 @@ def load(name: str) -> ctypes.CDLL:
     if not os.path.exists(path):
         build([name])
     return ctypes.CDLL(path)
+
+
+def entry(name: str, symbol: str, argtypes):
+    """A C entry point of the kernel library ``name`` (csrc/<name>.cu),
+    built at first use, with its argument types bound (every entry returns
+    an int: 0, or the CUDA error of a refused launch)."""
+    fn = getattr(load(name), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def check_tensor(name: str, t: torch.Tensor, dtype, shape, dev) -> None:
+    """Raise ValueError unless ``t`` is a contiguous ``dtype`` tensor of
+    ``shape`` on ``dev``: what a kernel takes, it takes exactly."""
+    if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
+            or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: expected contiguous {dtype} {shape} on {dev}, got "
+            f"{t.dtype} {tuple(t.shape)} on {t.device}")

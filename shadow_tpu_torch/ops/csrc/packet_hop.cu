@@ -4,9 +4,9 @@
 // Replaces the JAX package's device step shadow_tpu/ops/round_step.py:97
 // (packet_hop_step_packed + _finish_hop :85) with its drop draw
 // shadow_tpu/core/rng.py:63 (threefry2x32_jnp) fused in as a __device__
-// function.  The plain torch version of the same function is
-// shadow_tpu_torch/ops/round_step.py:packet_hop_packed_reference; the two
-// agree bit for bit on every lane, padding included.
+// function (csrc/threefry.cuh).  The plain torch version of the same
+// function is shadow_tpu_torch/ops/round_step.py:packet_hop_packed_reference;
+// the two agree bit for bit on every lane, padding included.
 //
 // Input `packed` is int64 [1+B, 3], row-major.  Row 0 is a header
 // (n = valid rows, round barrier ns, 0); data row i+1 holds
@@ -40,33 +40,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "threefry.cuh"
+
 namespace {
 
-__device__ __forceinline__ uint32_t rotl32(uint32_t x, int d) {
-  return (x << d) | (x >> (32 - d));
-}
-
-// Threefry-2x32, 20 rounds (Salmon et al., SC'11); the x0 lane only, which
-// is all the uniform uses.  Same schedule as core/rng.py threefry2x32_np.
-__device__ __forceinline__ uint32_t threefry2x32_x0(uint32_t k0, uint32_t k1,
-                                                    uint32_t c0, uint32_t c1) {
-  const uint32_t ks[3] = {k0, k1, 0x1BD11BDAu ^ k0 ^ k1};
-  const int rot[8] = {13, 15, 26, 6, 17, 29, 16, 24};
-  uint32_t x0 = c0 + ks[0];
-  uint32_t x1 = c1 + ks[1];
-#pragma unroll
-  for (int block = 0; block < 5; ++block) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      x0 += x1;
-      x1 = rotl32(x1, rot[(block & 1) * 4 + j]);
-      x1 ^= x0;
-    }
-    x0 += ks[(block + 1) % 3];
-    x1 += ks[(block + 2) % 3] + (uint32_t)(block + 1);
-  }
-  return x0;
-}
+using threefry::threefry2x32_x0;
 
 __device__ __forceinline__ int clamp_row(int r, int a) {
   return r < 0 ? 0 : (r >= a ? a - 1 : r);

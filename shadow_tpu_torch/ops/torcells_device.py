@@ -49,6 +49,10 @@ import numpy as np
 import torch
 
 from ..core import defs
+from ..device import resolve_device
+from ._build import check_tensor as _check
+from ._build import entry as _bound
+from .bandwidth import bucket_params
 
 CELL_WIRE_BYTES = 512 + defs.CONFIG_HEADER_SIZE_TCPIPETH
 
@@ -528,25 +532,6 @@ _SPAN_ARGTYPES = ([_VP] * 19 + [_I64] * 6 + [ctypes.c_int, _VP, _VP])
 _PACK_ARGTYPES = [_VP] * 7 + [_I64] * 4 + [_VP]
 
 
-def _bound(name: str, symbol: str, argtypes):
-    """A C entry point of the kernel library ``name`` (csrc/<name>.cu),
-    built at first use and bound (the library is cached by _build.load)."""
-    from . import _build
-    fn = getattr(_build.load(name), symbol)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _check(name: str, t: torch.Tensor, dtype, shape, dev) -> None:
-    if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
-            or not t.is_contiguous():
-        raise ValueError(
-            f"{name}: expected contiguous {dtype} {shape} on {dev}, got "
-            f"{t.dtype} {tuple(t.shape)} on {t.device}")
-
-
 def torcells_span(t0, queued, ring, tokens, delivered, target, done_tick,
                   node_sent, inject, inject_target, targets, idle_ticks,
                   flow_node, flow_lat, flow_succ, seg_start, refill,
@@ -979,3 +964,341 @@ def torcells_step_span_flush_batched(t0, queued, ring, tokens, delivered,
                                          node_sent)
     return (t_stop, queued, ring, tokens, delivered, target, done_tick,
             node_sent, forwards, flush)
+
+
+# ---------------------------------------------------------------------------
+# The device-resident model workload: run to completion, and the windowed
+# form (the JAX package's torcells_run, torcells_step_window, their numpy
+# twins and DeviceTorCells)
+# ---------------------------------------------------------------------------
+
+def torcells_step_window_numpy(t0, queued, ring, tokens, delivered, target,
+                               done_tick, node_sent, inject, inject_target,
+                               n_ticks, idle_ticks, flow_node, flow_lat,
+                               flow_succ, seg_start, refill, capacity,
+                               ring_len: int):
+    """Bit-identical host twin of torcells_step_window (same rule, same
+    ring, same completion/byte accounting) — the parity gate's oracle and
+    the --device-plane=numpy execution mode."""
+    f = len(queued)
+    h = len(refill)
+    size = CELL_WIRE_BYTES
+    is_last = flow_succ < 0
+    queued = queued + inject
+    target = target + inject_target
+    tokens = np.minimum(capacity, tokens + refill * int(idle_ticks))
+    if int(idle_ticks) > 0:
+        ring = np.zeros_like(ring)   # idle jump: stale send history cleared
+    arr_lat = np.zeros(f, dtype=np.int64)
+    np.add.at(arr_lat, np.maximum(flow_succ, 0),
+              np.where(is_last, 0, flow_lat))
+    cols = np.arange(f)
+    forwards = 0
+    t = int(t0)
+    for _ in range(int(n_ticks)):
+        arr = ring[(t - arr_lat) % ring_len, cols]
+        queued = queued + arr
+        tokens = np.minimum(capacity, tokens + refill)
+        cap_cells = tokens[flow_node] // size
+        csum = np.cumsum(queued)
+        seg_base = np.where(seg_start > 0, csum[np.maximum(seg_start - 1, 0)],
+                            0) * (seg_start > 0)
+        before = csum - queued - seg_base
+        served = np.clip(cap_cells - before, 0, queued)
+        queued = queued - served
+        spent = np.bincount(flow_node, weights=served * size,
+                            minlength=h).astype(np.int64)
+        tokens = tokens - spent
+        node_sent = node_sent + spent
+        delivered = delivered + np.where(is_last, served, 0)
+        newly_done = (is_last & (target > 0) & (done_tick < 0)
+                      & (delivered >= target))
+        done_tick = np.where(newly_done, t, done_tick)
+        v = np.zeros(f, dtype=np.int64)
+        np.add.at(v, np.maximum(flow_succ, 0), np.where(is_last, 0, served))
+        ring[t % ring_len] = v
+        forwards += int(served.sum())
+        t += 1
+    return (np.int64(t), queued, ring, tokens, delivered, target, done_tick,
+            node_sent, np.int64(forwards))
+
+
+def torcells_run_numpy(queued0, flow_node, flow_lat, flow_succ, seg_start,
+                       refill, capacity, ring_len: int, max_ticks: int):
+    """Bit-identical host twin (same allocation rule, same ring)."""
+    f = len(queued0)
+    h = len(refill)
+    size = CELL_WIRE_BYTES
+    is_last = flow_succ < 0
+    queued = queued0.astype(np.int64).copy()
+    ring = np.zeros((ring_len, f), dtype=np.int64)
+    tokens = capacity.astype(np.int64).copy()
+    delivered = np.zeros(f, dtype=np.int64)
+    arr_lat = np.zeros(f, dtype=np.int64)
+    np.add.at(arr_lat, np.maximum(flow_succ, 0),
+              np.where(is_last, 0, flow_lat))
+    cols = np.arange(f)
+    forwards = 0
+    t = 0
+    total = int(queued0.sum())
+    while delivered.sum() < total and t < max_ticks:
+        arr = ring[(t - arr_lat) % ring_len, cols]
+        queued += arr
+        tokens = np.minimum(capacity, tokens + refill)
+        cap_cells = tokens[flow_node] // size
+        csum = np.cumsum(queued)
+        seg_base = np.where(seg_start > 0, csum[np.maximum(seg_start - 1, 0)],
+                            0) * (seg_start > 0)
+        before = csum - queued - seg_base
+        served = np.clip(cap_cells - before, 0, queued)
+        queued -= served
+        spent = np.bincount(flow_node, weights=served * size,
+                            minlength=h).astype(np.int64)
+        tokens -= spent
+        delivered += np.where(is_last, served, 0)
+        v = np.zeros(f, dtype=np.int64)
+        np.add.at(v, np.maximum(flow_succ, 0), np.where(is_last, 0, served))
+        ring[t % ring_len] = v
+        forwards += int(served.sum())
+        t += 1
+    return delivered, t, forwards
+
+
+def torcells_run_torch(queued0, flow_node, flow_lat, flow_succ, seg_start,
+                       refill, capacity, ring_len: int, max_ticks,
+                       arr_lat: Optional[torch.Tensor] = None):
+    """Plain torch version of the JAX package's ``torcells_run``: from an
+    all-zero int64 [L, F] ring and full buckets, tick until every queued
+    cell is delivered or ``max_ticks``.  Returns (delivered int64 [F], the
+    ticks run and the forwards, both 0-d int64 tensors).  Pure.  It reads
+    the delivered sum on the host each tick, which is the plain version's
+    privilege; the kernel decides its halt on the card."""
+    dev = queued0.device
+    f = queued0.shape[0]
+    h = refill.shape[0]
+    size = CELL_WIRE_BYTES
+    i64 = torch.int64
+    is_last = flow_succ < 0
+    zero_f = torch.zeros(f, dtype=i64, device=dev)
+    queued = queued0.clone()
+    ring = torch.zeros((ring_len, f), dtype=i64, device=dev)
+    tokens = capacity.clone()
+    delivered = zero_f.clone()
+    if arr_lat is None:
+        arr_lat = arrival_latency(flow_lat, flow_succ)
+    cols = torch.arange(f, device=dev)
+    succ0 = flow_succ.clamp(min=0)
+    has_base = seg_start > 0
+    base_idx = (seg_start - 1).clamp(min=0)
+    total = int(queued0.sum())
+    max_ticks = int(max_ticks)
+    forwards = torch.zeros((), dtype=i64, device=dev)
+    t = 0
+    while int(delivered.sum()) < total and t < max_ticks:
+        queued = queued + ring[torch.remainder(t - arr_lat, ring_len), cols]
+        tokens = torch.minimum(capacity, tokens + refill)
+        assert bool((tokens >= 0).all()), "torcells: negative tokens"
+        cap_cells = torch.div(tokens[flow_node], size, rounding_mode="floor")
+        csum = torch.cumsum(queued, 0)
+        before = csum - queued - torch.where(has_base, csum[base_idx],
+                                             zero_f)
+        served = torch.minimum((cap_cells - before).clamp(min=0), queued)
+        queued = queued - served
+        tokens = tokens - torch.zeros(h, dtype=i64, device=dev).index_add_(
+            0, flow_node, served * size)
+        delivered = delivered + torch.where(is_last, served, zero_f)
+        ring[t % ring_len] = torch.zeros(f, dtype=i64, device=dev) \
+            .index_add_(0, succ0, torch.where(is_last, zero_f, served))
+        forwards = forwards + served.sum()
+        t += 1
+    return delivered, torch.tensor(t, dtype=i64, device=dev), forwards
+
+
+_RUN_ARGTYPES = [_VP] * 11 + [_I64] * 4 + [_VP]
+
+
+def torcells_run(queued0, flow_node, flow_lat, flow_succ, seg_start, refill,
+                 capacity, ring_len: int, max_ticks,
+                 tables: Optional[SpanTables] = None):
+    """Run the cell model until every cell is delivered or ``max_ticks``
+    (the JAX package's ``torcells_run`` argument list, every operand int64).
+    On CPU tensors the plain version; on CUDA tensors one cooperative launch
+    of csrc/torcells_run.cu on the current stream, no synchronisation,
+    counted in ``torcells_run.launches``; ``tables`` (a :class:`SpanTables`
+    of this flow table) saves re-deriving and re-checking it.  Returns
+    (delivered int64 [F], ticks, forwards), the last two 0-d int64 tensors
+    on the operands' device."""
+    dev = queued0.device
+    if dev.type == "cpu":
+        return torcells_run_torch(
+            queued0, flow_node, flow_lat, flow_succ, seg_start, refill,
+            capacity, ring_len, max_ticks,
+            arr_lat=None if tables is None else tables.arr_lat)
+    if dev.type != "cuda":
+        raise ValueError(f"torcells_run: unsupported device {dev}")
+    f = queued0.shape[0]
+    h = refill.shape[0]
+    i64 = torch.int64
+    for name, t, shape in (("queued0", queued0, (f,)),
+                           ("flow_node", flow_node, (f,)),
+                           ("flow_lat", flow_lat, (f,)),
+                           ("flow_succ", flow_succ, (f,)),
+                           ("seg_start", seg_start, (f,)),
+                           ("refill", refill, (h,)),
+                           ("capacity", capacity, (h,))):
+        _check(f"torcells_run: {name}", t, i64, shape, dev)
+    if f < 1 or h < 1:
+        raise ValueError(f"torcells_run: needs F >= 1 and H >= 1, got F={f}, "
+                         f"H={h}")
+    if tables is None:
+        tables = SpanTables(flow_node, flow_lat, flow_succ, seg_start, h,
+                            ring_len)
+    queued = torch.empty(f, dtype=i64, device=dev)
+    ring = torch.empty((ring_len, f), dtype=i64, device=dev)
+    tokens = torch.empty(h, dtype=i64, device=dev)
+    delivered = torch.empty(f, dtype=i64, device=dev)
+    # [0] ticks, [1] forwards, [2] the cells queued, [3:6] the per-tick
+    # delivered sums; the kernel adds into them
+    scalars = torch.zeros(6, dtype=i64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _bound("torcells_run", "torcells_run_launch", _RUN_ARGTYPES)(
+        queued0.data_ptr(), tables.node_off.data_ptr(),
+        tables.arr_lat.data_ptr(), flow_succ.data_ptr(), refill.data_ptr(),
+        capacity.data_ptr(), queued.data_ptr(), ring.data_ptr(),
+        tokens.data_ptr(), delivered.data_ptr(), scalars.data_ptr(), f, h,
+        int(ring_len), int(max_ticks), stream)
+    if rc != 0:
+        raise RuntimeError(f"torcells_run kernel launch failed: CUDA error "
+                           f"{rc} (F={f}, H={h}, L={ring_len})")
+    torcells_run.launches += 1
+    return delivered, scalars[0], scalars[1]
+
+
+torcells_run.launches = 0
+
+
+def _window_ring_check(ring: torch.Tensor, capacity: torch.Tensor) -> None:
+    """The windowed step keeps its send ring in RING_TORCH_DTYPE (the span
+    kernel's int32): refuse any other dtype, and a bucket whose one-tick
+    burst (capacity / CELL_WIRE_BYTES cells) would not fit in it."""
+    if ring.dtype != RING_TORCH_DTYPE:
+        raise TypeError(f"torcells_step_window: the ring must be "
+                        f"{RING_TORCH_DTYPE} (the span kernel's), got "
+                        f"{ring.dtype}")
+    if capacity.numel() and int(capacity.max()) // CELL_WIRE_BYTES \
+            > torch.iinfo(RING_TORCH_DTYPE).max:
+        raise ValueError("torcells_step_window: a bucket's one-tick burst "
+                         "does not fit in the int32 ring")
+
+
+def torcells_step_window_torch(t0, queued, ring, tokens, delivered, target,
+                               done_tick, node_sent, inject, inject_target,
+                               n_ticks, idle_ticks, flow_node, flow_lat,
+                               flow_succ, seg_start, refill, capacity,
+                               ring_len: int,
+                               arr_lat: Optional[torch.Tensor] = None):
+    """Plain torch version of the JAX package's ``torcells_step_window``:
+    fold the injections and ``idle_ticks``, then advance EXACTLY
+    ``n_ticks`` ticks, which is :func:`torcells_step_span_torch` with the
+    one boundary ``t0 + n_ticks``.  Returns its 9-tuple.  Pure."""
+    _window_ring_check(ring, capacity)
+    return torcells_step_span_torch(
+        t0, queued, ring, tokens, delivered, target, done_tick, node_sent,
+        inject, inject_target, [int(t0) + int(n_ticks)], idle_ticks,
+        flow_node, flow_lat, flow_succ, seg_start, refill, capacity,
+        ring_len, arr_lat=arr_lat)
+
+
+def torcells_step_window(t0, queued, ring, tokens, delivered, target,
+                         done_tick, node_sent, inject, inject_target,
+                         n_ticks, idle_ticks, flow_node, flow_lat, flow_succ,
+                         seg_start, refill, capacity, ring_len: int,
+                         tables: Optional[SpanTables] = None):
+    """The windowed step (the JAX package's ``torcells_step_window``
+    argument list and 9-tuple: t, queued, ring, tokens, delivered, target,
+    done_tick, node_sent, forwards).  The ring must be int32.  On CPU
+    tensors the plain version; on CUDA tensors one launch of the span
+    kernel (csrc/torcells_span.cu, counted in ``torcells_span.launches``)
+    with the single boundary ``t0 + n_ticks``, which runs exactly n_ticks
+    ticks whatever completes, and the carried state updated in place (the
+    JAX package donated it).  t and forwards come back as 0-d int64
+    tensors."""
+    if queued.device.type == "cpu":
+        return torcells_step_window_torch(
+            t0, queued, ring, tokens, delivered, target, done_tick,
+            node_sent, inject, inject_target, n_ticks, idle_ticks, flow_node,
+            flow_lat, flow_succ, seg_start, refill, capacity, ring_len,
+            arr_lat=None if tables is None else tables.arr_lat)
+    _window_ring_check(ring, capacity)
+    no_chains = torch.empty(0, dtype=torch.int64, device=queued.device)
+    state, _flush_inputs = torcells_span(
+        t0, queued, ring, tokens, delivered, target, done_tick, node_sent,
+        inject, inject_target, [int(t0) + int(n_ticks)], idle_ticks,
+        flow_node, flow_lat, flow_succ, seg_start, refill, capacity,
+        no_chains, ring_len, tables=tables)
+    return state
+
+
+class DeviceTorCells:
+    """Build a circuits-over-relays instance and run it on ``device``
+    (default the card; ``"cpu"`` runs the plain version).  The arrays are
+    the JAX class's, made by the same numpy calls in the same order."""
+
+    def __init__(self, n_relays: int, n_circuits: int, seed: int = 7,
+                 relay_bw_kibps: int = 2048, edge_bw_kibps: int = 1 << 20,
+                 max_latency_ms: int = 120, device: str = "cuda"):
+        rng = np.random.default_rng(seed)
+        # nodes: [clients | relays | servers] — clients/servers effectively
+        # unthrottled, relays are the contended resource
+        n_clients = n_circuits
+        n_servers = max(1, n_circuits // 50)
+        h = n_clients + n_relays + n_servers
+        lat = rng.integers(2, max_latency_ms, size=(h, h)).astype(np.int64)
+        np.fill_diagonal(lat, 1)
+        bw = np.full(h, edge_bw_kibps, dtype=np.int64)
+        bw[n_clients:n_clients + n_relays] = relay_bw_kibps
+        refill, cap = bucket_params(bw)
+        self.refill = refill.astype(np.int64)
+        self.capacity = cap.astype(np.int64)
+        # routes: distinct guard/middle/exit per circuit
+        route = np.empty((n_circuits, 5), dtype=np.int64)
+        route[:, 4] = np.arange(n_circuits)                       # client
+        route[:, 0] = n_clients + n_relays + rng.integers(
+            0, n_servers, size=n_circuits)                        # server
+        picks = rng.random((n_circuits, n_relays)).argsort(axis=1)[:, :3]
+        route[:, 1:4] = n_clients + picks                         # e, m, g
+        self.flows = build_flows(route, lat)
+        self.ring_len = int(max_latency_ms) + 2
+        self.n_flows = n_circuits * 5
+        self.route = route
+        self.device = resolve_device(device)
+        fl = self.flows
+        self.tensors = tuple(torch.as_tensor(a, device=self.device) for a in (
+            fl["flow_node"], fl["flow_lat"], fl["flow_succ"], fl["seg_start"],
+            self.refill, self.capacity))
+        self.tables = SpanTables(*self.tensors[:4], h, self.ring_len)
+
+    def _args(self, cells_per_circuit: int):
+        fl = self.flows
+        queued0 = np.where(fl["flow_stage"] == 0, cells_per_circuit, 0) \
+            .astype(np.int64)
+        return queued0, fl
+
+    def run_device(self, cells_per_circuit: int, max_ticks: int):
+        """One call of :func:`torcells_run` (on the card: queued0 uploaded,
+        one launch, the results read back).  Returns numpy delivered [F],
+        the ticks and the forwards as ints."""
+        queued0, _fl = self._args(cells_per_circuit)
+        delivered, ticks, forwards = torcells_run(
+            torch.as_tensor(queued0, device=self.device), *self.tensors,
+            self.ring_len, max_ticks, tables=self.tables)
+        return delivered.cpu().numpy(), int(ticks), int(forwards)
+
+    def run_numpy(self, cells_per_circuit: int, max_ticks: int):
+        queued0, fl = self._args(cells_per_circuit)
+        d, t, fw = torcells_run_numpy(queued0, fl["flow_node"],
+                                      fl["flow_lat"], fl["flow_succ"],
+                                      fl["seg_start"], self.refill,
+                                      self.capacity, self.ring_len,
+                                      max_ticks)
+        return d, t, fw

@@ -222,3 +222,131 @@ def test_a_failed_launch_ends_the_run(dev, monkeypatch):
     with pytest.raises(RuntimeError, match="torcells_span kernel launch "
                        "failed: CUDA error 2"):
         _run_device_tor("cuda")
+
+
+# ---------------------------------------------------------------------------
+# the model workloads' kernels (phold, saturate, torcells_run, admit_sorted)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n_hosts,n_msgs,horizon", [(32, 64, 2 * 10 ** 9),
+                                                    (64, 20000, 10 ** 9)])
+def test_phold_kernel_bit_exact_vs_plain_version(dev, n_hosts, n_msgs,
+                                                 horizon):
+    """In shared memory (64 messages) and in device memory (20,000)."""
+    from shadow_tpu_torch.ops import phold_device as pd
+    p = pd.DevicePhold(n_hosts, n_msgs, seed=n_hosts, device="cuda")
+    args = (p.latency, torch.as_tensor(p.msg_host, device=dev),
+            torch.as_tensor(p.msg_time, device=dev), (p.key_lo, p.key_hi),
+            horizon)
+    before = pd.phold_run.launches
+    got = pd.phold_run(*args, with_windows=True)
+    assert pd.phold_run.launches == before + 1
+    want = pd.phold_run_torch(*args, with_windows=True)
+    for a, b in zip(got, want):
+        assert a.device == dev and a.dtype == b.dtype
+        assert torch.equal(a, b)
+    nh, nt, nhops = p.run_numpy(horizon)
+    np.testing.assert_array_equal(got[0].cpu().numpy(), nh)
+    np.testing.assert_array_equal(got[1].cpu().numpy(), nt)
+    assert int(got[2]) == nhops
+
+
+def test_saturate_kernel_bit_exact_vs_plain_version(dev):
+    from shadow_tpu_torch.ops import saturate_device as sd
+    rng = np.random.default_rng(11)
+    h = 100
+    sat = sd.DeviceSaturate(rng.integers(200, 2000, size=h), device="cuda")
+    first = rng.integers(0, 50, size=h).astype(np.int64)
+    n = rng.integers(100, 3000, size=h).astype(np.int64)
+    args = (torch.as_tensor(first, device=dev), torch.as_tensor(n, device=dev),
+            sat.size, sat._refill, sat._capacity, sat.qcap_pkts, 3000)
+    before = sd.saturate_run.launches
+    got = sd.saturate_run(*args)
+    assert sd.saturate_run.launches == before + 1
+    want = sd.saturate_run_torch(*args)
+    for a, b, c in zip(got, want, sat.run_numpy(first, n, 3000)):
+        assert torch.equal(a, b)
+        np.testing.assert_array_equal(a.cpu().numpy(), c)
+
+
+def test_torcells_run_kernel_bit_exact_vs_plain_version(dev):
+    from shadow_tpu_torch.ops import torcells_device as td
+    tc = td.DeviceTorCells(n_relays=20, n_circuits=60, seed=3,
+                           relay_bw_kibps=512, device="cuda")
+    q0 = torch.as_tensor(tc._args(40)[0], device=dev)
+    before = td.torcells_run.launches
+    got = td.torcells_run(q0, *tc.tensors, tc.ring_len, 40_000,
+                          tables=tc.tables)
+    assert td.torcells_run.launches == before + 1
+    want = td.torcells_run_torch(q0, *tc.tensors, tc.ring_len, 40_000)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    d, t, f = tc.run_numpy(40, 40_000)
+    np.testing.assert_array_equal(got[0].cpu().numpy(), d)
+    assert (int(got[1]), int(got[2])) == (t, f)
+
+
+def test_torcells_step_window_kernel_bit_exact_vs_plain_version(dev):
+    """The windowed step on the card is one torcells_span launch with the
+    single boundary t0 + n_ticks: 7 + 93 ticks, an idle fold, 0 ticks."""
+    from shadow_tpu_torch.ops import torcells_device as td
+    tc = td.DeviceTorCells(n_relays=6, n_circuits=20, seed=5,
+                           relay_bw_kibps=512, max_latency_ms=20,
+                           device="cuda")
+    f, h, lr = tc.n_flows, len(tc.refill), tc.ring_len
+    q0 = torch.as_tensor(tc._args(25)[0], device=dev)
+    zero = torch.zeros_like(q0)
+    state = [0, zero.clone(), torch.zeros((lr, f), dtype=torch.int32,
+                                          device=dev),
+             tc.tensors[5].clone(), zero.clone(), zero.clone(),
+             torch.full((f,), -1, dtype=torch.int64, device=dev),
+             torch.zeros(h, dtype=torch.int64, device=dev)]
+    for i, (n, idle) in enumerate(((7, 0), (93, 0), (0, 50), (40, 0))):
+        inj = q0 if i == 0 else zero
+        want = td.torcells_step_window_torch(state[0], *state[1:], inj, inj,
+                                             n, idle, *tc.tensors, lr)
+        before = td.torcells_span.launches
+        got = td.torcells_step_window(state[0], *[a.clone() for a in
+                                                  state[1:]],
+                                      inj, inj, n, idle, *tc.tensors, lr,
+                                      tables=tc.tables)
+        assert td.torcells_span.launches == before + 1
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        state = [int(got[0])] + list(got[1:8])
+
+
+@pytest.mark.parametrize("n_hosts,n,invalid", [(8, 256, 0.0),
+                                               (2050, 8192, 0.0),
+                                               (64, 4096, 0.4)])
+def test_admit_sorted_kernel_bit_exact_vs_plain_version(dev, n_hosts, n,
+                                                        invalid):
+    from shadow_tpu_torch.ops import bandwidth as bw
+    rng = np.random.default_rng(n)
+    dst = np.sort(rng.integers(0, n_hosts, size=n)).astype(np.int32)
+    sizes = rng.integers(60, 1501, size=n).astype(np.int64)
+    arrive = rng.integers(10 ** 7, 3 * 10 ** 7, size=n).astype(np.int64)
+    valid = rng.random(n) >= invalid
+    refill, cap = bw.bucket_params(rng.integers(80, 2000, size=n_hosts))
+    tok0 = rng.integers(0, cap + 1).astype(np.int64)
+    args = tuple(torch.as_tensor(a, device=dev) for a in
+                 (dst, sizes, arrive, valid, tok0, refill, cap))
+    before = bw.admit_sorted.launches
+    got = bw.admit_sorted(*args)
+    assert bw.admit_sorted.launches == before + 1
+    assert torch.equal(got, bw.admit_sorted_torch(*args))
+    assert not got[~args[3]].any()
+
+
+def test_model_wrappers_reject_what_their_kernels_do_not_take(dev):
+    from shadow_tpu_torch.ops import bandwidth as bw
+    from shadow_tpu_torch.ops import phold_device as pd
+    from shadow_tpu_torch.ops import saturate_device as sd
+    i64 = torch.zeros(4, dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError, match="dst_rows"):
+        bw.admit_sorted(i64, i64, i64, i64 > 0, i64, i64, i64)
+    with pytest.raises(ValueError, match="msg_host"):
+        pd.phold_run(torch.zeros((4, 4), dtype=torch.int64, device=dev),
+                     i64, i64, (1, 2), 10)
+    with pytest.raises(ValueError, match="size"):
+        sd.saturate_run(i64, i64, 0, i64, i64, 4, 10)

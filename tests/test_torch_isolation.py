@@ -121,6 +121,14 @@ def test_import_shadow_tpu_does_not_load_torch():
     assert res.returncode == 0, res.stderr
 
 
+def test_trace_probe_refuses_without_a_card(monkeypatch):
+    import torch
+    from shadow_tpu_torch.tools import trace_probe
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a GPU"):
+        trace_probe.main(["--minutes", "0"])
+
+
 def test_cuda_without_a_card_raises(monkeypatch):
     import torch
     from shadow_tpu_torch.core import configuration
@@ -153,3 +161,46 @@ def test_verbatim_copy_equals_original(module):
         ref = f.read()
     assert port.replace("shadow_tpu_torch.", "shadow_tpu.") == ref, (
         f"shadow_tpu_torch/{module}.py drifted from shadow_tpu/{module}.py")
+
+
+# the model workloads' modules: each imports with jax and shadow_tpu
+# blocked, and keeps its numpy twins as copies of the JAX package's
+MODEL_MODULES = ["ops/phold_device", "ops/saturate_device", "ops/bandwidth",
+                 "ops/torcells_device", "tools/modelbench"]
+MODEL_TWINS = [("ops/saturate_device", "saturate_run_numpy"),
+               ("ops/phold_device", "phold_run_numpy"),
+               ("ops/torcells_device", "torcells_run_numpy"),
+               ("ops/torcells_device", "torcells_step_window_numpy"),
+               ("ops/bandwidth", "bucket_params")]
+
+
+@pytest.mark.parametrize("module", MODEL_MODULES)
+def test_model_module_imports_with_jax_blocked(module):
+    name = "shadow_tpu_torch." + module.replace("/", ".")
+    assert name in _port_modules()
+    res = _run_python(f"""
+        import sys
+        for blocked in ("jax", "jaxlib", "shadow_tpu"):
+            sys.modules[blocked] = None   # importing it now raises
+        import importlib
+        importlib.import_module({name!r})
+        print("OK")
+    """)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("OK")
+
+
+def _function_source(path, name):
+    with open(path, encoding="utf-8") as f:
+        text = f.read()
+    for node in ast.parse(text).body:
+        if isinstance(node, ast.FunctionDef) and node.name == name:
+            return ast.get_source_segment(text, node)
+    raise AssertionError(f"{name} not in {path}")
+
+
+@pytest.mark.parametrize("module,name", MODEL_TWINS)
+def test_model_numpy_twin_equals_original(module, name):
+    port = _function_source(os.path.join(PORT, module + ".py"), name)
+    ref = _function_source(os.path.join(REF, module + ".py"), name)
+    assert port == ref, f"{module}.{name} drifted from shadow_tpu's"
