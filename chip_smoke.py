@@ -73,9 +73,38 @@ result line:
     which launches no kernel): one kernel of each kind per counted launch,
     the card's busy time and idle share.
 
-Each trace (6, 8, 13, 17) runs its slice between two marker kernels; the
-profiler at times drops the card's events at the start of its window, and a
-trace that lost a marker is taken again, at most three times in all.
+The mesh (D shards on one card; run in this order among the phases above:
+mesh kernels and times after 4, the tor1k matrix slice after 6, the tor10k
+mesh slice and its trace after 8):
+
+M1. mesh kernels vs plain versions: ``mesh_span`` + the mesh entry of
+    ``pack_flush`` on the tor10k plane's flow table, partitioned by
+    ``chain_partition``, at D in {8, 3, 2} and every exchange mode (fused,
+    ppermute, a leg-masked ppermute at D = 8, none), for 3's first three
+    span cases: bit-exact on all ten outputs (the trailing cross-shard slot
+    included) against the plain mesh version on the card and, read back
+    through the layout, against ``torcells_span`` + ``pack_flush`` on the
+    unpadded table; the sharded hop in both layouts at B in {256, 4096,
+    65536} and D in {8, 3} against its plain versions and ``packet_hop``;
+M2. mesh times: one 256-tick mesh dispatch at D = 8 in turns with the
+    single-table span on the same state (CUDA events), the mesh flush and
+    the sharded hop (D = 8 batch-sharded, D = 4 matrix-sharded) beside
+    ``packet_hop`` by graph replay, each beside its bound;
+M3. the tor1k matrix slice: tor1k under ``tpu`` with ``--tpu-devices 4
+    --tpu-shard-matrix``: EXPECTED, every hop batch one launch of
+    ``packet_hop_sharded``, no other kernel;
+M4. the tor10k mesh slice: tor10k with ``--tpu-devices 8``: EXPECTED10K,
+    ``mesh.host_bounces == 0``, the cross-shard counts EXPECTED_MESH10K,
+    one ``mesh_span`` and one mesh flush launch per dispatch, the hop as 8
+    slice launches of ``packet_hop_sharded`` per batch (the matrices
+    whole), no single-table kernel;
+M5. the tor10k mesh slice under ``torch.profiler``: one mesh span and one
+    mesh flush kernel per counted dispatch, the card's busy time and idle
+    share.
+
+Each trace (6, 8, 13, 17, M5) runs its slice between two marker kernels;
+the profiler at times drops the card's events at the start of its window,
+and a trace that lost a marker is taken again, at most three times in all.
 
 ``--phases`` runs a subset (with no arguments it runs them all).  The line
 before the last is the card; the one before it the kernel table as JSON;
@@ -718,7 +747,10 @@ TRACED_KERNELS = {"hop": "packet_hop_kernel", "span": "torcells_span_kernel",
                   "pack_b": "pack_flush_batched_kernel",
                   "phold": "phold_kernel", "saturate": "saturate_kernel",
                   "torcells_run": "torcells_run_kernel",
-                  "admit_sorted": "admit_sorted_kernel"}
+                  "admit_sorted": "admit_sorted_kernel",
+                  "mesh_span": "mesh_span_kernel",
+                  "mesh_pack": "pack_flush_mesh_kernel",
+                  "hop_s": "packet_hop_sharded_kernel"}
 
 
 # The kernel of torch.cuda._sleep, launched as a marker at each end of a
@@ -1420,12 +1452,15 @@ def _wrappers() -> dict:
     from shadow_tpu_torch.ops import round_step as rs
     from shadow_tpu_torch.ops import saturate_device as sd
     from shadow_tpu_torch.ops import torcells_device as td
+    from shadow_tpu_torch.parallel.mesh import exchange as ex
     return {"span": td.torcells_span, "pack": td.pack_flush,
             "span_b": td.torcells_span_batched,
             "pack_b": td.pack_flush_batched, "hop": rs.packet_hop_packed,
             "phold": pd.phold_run, "saturate": sd.saturate_run,
             "torcells_run": td.torcells_run,
-            "admit_sorted": bw.admit_sorted}
+            "admit_sorted": bw.admit_sorted, "mesh_span": ex.mesh_span,
+            "mesh_pack": ex.mesh_pack_flush,
+            "hop_s": rs.packet_hop_sharded}
 
 
 def _reset_counts():
@@ -2055,10 +2090,593 @@ def run_models(trace: bool = False) -> dict:
     return out
 
 
-PHASES = ("build", "kernels", "times", "tor1k", "tor1k-trace", "tor10k",
-          "tor10k-trace", "fleet-kernels", "fleet-times", "fleet-smoke",
-          "sweep", "sweep-trace", "model-kernels", "model-times", "models",
-          "models-trace")
+# ---------------------------------------------------------------------------
+# The mesh: D shards on one card (mesh_span + the mesh flush; the sharded
+# hop in both layouts)
+# ---------------------------------------------------------------------------
+
+# The tor10k mesh slice: the tor10k slice with --tpu-devices 8 (the plane
+# sharded over 8 shards of the card, the hop batch-sharded over 8).  The
+# JAX package holds its sharded run equal to its single-device run, and its
+# D = 8 run of this config gives EXPECTED10K; EXPECTED_MESH10K are its
+# mesh.* counts (tests/test_torch_mesh_slow.py remakes both, pytest -m
+# slow).  The tor1k matrix slice: the tor1k slice with --tpu-devices 4
+# --tpu-shard-matrix (A = 183 rows padded to 184); it gives EXPECTED.
+MESH10K_SHARDS = 8
+EXPECTED_MESH10K = {"mesh.cross_shard_cells": 8244738,
+                    "mesh.exchange_legs": 7, "mesh.cross_edges": 56323}
+TOR1K_MATRIX_SHARDS = 4
+MESH_CHECK = ((8, ("fused", "ppermute", "ppermute-masked", "none")),
+              (3, ("fused", "ppermute", "none")),
+              (2, ("fused", "ppermute", "none")))
+HOP_SHARDS = (8, 3)
+HOP_SHARD_SIZES = (256, 4096, 65536)
+MESH_TIME_TICKS = (16, 256)
+MESH_KERNELS = ("mesh_span", "mesh_pack", "hop_s")
+
+
+def mesh_layout(plane, n_shards: int) -> dict:
+    """The padded layout attach_mesh builds for ``plane`` (the chain
+    partition over ``n_shards``)."""
+    from shadow_tpu_torch.parallel.mesh.partition import build_mesh_layout
+    return build_mesh_layout(plane.flow_node, plane.flow_lat_steps,
+                             plane.flow_succ, plane.seg_start,
+                             plane.refill_step, plane.capacity_step,
+                             n_shards)
+
+
+def pad_mesh_state(lay, st) -> tuple:
+    """A numpy state in the original layout -> the padded layout (the
+    re-shard's translation: flows through pad_state, the ring by columns,
+    node arrays through node_src)."""
+    import numpy as np
+    from shadow_tpu_torch.parallel.mesh.partition import pad_state
+    keep, src, nsrc = lay["keep"], lay["src"], lay["node_src"]
+    ring = np.zeros((st[2].shape[0], len(src)), dtype=st[2].dtype)
+    ring[:, keep] = st[2][:, src[keep]]
+    ok = nsrc >= 0
+    tok = np.zeros(len(nsrc), dtype=np.int64)
+    sent = np.zeros(len(nsrc), dtype=np.int64)
+    tok[ok] = st[3][nsrc[ok]]
+    sent[ok] = st[7][nsrc[ok]]
+    return (int(st[0]), pad_state(lay, st[1]), ring, tok,
+            pad_state(lay, st[4]), pad_state(lay, st[5]),
+            pad_state(lay, st[6], fill=-1), sent)
+
+
+def unpad_mesh_state(lay, out, n_nodes: int) -> list:
+    """The mesh step's outputs (numpy, padded) in the original layout (a
+    node on no shard reads 0)."""
+    import numpy as np
+    inv, nsrc = lay["inv"], lay["node_src"]
+    ok = nsrc >= 0
+
+    def nodes(a):
+        g = np.zeros(n_nodes, dtype=np.int64)
+        g[nsrc[ok]] = a[ok]
+        return g
+    return [out[0], out[1][inv], out[2][:, inv], nodes(out[3]), out[4][inv],
+            out[5][inv], out[6][inv], nodes(out[7]), out[8], out[9]]
+
+
+def _mesh_step(plane, lay, n_shards: int, mode: str):
+    from shadow_tpu_torch.parallel.mesh import device_mesh
+    from shadow_tpu_torch.parallel.mesh import exchange as ex
+    masked = mode.endswith("-masked")
+    mode = mode.split("-")[0]
+    lm = tuple(k % 2 == 0 for k in range(lay["exchange"].legs)) \
+        if masked else None
+    last = lay["inv"][plane.last_flow]
+    step = ex.make_mesh_span_flush(
+        device_mesh(n_shards, device=_card()), "flows", plane.ring_len, lay,
+        last, lay["node_src"], plane.n_nodes, mode=mode, leg_mask=lm)
+
+    def plain(*a):
+        import torch
+        return ex.mesh_span_flush_torch(
+            *a, ring_len=plane.ring_len, schedule=lay["exchange"],
+            last_flow_pad=torch.as_tensor(last, device=_card()),
+            node_src=torch.as_tensor(lay["node_src"], device=_card()),
+            n_nodes=plane.n_nodes, mode=mode, leg_mask=lm)
+    return step, plain
+
+
+def _mesh_statics(lay):
+    import torch
+    return tuple(torch.as_tensor(lay[k], device=_card()) for k in (
+        "flow_node_local", "succ_global", "seg_start_local", "refill",
+        "capacity", "arr_lat", "shard_base"))
+
+
+def _mesh_run(fn, state, inject, inject_target, targets, idle, statics):
+    import torch
+    dev = _card()
+    st = [torch.as_tensor(a, device=dev) for a in state[1:]]
+    out = fn(state[0], *st, torch.as_tensor(inject, device=dev),
+             torch.as_tensor(inject_target, device=dev), targets, idle,
+             *statics)
+    torch.cuda.synchronize()
+    return [o.cpu().numpy() for o in out]
+
+
+def check_mesh(plane) -> int:
+    """mesh_span + the mesh flush against the plain mesh version on the
+    card, bit-exact on all ten outputs (trailing slot included), and, read
+    back through the layout, against one torcells_span + pack_flush launch
+    on the unpadded table (the exactness argument; in the modes that
+    exchange every leg): on the tor10k plane's flow table, partitioned by
+    chain_partition, at every D and exchange mode of MESH_CHECK, for the
+    first three span cases (a mid-span halt, an idle fold, an injection on
+    a boundary).  Returns the largest absolute difference seen (0)."""
+    import numpy as np
+    from shadow_tpu_torch.ops import torcells_device as td
+    from shadow_tpu_torch.ops.torcells_device import flush_len
+    from shadow_tpu_torch.parallel.mesh import exchange as ex
+    from shadow_tpu_torch.parallel.mesh.partition import pad_state
+    cases = [c for c in span_cases(plane) if c[6] is None]
+    single = [_span_run(plane, td.torcells_step_window_flush, st, inj,
+                        inj_t, tv, idle, None)
+              for _n, st, inj, inj_t, tv, idle, _c in cases]
+    base = flush_len(plane.n_chains, plane.n_nodes)
+    max_err = 0
+    for n_shards, modes in MESH_CHECK:
+        t0 = time.perf_counter()
+        lay = mesh_layout(plane, n_shards)
+        statics = _mesh_statics(lay)
+        present = np.zeros(plane.n_nodes, dtype=bool)
+        present[lay["node_src"][lay["node_src"] >= 0]] = True
+        for mode in modes:
+            step, plain = _mesh_step(plane, lay, n_shards, mode)
+            for (name, st, inj, inj_t, tv, idle, _c), one in zip(cases,
+                                                                 single):
+                args = (pad_mesh_state(lay, st), pad_state(lay, inj),
+                        pad_state(lay, inj_t), tv, idle, statics)
+                s0, p0 = ex.mesh_span.launches, ex.mesh_pack_flush.launches
+                kern = _mesh_run(step, *args)
+                if (ex.mesh_span.launches, ex.mesh_pack_flush.launches) != \
+                        (s0 + 1, p0 + 1):
+                    fail("the mesh wrappers did not count one launch each")
+                ref = _mesh_run(plain, *args)
+                err = _max_err(zip(kern, ref))
+                max_err = max(max_err, err)
+                if err:
+                    fail(f"mesh D={n_shards} {mode} {name}: the kernels "
+                         f"differ from the plain mesh version (max |diff| "
+                         f"{err})")
+                cross = int(kern[9][-1])
+                if (mode == "none") != (cross == 0):
+                    fail(f"mesh D={n_shards} {mode} {name}: {cross} cells "
+                         "crossed shards")
+                if mode not in ("fused", "ppermute"):
+                    # 'none' and a leg mask leave cross-shard cells out:
+                    # the same bits as the single table only where those
+                    # legs carry none, which a busy state does not give
+                    continue
+                back = unpad_mesh_state(lay, kern, plane.n_nodes)
+                for i in range(9):
+                    a, b = back[i], one[i]
+                    if i in (3, 7):
+                        a, b = a[present], b[present]
+                    if not np.array_equal(a, b):
+                        fail(f"mesh D={n_shards} {mode} {name}: output {i} "
+                             "differs from the single-table kernels'")
+                if not np.array_equal(kern[9][:base], one[9]):
+                    fail(f"mesh D={n_shards} {mode} {name}: the flush "
+                         "differs from the single-table kernels'")
+        sched = lay["exchange"]
+        print(f"mesh D={n_shards} (pad {lay['pad']}, h_pad {lay['h_pad']}, "
+              f"{sched.legs} legs, {sched.cross_edges} cross edges, pair "
+              f"width {sched.pair_width}): {', '.join(modes)} x "
+              f"{len(cases)} cases == plain mesh version == single-table "
+              f"kernels, bit-exact ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
+    return max_err
+
+
+def _hop_inputs(n: int, seed: int):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lat = rng.integers(1_000_000, 150_000_000, size=(A, A), dtype=np.int64)
+    rel = rng.random((A, A)).astype(np.float32)
+    pick = rng.random((A, A))
+    rel[pick < 0.3] = np.float32(1.0)
+    rel[(pick >= 0.3) & (pick < 0.4)] = np.float32(0.0)
+    cols = (rng.integers(0, A, size=n, dtype=np.int32),
+            rng.integers(0, A, size=n, dtype=np.int32),
+            rng.integers(0, 2 ** 64, size=n, dtype=np.uint64),
+            rng.integers(BOOTSTRAP_END // 2, 2 * BOOTSTRAP_END, size=n,
+                         dtype=np.int64))
+    barrier = int(np.median(cols[3])) + 50_000_000
+    return lat, rel, cols, barrier
+
+
+def _sharded_cols(kern, cols, barrier):
+    import torch
+    b = kern.bucket(len(cols[0]))
+    return b, tuple(torch.as_tensor(c, device=_card())
+                    for c in kern.padded_batch(*cols, b))
+
+
+def check_sharded_hop() -> int:
+    """The sharded hop in both layouts (D launches of packet_hop_sharded on
+    the batch's slices with the matrices whole; one launch on the whole
+    batch with the matrices in D row slices) against its
+    plain version on the card over the whole padded bucket, and against
+    packet_hop on the valid lanes, at B in HOP_SHARD_SIZES (n = B - B/8
+    packets) and D in HOP_SHARDS.  Returns the largest |difference| (0)."""
+    import numpy as np
+    from shadow_tpu_torch.ops import round_step as rs
+    max_err = 0
+    for b in HOP_SHARD_SIZES:
+        n = b - b // 8
+        lat, rel, cols, barrier = _hop_inputs(n, 500 + b)
+        one = rs.PacketHopKernel.from_arrays(lat, rel, DROP_KEY,
+                                             BOOTSTRAP_END, _card())
+        od, ok = one.step(*cols, barrier)
+        buckets = []
+        for d in HOP_SHARDS:
+            for matrix in (False, True):
+                kern = rs.ShardedPacketHopKernel.from_arrays(
+                    lat, rel, DROP_KEY, BOOTSTRAP_END, _card(),
+                    n_devices=d, shard_matrix=matrix)
+                bk, dcols = _sharded_cols(kern, cols, barrier)
+                s0 = rs.packet_hop_sharded.launches
+                got = kern._run(dcols, barrier)
+                launched = rs.packet_hop_sharded.launches - s0
+                if launched != (1 if matrix else d):
+                    fail(f"sharded hop D={d} matrix={matrix}: launches "
+                         f"{launched}")
+                keys = (kern.key_lo, kern.key_hi, BOOTSTRAP_END, barrier)
+                if matrix:
+                    want = rs.matrix_sharded_hop_reference(
+                        kern.lat_rows, kern.rel_rows, A, dcols, *keys)
+                else:
+                    want = rs.batch_sharded_hop_reference(
+                        kern.latency, kern.reliability, dcols, d, *keys)
+                err = _max_err(zip(got, want))
+                max_err = max(max_err, err)
+                if err:
+                    fail(f"sharded hop D={d} matrix={matrix} B={b}: the "
+                         f"kernel differs from its plain version ({err})")
+                sd, sk = kern.step(*cols, barrier)
+                gd = got[0][:n].cpu().numpy()
+                gk = got[1][:n].cpu().numpy()
+                if not (np.array_equal(gd, od) and np.array_equal(gk, ok)
+                        and np.array_equal(sd, od)
+                        and np.array_equal(sk, ok)):
+                    fail(f"sharded hop D={d} matrix={matrix} B={b}: "
+                         "differs from packet_hop")
+                buckets.append(bk)
+        print(f"sharded hop B={b} n={n}, D in {HOP_SHARDS} (buckets "
+              f"{sorted(set(buckets))}): batch and matrix layouts == plain "
+              f"versions == packet_hop, bit-exact; kept {int(ok.sum())}/{n}",
+              flush=True)
+    return max_err
+
+
+def mesh_flush_bound(c: int, h: int) -> dict:
+    """done_tick and delivered read through last_flow, done_in; node_sent
+    and sent_in through node_slot; the three scalars; the buffer with its
+    trailing slot written once."""
+    return _bound_row(8 * (2 * c + c + c + 3 * h + 3)
+                      + 8 * (6 + 2 * c + 2 * h), 8 * (c + h))
+
+
+def sharded_hop_bound(bucket: int, pairs: int) -> dict:
+    """The six columns read once (25 B a lane), each distinct (src, dst)
+    entry gathered once (12 B), deliver and keep written once; the lanes'
+    32-bit operations (the cipher and the hop, OPS_PER_LANE)."""
+    return _bound_row(bucket * 25 + pairs * 12 + bucket * 9,
+                      bucket * OPS_PER_LANE)
+
+
+def mesh_bound(plane, lay, ticks: int, tables) -> dict:
+    """The single-table span's bound (span_bound) plus the exchange slots'
+    bytes, each slot written once and read once (8 + 8 bytes).  As in
+    span_bound, traffic that repeats each tick is not counted: the ring is
+    counted once, and so are the slots (~0.45 MB at tor10k, in L2)."""
+    row = span_bound(plane, ticks)
+    slots = int(tables.recv_slot.numel())
+    row = _bound_row(row["bytes"] + 16 * slots, row["ops"])
+    row["slots"] = slots
+    return row
+
+
+def time_mesh(plane) -> dict:
+    """One mesh dispatch at D = MESH10K_SHARDS (the heuristic's mode) at
+    MESH_TIME_TICKS ticks, no completion, by CUDA events with the state
+    restored outside the timed interval, in turns with torcells_span on
+    the same state (single, mesh, mesh, single); the mesh flush by graph
+    replay; the plain mesh version once; each beside its bound.  Then the
+    sharded hop by graph replay in both layouts (D = 8 batch-sharded, the
+    tor10k mesh slice's; D = 4 matrix-sharded, the tor1k matrix slice's)
+    beside packet_hop at the same n, and its plain versions."""
+    import numpy as np
+    import torch
+    from shadow_tpu_torch.ops import round_step as rs
+    from shadow_tpu_torch.ops import torcells_device as td
+    from shadow_tpu_torch.parallel.mesh import exchange as ex
+    from shadow_tpu_torch.parallel.mesh.partition import pad_state
+    rng = np.random.default_rng(23)
+    st = list(busy_state(plane, rng, 30000))
+    st[5] = np.zeros(plane.n_flows, dtype=np.int64)   # no target: no halt
+    lay = mesh_layout(plane, MESH10K_SHARDS)
+    mode = ex.choose_exchange_mode(lay["exchange"])[0]
+    step, plain = _mesh_step(plane, lay, MESH10K_SHARDS, mode)
+    statics = _mesh_statics(lay)
+    tables = ex.MeshTables(lay, plane.ring_len, lay["inv"][plane.last_flow],
+                           lay["node_src"], plane.n_nodes, mode, None,
+                           _card())
+    dev = _card()
+    mst = pad_mesh_state(lay, st)
+    zp = torch.zeros(len(lay["src"]), dtype=torch.int64, device=dev)
+    zf = torch.zeros(plane.n_flows, dtype=torch.int64, device=dev)
+    args = plane._flow_args()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+
+    def timed(launch, saved, reps=6):
+        live = tuple(a.clone() for a in saved)
+        total = 0.0
+        for r in range(reps + 1):
+            for a, b in zip(live, saved):
+                a.copy_(b)
+            torch.cuda._sleep(2_000_000)
+            e0.record()
+            launch(live)
+            e1.record()
+            torch.cuda.synchronize()
+            if r:
+                total += e0.elapsed_time(e1)
+        return total / reps
+
+    out = {"mode": mode, "shards": MESH10K_SHARDS}
+    for ticks in MESH_TIME_TICKS:
+        tv = np.array([30000 + ticks])
+        msaved = tuple(torch.as_tensor(a, device=dev) for a in mst[1:])
+        ssaved = plane._to_device(st)[1:]
+
+        def mesh_launch(live):
+            ex.mesh_span(30000, *live, zp, zp, tv, 0, statics[3],
+                         statics[4], tables)
+
+        def single_launch(live):
+            td.torcells_span(30000, *live, zf, zf, tv, 0, *args,
+                             ring_len=plane.ring_len,
+                             tables=plane._span_tables)
+        s1 = timed(single_launch, ssaved)
+        m1 = timed(mesh_launch, msaved)
+        m2 = timed(mesh_launch, msaved)
+        s2 = timed(single_launch, ssaved)
+        out[ticks] = {"mesh_ms": (m1 + m2) / 2, "single_ms": (s1 + s2) / 2,
+                      "mesh_ms_each": [m1, m2], "single_ms_each": [s1, s2]}
+    t_lo, t_hi = MESH_TIME_TICKS
+    per_tick = (out[t_hi]["mesh_ms"] - out[t_lo]["mesh_ms"]) / (t_hi - t_lo)
+    single_tick = (out[t_hi]["single_ms"] - out[t_lo]["single_ms"]) \
+        / (t_hi - t_lo)
+    tv = np.array([30000 + t_hi])
+    msaved = tuple(torch.as_tensor(a, device=dev) for a in mst[1:])
+    _, plain_ms = _host_ms(lambda: plain(30000, *msaved, zp, zp, tv, 0,
+                                         *statics))
+    span = {"ticks": t_hi, "ms": out[t_hi]["mesh_ms"],
+            "ms_short": out[t_lo]["mesh_ms"], "ms_per_tick": per_tick,
+            "single_ms": out[t_hi]["single_ms"],
+            "single_ms_per_tick": single_tick, "plain_ms": plain_ms,
+            "turns_ms": out[t_hi]["mesh_ms_each"],
+            "single_turns_ms": out[t_hi]["single_ms_each"]}
+    span.update(mesh_bound(plane, lay, t_hi, tables))
+    print(f"mesh_span D={MESH10K_SHARDS} {mode}: {span['ms']:.4f} ms at "
+          f"{t_hi} ticks ({per_tick * 1e3:.3f} us/tick), beside "
+          f"torcells_span {span['single_ms']:.4f} ms "
+          f"({single_tick * 1e3:.3f} us/tick); plain {plain_ms:.1f} ms; "
+          f"bound {span['bound_ms'] * 1e3:.3f} us ({span['bound_by']}, "
+          f"{span['bytes']} B with {span['slots']} slots a tick, "
+          f"{span['ops']} ops)", flush=True)
+    # the mesh flush alone, by graph replay, on a finished dispatch's state
+    live = [torch.as_tensor(a, device=dev) for a in mst[1:]]
+    sc, (cross, done_in, sent_in) = ex.mesh_span(
+        30000, *live, zp, zp, np.array([30000 + t_lo]), 0, statics[3],
+        statics[4], tables)
+    pargs = (sc[0], sc[8], cross, sc[6], sc[4], sc[7], done_in, sent_in,
+             tables)
+    pack_ms = graph_ms(lambda: ex.mesh_pack_flush(*pargs))
+    last = torch.as_tensor(lay["inv"][plane.last_flow], device=dev)
+    nsrc = torch.as_tensor(lay["node_src"], device=dev)
+
+    def pack_plain():
+        done_last = sc[6][last]
+        newly = (done_last >= 0) & (done_in < 0)
+        delta = ex.global_sent_torch(sc[7], nsrc, plane.n_nodes) \
+            - ex.global_sent_torch(sent_in, nsrc, plane.n_nodes)
+        flush = td.pack_flush_torch(sc[8], sc[4][last].sum(), sc[0], newly,
+                                    done_last, delta)
+        return torch.cat([flush, cross.reshape(1)])
+    got = ex.mesh_pack_flush(*pargs)
+    if not torch.equal(got, pack_plain()):
+        fail("the mesh flush differs from its plain version")
+    _, pack_plain_ms = _events_ms(pack_plain, reps=5)
+    pack = {"ms": pack_ms, "plain_ms": pack_plain_ms}
+    pack.update(mesh_flush_bound(plane.n_chains, plane.n_nodes))
+    print(f"mesh flush: {pack_ms * 1e3:.3f} us (graph replay), plain "
+          f"{pack_plain_ms * 1e3:.1f} us, bound {pack['bound_ms'] * 1e3:.3f}"
+          f" us ({pack['bound_by']})", flush=True)
+    # the sharded hop beside packet_hop, at the tor1k run's larger bucket
+    n = MAIN_B - MAIN_B // 8
+    lat, rel, cols, barrier = _hop_inputs(n, 77)
+    one = rs.PacketHopKernel.from_arrays(lat, rel, DROP_KEY, BOOTSTRAP_END,
+                                         dev)
+    packed = torch.from_numpy(one._pack(*cols, MAIN_B, barrier)).to(dev)
+    hop_args = (one.latency, one.reliability, packed, one.key_lo,
+                one.key_hi, one.bootstrap_end_ns)
+    single_hop_ms = graph_ms(lambda: rs.packet_hop_packed(*hop_args))
+    hops = {}
+    for key, d, matrix in (("batch", MESH10K_SHARDS, False),
+                           ("matrix", TOR1K_MATRIX_SHARDS, True)):
+        kern = rs.ShardedPacketHopKernel.from_arrays(
+            lat, rel, DROP_KEY, BOOTSTRAP_END, dev, n_devices=d,
+            shard_matrix=matrix)
+        bk, dcols = _sharded_cols(kern, cols, barrier)
+        ms = graph_ms(lambda: kern._run(dcols, barrier))
+        keys = (kern.key_lo, kern.key_hi, BOOTSTRAP_END, barrier)
+        if matrix:
+            _, p_ms = _events_ms(lambda: rs.matrix_sharded_hop_reference(
+                kern.lat_rows, kern.rel_rows, A, dcols, *keys), reps=5)
+        else:
+            _, p_ms = _events_ms(lambda: rs.batch_sharded_hop_reference(
+                kern.latency, kern.reliability, dcols, d, *keys), reps=5)
+        pairs = len(set(zip(cols[0].tolist(), cols[1].tolist())))
+        row = {"shards": d, "bucket": bk, "n": n, "ms": ms,
+               "single_ms": single_hop_ms, "plain_ms": p_ms}
+        row.update(sharded_hop_bound(bk, pairs))
+        hops[key] = row
+        print(f"sharded hop ({key}, D={d}, n={n} in a bucket of {bk}): "
+              f"{ms * 1e3:.2f} us a batch (graph replay; "
+              f"{'1 launch' if matrix else f'{d} launches'}), beside "
+              f"packet_hop {single_hop_ms * 1e3:.2f} us at B={MAIN_B}; plain "
+              f"{p_ms * 1e3:.1f} us; bound {row['bound_ms'] * 1e6:.2f} ns "
+              f"({row['bound_by']})", flush=True)
+    return {"span": span, "pack": pack, "hop": hops}
+
+
+def run_tor10k_mesh(trace: bool = False) -> dict:
+    """The tor10k mesh slice (--tpu-devices MESH10K_SHARDS) through
+    Controller.run on cuda, every kernel count set to 0 just before it and
+    read just after."""
+    import torch
+    from shadow_tpu_torch.core.checkpoint import state_digest
+    from shadow_tpu_torch.core.controller import Controller
+    from shadow_tpu_torch.core.logger import SimLogger, set_logger
+    set_logger(SimLogger(level="warning"))
+    opts = tor10k_options()
+    opts.tpu_devices = MESH10K_SHARDS
+    ctl = Controller(opts, tor10k_config())
+    _reset_counts()
+    with card_trace(trace) as prof:
+        t0 = time.perf_counter()
+        rc = ctl.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = _counts()
+    eng = ctl.engine
+    plane = eng.device_plane
+    st = plane.stats()
+    kern = eng.scheduler.policy._kernel
+    out = {"slice": "tor10k mesh", "rc": rc, "digest": state_digest(eng),
+           "events": eng.events_executed, "rounds": eng.rounds_executed,
+           "completed": st["completed"], "forwards": st["forwards"],
+           "dispatches": st["dispatches"], "steps": st["steps"],
+           "mode": st["mode"], "recoveries": st["recoveries"],
+           "demoted": st["demoted"], "hop_calls": kern.device_calls,
+           "host_calls": kern.host_calls, "shards": plane._shard["n_shards"],
+           "hop_shards": kern.n_devices, "counts": counts, "wall_s": wall,
+           "host_exec_s": eng.host_exec_ns * 1e-9,
+           "flush_s": eng.flush_ns * 1e-9,
+           "plane_host_s": st["plane_host_sec"],
+           "plane_collect_s": st["plane_device_sec"],
+           "events_per_s": eng.events_executed / wall}
+    out.update({k: v for k, v in eng.metrics.scrape().items()
+                if k.startswith("mesh.")})
+    if trace:
+        out.update(busy_intervals(prof))
+        out["idle_share"] = 1.0 - out["busy_s"] / wall
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def check_tor10k_mesh(run: dict) -> None:
+    if run["rc"] != 0:
+        fail(f"tor10k mesh exit code {run['rc']}")
+    if run["mode"] != "device" or run["recoveries"] != 0 or run["demoted"]:
+        fail(f"tor10k mesh plane mode {run['mode']}, recoveries "
+             f"{run['recoveries']}, demoted {run['demoted']}")
+    if run["shards"] != MESH10K_SHARDS or run["hop_shards"] != MESH10K_SHARDS:
+        fail(f"tor10k mesh: {run['shards']} plane shards, "
+             f"{run['hop_shards']} hop shards")
+    for key, want in EXPECTED10K.items():
+        if run[key] != want:
+            fail(f"tor10k mesh {key}: {run[key]} != JAX run's {want}")
+    if run["mesh.host_bounces"] != 0:
+        fail(f"tor10k mesh: {run['mesh.host_bounces']} host bounces")
+    for key, want in EXPECTED_MESH10K.items():
+        if run[key] != want:
+            fail(f"tor10k mesh {key}: {run[key]} != JAX run's {want}")
+    c = run["counts"]
+    if not c["mesh_span"] == c["mesh_pack"] == run["dispatches"]:
+        fail(f"tor10k mesh: {c['mesh_span']} mesh span and {c['mesh_pack']} "
+             f"mesh flush launches for {run['dispatches']} dispatches")
+    if c["hop_s"] != MESH10K_SHARDS * run["hop_calls"] \
+            or run["host_calls"] != 0:
+        fail(f"tor10k mesh: {c['hop_s']} sharded hop launches for "
+             f"{run['hop_calls']} batches of {MESH10K_SHARDS} slices")
+    others = {k: v for k, v in c.items()
+              if k not in ("mesh_span", "mesh_pack", "hop_s") and v}
+    if others:
+        fail(f"tor10k mesh: other kernels launched: {others}")
+    print(f"tor10k mesh parity: digest {run['digest'][:16]}... events "
+          f"{run['events']} rounds {run['rounds']} completed "
+          f"{run['completed']} forwards {run['forwards']} == JAX; "
+          f"cross-shard cells {run['mesh.cross_shard_cells']}, legs "
+          f"{run['mesh.exchange_legs']}, cross edges "
+          f"{run['mesh.cross_edges']} == JAX's D = 8; host bounces 0; "
+          f"{run['dispatches']} dispatches = {c['mesh_span']} mesh span + "
+          f"{c['mesh_pack']} mesh flush launches, {c['hop_s']} hop slice "
+          "launches", flush=True)
+
+
+def run_tor1k_matrix() -> dict:
+    """The tor1k slice under tpu with --tpu-devices TOR1K_MATRIX_SHARDS
+    --tpu-shard-matrix on cuda, the counts set to 0 just before it."""
+    import torch
+    from shadow_tpu_torch.core.checkpoint import state_digest
+    from shadow_tpu_torch.core.controller import Controller
+    from shadow_tpu_torch.core.logger import SimLogger, set_logger
+    from shadow_tpu_torch.core.options import Options
+    set_logger(SimLogger(level="warning"))
+    cfg = tor1k_config()
+    opts = Options(scheduler_policy="tpu", device="cuda", seed=TOR1K["seed"],
+                   stop_time_sec=int(cfg.stop_time_sec), log_level="warning",
+                   tpu_devices=TOR1K_MATRIX_SHARDS, tpu_shard_matrix=True)
+    ctl = Controller(opts, cfg)
+    _reset_counts()
+    t0 = time.perf_counter()
+    rc = ctl.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    eng = ctl.engine
+    kern = eng.scheduler.policy._kernel
+    out = {"slice": "tor1k matrix", "rc": rc, "digest": state_digest(eng),
+           "events": eng.events_executed, "rounds": eng.rounds_executed,
+           "drops": eng.counters._new.get("packet_drop", 0),
+           "device_calls": kern.device_calls, "host_calls": kern.host_calls,
+           "rows_per_shard": kern.lat_rows[0].shape[0],
+           "shards": kern.n_devices, "counts": counts, "wall_s": wall,
+           "events_per_s": eng.events_executed / wall}
+    print(json.dumps(out), flush=True)
+    if rc != 0:
+        fail(f"tor1k matrix exit code {rc}")
+    for key, want in EXPECTED.items():
+        if out[key] != want:
+            fail(f"tor1k matrix {key}: {out[key]} != JAX run's {want}")
+    if counts["hop_s"] != kern.device_calls or kern.host_calls:
+        fail(f"tor1k matrix: {counts['hop_s']} matrix-sharded launches for "
+             f"{kern.device_calls} batches")
+    others = {k: v for k, v in counts.items() if k != "hop_s" and v}
+    if others:
+        fail(f"tor1k matrix: other kernels launched: {others}")
+    print(f"tor1k matrix parity: digest {out['digest'][:16]}... events "
+          f"{out['events']} rounds {out['rounds']} drops {out['drops']} == "
+          f"JAX; {counts['hop_s']} matrix-sharded hop launches over "
+          f"{kern.n_devices} row slices of {out['rows_per_shard']}",
+          flush=True)
+    return out
+
+
+PHASES = ("build", "kernels", "times", "mesh-kernels", "mesh-times",
+          "tor1k", "tor1k-trace", "tor1k-matrix", "tor10k", "tor10k-trace",
+          "mesh10k", "mesh10k-trace", "fleet-kernels", "fleet-times",
+          "fleet-smoke", "sweep", "sweep-trace", "model-kernels",
+          "model-times", "models", "models-trace")
 
 
 def main(argv=None) -> int:
@@ -2087,7 +2705,7 @@ def main(argv=None) -> int:
         phase("build")
         build()
     plane = None
-    if want & {"kernels", "times"}:
+    if want & {"kernels", "times", "mesh-kernels", "mesh-times"}:
         t0 = time.perf_counter()
         plane = tor10k_plane()
         print(f"tor10k plane table: F {plane.n_flows} C {plane.n_chains} H "
@@ -2103,6 +2721,15 @@ def main(argv=None) -> int:
         phase("times")
         res["hop_times"] = time_kernel()
         res["torcells_times"] = time_torcells(plane)
+    if "mesh-kernels" in want:
+        phase("mesh kernels vs plain versions (mesh_span + the mesh flush "
+              "on the tor10k table at D in 8, 3, 2; the sharded hop)")
+        res["mesh_err"] = check_mesh(plane)
+        res["hop_sharded_err"] = check_sharded_hop()
+    if "mesh-times" in want:
+        phase("mesh times: a mesh dispatch beside the single-table span, "
+              "the sharded hop beside packet_hop")
+        res["mesh_times"] = time_mesh(plane)
     plane = None
     if "tor1k" in want:
         phase("slice: tor1k under --scheduler-policy=tpu on cuda")
@@ -2135,6 +2762,10 @@ def main(argv=None) -> int:
               f"packet_hop {traced['hop_kernels']} kernels, "
               f"{traced['hop_kernel_s']:.6f} s, mean "
               f"{traced['hop_kernel_mean_us']:.3f} us", flush=True)
+    if "tor1k-matrix" in want:
+        phase("slice: tor1k under tpu with --tpu-devices 4 "
+              "--tpu-shard-matrix on cuda")
+        res["tor1k_matrix"] = run_tor1k_matrix()
     if "tor10k" in want:
         phase("slice: tor10k, device clients, --scheduler-policy=tpu on "
               "cuda")
@@ -2162,6 +2793,37 @@ def main(argv=None) -> int:
               f"{tr['span_kernel_s']:.6f} s; pack {tr['pack_kernels']} x "
               f"{tr['pack_kernel_mean_us']:.2f} us; hop {tr['hop_kernels']}"
               f" x {tr['hop_kernel_mean_us']:.3f} us", flush=True)
+    if "mesh10k" in want:
+        phase("slice: tor10k with --tpu-devices 8 on cuda (the plane on 8 "
+              "shards of the card, the hop batch-sharded)")
+        res["mesh10k"] = run_tor10k_mesh()
+        check_tor10k_mesh(res["mesh10k"])
+    if "mesh10k-trace" in want:
+        phase("trace: the tor10k mesh slice under torch.profiler")
+        tr = res["mesh10k_traced"] = retake(
+            lambda: run_tor10k_mesh(trace=True))
+        check_tor10k_mesh(tr)
+        if "mesh10k" in res and tr["digest"] != res["mesh10k"]["digest"]:
+            fail("the profiled tor10k mesh run's digest differs from the "
+                 "unprofiled one")
+        for key in MESH_KERNELS:
+            if tr[f"{key}_kernels"] != tr["counts"][key]:
+                fail(f"the mesh trace holds {tr[key + '_kernels']} {key} "
+                     f"kernels for {tr['counts'][key]} counted launches")
+        for key in ("span", "pack", "hop"):
+            if tr[f"{key}_kernels"]:
+                fail(f"the mesh trace holds {tr[key + '_kernels']} {key} "
+                     "kernels of the single-table path")
+        print(f"tor10k mesh traced: wall {tr['wall_s']:.3f} s, card busy "
+              f"{tr['busy_s']:.6f} s, idle share {tr['idle_share']:.6f}, "
+              f"copies {tr['copy_s']:.6f} s; mesh span "
+              f"{tr['mesh_span_kernels']} x "
+              f"{tr['mesh_span_kernel_mean_us']:.1f} us = "
+              f"{tr['mesh_span_kernel_s']:.6f} s; mesh flush "
+              f"{tr['mesh_pack_kernels']} x "
+              f"{tr['mesh_pack_kernel_mean_us']:.2f} us; hop slices "
+              f"{tr['hop_s_kernels']} x {tr['hop_s_kernel_mean_us']:.3f} us",
+              flush=True)
     fp = lanes = None
     if want & {"fleet-kernels", "fleet-times"}:
         t0 = time.perf_counter()
@@ -2299,6 +2961,36 @@ def main(argv=None) -> int:
     kernels[-4]["plain_horizon_s"] = (mt.get("phold") or {}).get(
         "plain_horizon_s")
     kernels[-4]["ms_at_plain_horizon"] = (mt.get("phold") or {}).get("ms_3s")
+    mesh_t = res.get("mesh_times") or {}
+    ms_ = mesh_t.get("span") or {}
+    mp = mesh_t.get("pack") or {}
+    hb = (mesh_t.get("hop") or {}).get("batch") or {}
+    hm = (mesh_t.get("hop") or {}).get("matrix") or {}
+    for name, source, replaces, launches, err, row in (
+            ("mesh_span", "mesh_span.cu",
+             "shadow_tpu/parallel/mesh/exchange.py:247",
+             get("mesh10k", "counts", "mesh_span"), res.get("mesh_err"), ms_),
+            ("pack_flush_mesh", "pack_flush.cu",
+             "shadow_tpu/parallel/mesh/exchange.py:473",
+             get("mesh10k", "counts", "mesh_pack"), res.get("mesh_err"), mp),
+            ("packet_hop_sharded[batch]", "packet_hop_sharded.cu",
+             "shadow_tpu/ops/round_step.py:403",
+             get("mesh10k", "counts", "hop_s"), res.get("hop_sharded_err"),
+             hb),
+            ("packet_hop_sharded", "packet_hop_sharded.cu",
+             "shadow_tpu/ops/round_step.py:272",
+             get("tor1k_matrix", "counts", "hop_s"),
+             res.get("hop_sharded_err"), hm)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"shadow_tpu_torch/ops/csrc/{source}",
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": row.get("ms"), "plain_ms": row.get("plain_ms"),
+            "bound_ms": row.get("bound_ms"), "bound_by": row.get("bound_by"),
+            "library_ms": None})
+    # the batch layout's ms is one batch's D launches (the tor10k mesh
+    # slice's D = 8), as the main path runs it
+    kernels[-2]["ms_is_per"] = "batch of D launches"
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     if args.out:

@@ -52,12 +52,6 @@ def refuse_unported(options: Options, config: Configuration) -> None:
         raise NotImplementedError(
             "--cost-model: the port has no device cost model yet (the "
             "checked-in COSTMODEL.json is the JAX package's): ROADMAP A7")
-    if has_device_clients(config) \
-            and getattr(options, "device_plane", "device") == "device" \
-            and getattr(options, "tpu_devices", 0) > 1:
-        raise NotImplementedError(
-            "the device traffic plane over --tpu-devices > 1 (the sharded "
-            "mesh) is not ported yet: ROADMAP A10")
     if getattr(options, "processes", 0) >= 2:
         raise NotImplementedError(
             "--processes >= 2 (sharded multi-process runs) is not ported "
@@ -71,12 +65,6 @@ def refuse_unported(options: Options, config: Configuration) -> None:
         get_logger().message(
             "engine", "--dataplane=auto: the port runs the Python data "
             "plane (the C plane is ROADMAP A14)")
-    if options.scheduler_policy == "tpu" and (
-            getattr(options, "tpu_devices", 0) > 1
-            or getattr(options, "tpu_shard_matrix", False)):
-        raise NotImplementedError(
-            "the sharded packet hop (--tpu-devices > 1, "
-            "--tpu-shard-matrix) is not ported yet: ROADMAP B7")
     if getattr(options, "tpu_device_threshold", 0) > 0 \
             and getattr(options, "device", "cuda") != "cpu":
         raise NotImplementedError(

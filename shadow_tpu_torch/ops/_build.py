@@ -30,7 +30,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_HERE, "build")
 KERNELS = ("packet_hop", "torcells_span", "pack_flush",
            "torcells_span_batched", "saturate", "admit_sorted", "phold",
-           "torcells_run")
+           "torcells_run", "mesh_span", "packet_hop_sharded")
 
 # never --use_fast_math: the hop's uniform and its comparison against the
 # f32 reliability must round exactly as the plain torch version does;

@@ -248,3 +248,108 @@ extern "C" int pack_flush_batched_launch(
       (const int64_t*)node_sent, (int64_t*)buf, (int64_t*)forwards, f, c, h);
   return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// pack_flush_mesh: the sharded (mesh) traffic plane's packed flush, one
+// block, with the trailing cross-shard slot.
+//
+// Replaces the flush half of the JAX package's
+// shadow_tpu/parallel/mesh/exchange.py:473 make_mesh_span_flush (its
+// step_flush :502-518: the gathers through last_flow_pad, global_sent
+// through node_src, _pack_flush_jnp with no caps, and the trailing slot),
+// after the span half csrc/mesh_span.cu.  The plain torch version is
+// shadow_tpu_torch/parallel/mesh/exchange.py:mesh_span_flush_torch.
+//
+// From the global padded state after the span and its entry snapshots
+// (done_in = done_tick[last_flow_pad], sent_in = node_sent), in the serial
+// layout above with no caps, plus one slot:
+//   newly[c] = done_tick[last_flow[c]] >= 0 && done_in[c] < 0
+//   delta[n] = node_sent[slot] - sent_in[slot], slot = node_slot[n]
+//              (0 for a node on no shard; each node lives on one shard,
+//              so the JAX scatter-add through node_src is this gather)
+//   [0] forwards, [1] sum of delivered[last_flow], [2] n_done,
+//   [3] n_touched, [4] t_stop, ..., [5 + 2C + 2H] cross
+// The chunked block scans are the serial kernel's.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+__global__ void __launch_bounds__(THREADS)
+pack_flush_mesh_kernel(const int64_t* t_stop, const int64_t* forwards,
+                       const int64_t* cross, const int64_t* done_tick,
+                       const int64_t* delivered, const int64_t* node_sent,
+                       const int64_t* done_in, const int64_t* sent_in,
+                       int64_t* buf, const int64_t* last_flow,
+                       const int64_t* node_slot, int64_t c, int64_t h) {
+  const int64_t len = HEADER + 2 * c + 2 * h;
+  for (int64_t i = HEADER + threadIdx.x; i < len; i += THREADS) buf[i] = 0;
+  __syncthreads();
+
+  int64_t carry = 0, dsum = 0;
+  for (int64_t base = 0; base < c; base += THREADS) {
+    const int64_t i = base + threadIdx.x;
+    int64_t sel = 0, dl = -1, dv_i = 0;
+    if (i < c) {
+      const int64_t k = last_flow[i];
+      dl = done_tick[k];
+      dv_i = delivered[k];
+      sel = (dl >= 0 && done_in[i] < 0) ? 1 : 0;
+    }
+    int64_t chunk, chunk_dv;
+    const int64_t pos = carry + block_exclusive_scan(sel, &chunk);
+    block_exclusive_scan(dv_i, &chunk_dv);
+    if (sel) {
+      buf[HEADER + pos] = i;
+      buf[HEADER + c + pos] = dl;
+    }
+    carry += chunk;
+    dsum += chunk_dv;
+  }
+  const int64_t n_done = carry;
+
+  carry = 0;
+  for (int64_t base = 0; base < h; base += THREADS) {
+    const int64_t i = base + threadIdx.x;
+    int64_t d = 0;
+    if (i < h) {
+      const int64_t s = node_slot[i];
+      d = s >= 0 ? node_sent[s] - sent_in[s] : 0;
+    }
+    const int64_t sel = d != 0 ? 1 : 0;
+    int64_t chunk;
+    const int64_t pos = carry + block_exclusive_scan(sel, &chunk);
+    if (sel) {
+      buf[HEADER + 2 * c + pos] = i;
+      buf[HEADER + 2 * c + h + pos] = d;
+    }
+    carry += chunk;
+  }
+
+  if (threadIdx.x == 0) {
+    buf[0] = *forwards;
+    buf[1] = dsum;
+    buf[2] = n_done;
+    buf[3] = carry;
+    buf[4] = *t_stop;
+    buf[len] = *cross;
+  }
+}
+
+}  // namespace
+
+// Launch on `stream` (a cudaStream_t passed as a pointer).  Does not
+// synchronise.  Returns cudaGetLastError(): 0 when the launch was accepted.
+extern "C" int pack_flush_mesh_launch(
+    const void* t_stop, const void* forwards, const void* cross,
+    const void* done_tick, const void* delivered, const void* node_sent,
+    const void* done_in, const void* sent_in, void* buf,
+    const void* last_flow, const void* node_slot, int64_t c, int64_t h,
+    void* stream) {
+  pack_flush_mesh_kernel<<<1, THREADS, 0, (cudaStream_t)stream>>>(
+      (const int64_t*)t_stop, (const int64_t*)forwards,
+      (const int64_t*)cross, (const int64_t*)done_tick,
+      (const int64_t*)delivered, (const int64_t*)node_sent,
+      (const int64_t*)done_in, (const int64_t*)sent_in, (int64_t*)buf,
+      (const int64_t*)last_flow, (const int64_t*)node_slot, c, h);
+  return (int)cudaGetLastError();
+}

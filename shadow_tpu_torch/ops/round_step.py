@@ -376,3 +376,346 @@ class PacketHopKernel:
         """Synchronous variant of launch (materialized, exact-length)."""
         return self.launch(src_rows, dst_rows, uids, send_times,
                            barrier_ns).wait()
+
+
+# ---------------------------------------------------------------------------
+# The sharded round step (the JAX package's ShardedPacketHopKernel over a
+# 1-D mesh, ``--tpu-devices N``): here N shards on one device
+# (parallel/mesh.device_mesh).  Two layouts, as there:
+#
+# * batch-sharded (default): the padded batch is split into N slices, the
+#   matrices whole; each slice goes through csrc/packet_hop_sharded.cu with
+#   the whole matrices as its one row slice (one launch per slice);
+# * matrix-sharded (``--tpu-shard-matrix``): the matrices are split into N
+#   row slices (each its own allocation, the rows padded to a multiple of
+#   N), the batch whole; csrc/packet_hop_sharded.cu gathers from the shard
+#   that owns the packet's src row and sums over the shards (the psum).
+#
+# Both take the six padded columns of :meth:`ShardedPacketHopKernel.
+# padded_batch` (the JAX package's ``_padded_batch``): src, dst int32;
+# uid_lo, uid_hi (uint32 bit patterns held as int32); send int64; valid bool.
+# ---------------------------------------------------------------------------
+
+COLUMNS = ("src", "dst", "uid_lo", "uid_hi", "send", "valid")
+_COL_DTYPES = (torch.int32, torch.int32, torch.int32, torch.int32,
+               torch.int64, torch.bool)
+
+
+def _finish_hop_torch(lat, rel, uid_lo, uid_hi, send, valid, key_lo: int,
+                      key_hi: int, bootstrap_end: int, barrier: int):
+    """The JAX package's ``_finish_hop``: the Threefry draw keyed by the
+    uid, keep and deliver."""
+    key = (int(key_hi) << 32) | (int(key_lo) & _M32)
+    u = uniform_torch_pair(key, uid_lo.to(torch.int64) & _M32,
+                           uid_hi.to(torch.int64) & _M32)
+    keep = ((send < int(bootstrap_end)) | (rel >= 1.0) | (u <= rel)) & valid
+    deliver = torch.clamp(send + lat, min=int(barrier))
+    return deliver, keep
+
+
+def packet_hop_step_reference(latency, reliability, src, dst, uid_lo,
+                              uid_hi, send, valid, key_lo: int, key_hi: int,
+                              bootstrap_end: int, barrier: int):
+    """Plain torch version of the JAX package's ``packet_hop_step`` (the
+    unpacked hop on padded columns): returns (deliver int64, keep bool),
+    the batch's length.  Rows are clamped to [0, A), as the kernel clamps
+    them."""
+    a = latency.shape[0]
+    s = src.to(torch.int64).clamp(0, a - 1)
+    t = dst.to(torch.int64).clamp(0, a - 1)
+    return _finish_hop_torch(latency[s, t], reliability[s, t], uid_lo,
+                             uid_hi, send, valid, key_lo, key_hi,
+                             bootstrap_end, barrier)
+
+
+def batch_sharded_hop_reference(latency, reliability, cols, n_shards: int,
+                                key_lo: int, key_hi: int, bootstrap_end: int,
+                                barrier: int):
+    """Plain torch version of the JAX package's ``_make_batch_sharded_2out``:
+    :func:`packet_hop_step_reference` on each of the ``n_shards`` slices of
+    the padded columns ``cols``, the results concatenated."""
+    b = cols[0].shape[0]
+    w = b // n_shards
+    outs = [packet_hop_step_reference(
+        latency, reliability, *(c[s * w:(s + 1) * w] for c in cols),
+        key_lo, key_hi, bootstrap_end, barrier) for s in range(n_shards)]
+    return (torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]))
+
+
+def matrix_sharded_hop_reference(lat_rows, rel_rows, a: int, cols,
+                                 key_lo: int, key_hi: int, bootstrap_end: int,
+                                 barrier: int):
+    """Plain torch version of the JAX package's
+    ``_make_matrix_sharded_hop_step``: shard s holds rows s*rows_per ..
+    of the [A_pad, A] matrices (``lat_rows[s]``, ``rel_rows[s]``); each
+    shard gathers the entries whose src row it owns (zeros elsewhere) and
+    the sum over the shards (the psum) assembles them, then the hop is
+    finished.  Adding f32 zeros is exact for reliabilities >= 0."""
+    src, dst, uid_lo, uid_hi, send, valid = cols
+    s_ = src.to(torch.int64).clamp(0, a - 1)
+    t_ = dst.to(torch.int64).clamp(0, a - 1)
+    rows_per = lat_rows[0].shape[0]
+    lat = torch.zeros(src.shape[0], dtype=torch.int64, device=src.device)
+    rel = torch.zeros(src.shape[0], dtype=torch.float32, device=src.device)
+    for s, (lr, rr) in enumerate(zip(lat_rows, rel_rows)):
+        local = s_ - s * rows_per
+        mine = (local >= 0) & (local < rows_per)
+        idx = local.clamp(0, rows_per - 1)
+        lat = lat + torch.where(mine, lr[idx, t_], torch.zeros_like(lat))
+        rel = rel + torch.where(mine, rr[idx, t_], torch.zeros_like(rel))
+    return _finish_hop_torch(lat, rel, uid_lo, uid_hi, send, valid, key_lo,
+                             key_hi, bootstrap_end, barrier)
+
+
+def _check_cols(name: str, cols, b: int, dev) -> None:
+    from ._build import check_tensor
+    for col, dtype, c in zip(COLUMNS, _COL_DTYPES, cols):
+        check_tensor(f"{name}: {col}", c, dtype, (b,), dev)
+
+
+_SHARDED_ARGTYPES = ([_VP, _VP] + [ctypes.c_int] * 3 + [_VP] * 6
+                     + [ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32,
+                        ctypes.c_int64, ctypes.c_int64, _VP, _VP, _VP])
+MAX_SHARDS = 64       # csrc/packet_hop_sharded.cu MAX_SHARDS
+
+
+def packet_hop_sharded(lat_rows, rel_rows, a: int, cols, key_lo: int,
+                       key_hi: int, bootstrap_end: int, barrier: int,
+                       out=None):
+    """The hop on the six columns ``cols`` over the row slices ``lat_rows``
+    / ``rel_rows`` (shard s's [rows_per, A] int64 / f32; one slice of all
+    A rows is the whole matrix, as the batch-sharded layout gives it).  CPU
+    tensors run :func:`matrix_sharded_hop_reference`; CUDA tensors launch
+    csrc/packet_hop_sharded.cu on the current stream (no synchronisation),
+    and a refused launch raises.  Counts ``packet_hop_sharded.launches``.
+    Returns (deliver int64, keep bool), written into ``out`` (two
+    contiguous tensors, e.g. a slice of the whole batch's outputs) when
+    given."""
+    dev = cols[0].device
+    if dev.type == "cpu":
+        res = matrix_sharded_hop_reference(lat_rows, rel_rows, a, cols,
+                                           key_lo, key_hi, bootstrap_end,
+                                           barrier)
+        if out is None:
+            return res
+        out[0].copy_(res[0])
+        out[1].copy_(res[1])
+        return out
+    if dev.type != "cuda":
+        raise ValueError(f"packet_hop_sharded: unsupported device {dev}")
+    d = len(lat_rows)
+    if not 1 <= d <= MAX_SHARDS or len(rel_rows) != d:
+        raise ValueError(f"packet_hop_sharded: 1 to {MAX_SHARDS} shards, "
+                         f"got {d} latency and {len(rel_rows)} reliability "
+                         "slices")
+    rows_per = lat_rows[0].shape[0]
+    if d * rows_per < a:
+        raise ValueError(f"packet_hop_sharded: {d} x {rows_per} rows do not "
+                         f"cover A = {a}")
+    from ._build import check_tensor, entry
+    for s in range(d):
+        check_tensor(f"packet_hop_sharded: latency rows {s}", lat_rows[s],
+                     torch.int64, (rows_per, a), dev)
+        check_tensor(f"packet_hop_sharded: reliability rows {s}",
+                     rel_rows[s], torch.float32, (rows_per, a), dev)
+    b = cols[0].shape[0]
+    _check_cols("packet_hop_sharded", cols, b, dev)
+    if out is None:
+        out = (torch.empty(b, dtype=torch.int64, device=dev),
+               torch.empty(b, dtype=torch.bool, device=dev))
+    check_tensor("packet_hop_sharded: deliver", out[0], torch.int64, (b,),
+                 dev)
+    check_tensor("packet_hop_sharded: keep", out[1], torch.bool, (b,), dev)
+    deliver, keep = out
+    lat_p = (_VP * d)(*(t.data_ptr() for t in lat_rows))
+    rel_p = (_VP * d)(*(t.data_ptr() for t in rel_rows))
+    rc = entry("packet_hop_sharded", "packet_hop_sharded_launch",
+               _SHARDED_ARGTYPES)(
+        lat_p, rel_p, d, rows_per, a, *(c.data_ptr() for c in cols), b,
+        int(key_lo) & _M32, int(key_hi) & _M32, int(bootstrap_end),
+        int(barrier), deliver.data_ptr(), keep.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"packet_hop_sharded kernel launch failed: CUDA "
+                           f"error {rc} (B={b}, A={a}, D={d})")
+    packet_hop_sharded.launches += 1
+    return deliver, keep
+
+
+packet_hop_sharded.launches = 0
+
+
+class _ColumnPool(_PinnedPool):
+    """Pinned (columns, deliver, keep) sets per bucket b: the six padded
+    columns share one byte buffer (send int64 first, then src, dst, uid_lo,
+    uid_hi int32, then valid), so a batch goes up in one copy."""
+
+    COL_BYTES = 8 + 4 * 4 + 1
+
+    def acquire(self, b: int) -> tuple:
+        with self._lock:
+            free = self._free.get(b)
+            if free:
+                return free.pop()
+        return (torch.empty(b * self.COL_BYTES, dtype=torch.uint8,
+                            pin_memory=True),
+                torch.empty(b, dtype=torch.int64, pin_memory=True),
+                torch.empty(b, dtype=torch.bool, pin_memory=True))
+
+
+def column_views(buf: torch.Tensor, b: int) -> tuple:
+    """The six columns (COLUMNS order) as views of one byte buffer of
+    ``b * _ColumnPool.COL_BYTES`` bytes."""
+    send = buf[:8 * b].view(torch.int64)
+    i32 = [buf[8 * b + 4 * k * b:8 * b + 4 * (k + 1) * b].view(torch.int32)
+           for k in range(4)]
+    valid = buf[24 * b:25 * b].view(torch.bool)
+    return (i32[0], i32[1], i32[2], i32[3], send, valid)
+
+
+class ShardedPacketHopKernel(PacketHopKernel):
+    """Sharded kernel: same ``launch``/``step`` API as PacketHopKernel, over
+    a mesh of ``n_devices`` shards on one device (``--tpu-devices N``).
+
+    * default — the padded batch is split into N slices (the bucket is at
+      least N*MIN_BUCKET and a multiple of N), the matrices whole; one
+      launch of the sharded hop per slice, the matrices its one row slice;
+    * ``shard_matrix=True`` (``--tpu-shard-matrix``) — the matrices are
+      split into N row slices, each its own allocation (rows padded up to
+      a multiple of N with zero rows, never indexed: src rows always
+      reference real vertices), the batch whole; one launch of the
+      matrix-sharded hop per batch.
+
+    ``launch`` returns a :class:`HopHandle`, as the single-device kernel's
+    does: on the card the columns go up in one copy from pinned memory on
+    the kernel's stream and the results come back into pinned memory."""
+
+    def __init__(self, topology, drop_key: int, bootstrap_end_ns: int,
+                 n_devices: int, shard_matrix: bool = False, device="cuda",
+                 device_threshold: Optional[int] = None):
+        super().__init__(topology, drop_key, bootstrap_end_ns, device,
+                         device_threshold)
+        self._shard_init(n_devices, shard_matrix)
+
+    @classmethod
+    def from_arrays(cls, latency_ns, reliability, drop_key: int,
+                    bootstrap_end_ns: int, device, n_devices: int = 2,
+                    shard_matrix: bool = False,
+                    device_threshold: Optional[int] = None
+                    ) -> "ShardedPacketHopKernel":
+        self = super().from_arrays(latency_ns, reliability, drop_key,
+                                   bootstrap_end_ns, device,
+                                   device_threshold)
+        self._shard_init(n_devices, shard_matrix)
+        return self
+
+    def _shard_init(self, n_devices: int, shard_matrix: bool) -> None:
+        from ..parallel.mesh import device_mesh
+        self.mesh = device_mesh(n_devices, axis_names=("pkt",),
+                                device=self.device)
+        self.n_devices = int(n_devices)
+        self.shard_matrix = bool(shard_matrix)
+        self.a = self.latency.shape[0]
+        if shard_matrix:
+            rows = self.a
+            padded = -(-rows // self.n_devices) * self.n_devices
+            per = padded // self.n_devices
+            lat = torch.nn.functional.pad(self.latency,
+                                          (0, 0, 0, padded - rows))
+            rel = torch.nn.functional.pad(self.reliability,
+                                          (0, 0, 0, padded - rows))
+            # one allocation per shard, as each chip holds its own rows
+            self.lat_rows = [lat[s * per:(s + 1) * per].clone()
+                             for s in range(self.n_devices)]
+            self.rel_rows = [rel[s * per:(s + 1) * per].clone()
+                             for s in range(self.n_devices)]
+            del lat, rel
+        if self.stream is not None:
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
+            self._cols = _ColumnPool()
+
+    def bucket(self, n: int) -> int:
+        """The padded batch length: the power-of-two bucket, at least
+        N*MIN_BUCKET, rounded up to a multiple of N."""
+        b = max(bucket_size(n), self.n_devices * MIN_BUCKET)
+        if b % self.n_devices:
+            b = -(-b // self.n_devices) * self.n_devices
+        return b
+
+    def padded_batch(self, src_rows, dst_rows, uids, send_times, b: int,
+                     out: Optional[tuple] = None) -> tuple:
+        """The JAX package's ``_padded_batch``: the round's arrays padded to
+        ``b`` with the 64-bit uids split into the (lo, hi) 32-bit pair, as
+        the six columns (COLUMNS order) — numpy arrays, or written into the
+        views ``out`` (a reused pinned buffer)."""
+        n = len(src_rows)
+        uids = np.asarray(uids, dtype=np.uint64)
+        vals = (np.asarray(src_rows, dtype=np.int32),
+                np.asarray(dst_rows, dtype=np.int32),
+                (uids & np.uint64(_M32)).astype(np.uint32).view(np.int32),
+                (uids >> np.uint64(32)).astype(np.uint32).view(np.int32),
+                np.asarray(send_times, dtype=np.int64),
+                np.ones(n, dtype=bool))
+        if out is None:
+            out = tuple(np.zeros(b, dtype=v.dtype) for v in vals)
+        else:
+            out = tuple(o.numpy() for o in out)
+        for o, v in zip(out, vals):
+            o[:n] = v
+            o[n:] = 0
+        return out
+
+    def _run(self, cols, barrier_ns: int):
+        """One batch's launches on ``cols`` (tensors on the kernel's
+        device): deliver, keep."""
+        if self.shard_matrix:
+            return packet_hop_sharded(
+                self.lat_rows, self.rel_rows, self.a, cols, self.key_lo,
+                self.key_hi, self.bootstrap_end_ns, barrier_ns)
+        b = cols[0].shape[0]
+        w = b // self.n_devices
+        dev = cols[0].device
+        deliver = torch.empty(b, dtype=torch.int64, device=dev)
+        keep = torch.empty(b, dtype=torch.bool, device=dev)
+        for s in range(self.n_devices):
+            sl = slice(s * w, (s + 1) * w)
+            packet_hop_sharded(
+                [self.latency], [self.reliability], self.a,
+                tuple(c[sl] for c in cols), self.key_lo, self.key_hi,
+                self.bootstrap_end_ns, barrier_ns, out=(deliver[sl], keep[sl]))
+        return deliver, keep
+
+    def launch(self, src_rows: np.ndarray, dst_rows: np.ndarray,
+               uids: np.ndarray, send_times: np.ndarray,
+               barrier_ns: int) -> HopHandle:
+        n = len(src_rows)
+        if n == 0:
+            return HopHandle(0, result=(np.empty(0, dtype=np.int64),
+                                        np.empty(0, dtype=bool)))
+        if self.stream is None and n < self.DEVICE_THRESHOLD:
+            # the same numpy bypass as the single-device kernel
+            return HopHandle(n, result=self._step_numpy(
+                np.asarray(src_rows), np.asarray(dst_rows),
+                np.asarray(uids), np.asarray(send_times), barrier_ns))
+        b = self.bucket(n)
+        self.buckets_seen.add(b)
+        self.device_calls += 1
+        if self.stream is None:
+            cols = tuple(torch.from_numpy(c) for c in self.padded_batch(
+                src_rows, dst_rows, uids, send_times, b))
+            deliver, keep = self._run(cols, barrier_ns)
+            return HopHandle(n, result=(deliver.numpy()[:n],
+                                        keep.numpy()[:n]))
+        bufs = self._cols.acquire(b)
+        cols_pin, deliver_pin, keep_pin = bufs
+        self.padded_batch(src_rows, dst_rows, uids, send_times, b,
+                          out=column_views(cols_pin, b))
+        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            cols_dev = column_views(cols_pin.to(self.device,
+                                                non_blocking=True), b)
+            deliver, keep = self._run(cols_dev, barrier_ns)
+            deliver_pin.copy_(deliver, non_blocking=True)
+            keep_pin.copy_(keep, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self.stream)
+        return HopHandle(n, event=event, bufs=bufs, pool=self._cols)

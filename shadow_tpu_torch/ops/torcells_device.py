@@ -686,7 +686,12 @@ def from_jax_state(state, flow_args, device) -> Tuple[tuple, tuple]:
     tables (its ``_flow_args()`` 7-tuple: flow_node, flow_lat_steps,
     flow_succ, seg_start, refill_step, capacity_step, last_flow), given as
     numpy arrays, as the port's tensors on ``device``: t stays a Python
-    int, the ring is int32, everything else int64."""
+    int, the ring is int32, everything else int64.  The JAX mesh's padded
+    state carries over the same way: the port keeps its global layout
+    (``[D*pad]`` flow arrays, ``[D*h_pad]`` node arrays, the ``[L, D*pad]``
+    ring split by columns), and ``flow_args`` is then the mesh step's
+    7-tuple of layout statics (flow_node_local, succ_global,
+    seg_start_local, refill, capacity, arr_lat, shard_base)."""
     t, *arrays = state
     out = [int(t)]
     for i, a in enumerate(arrays):

@@ -66,13 +66,16 @@ CUDA stream, with the carried state updated in place (the JAX package
 donated it instead).  The flush comes back through a pinned host buffer
 and an event (:class:`_FlushHandle`).  ``--device cpu`` runs the plain
 torch versions.  As a fleet lane (fleet/plane.py) the plane's dispatches
-ride the fleet's batched launch instead, synchronously.  The multi-device
-mesh (ROADMAP A10) is not ported and raises NotImplementedError.  There is
-no
-hidden fallback: the numpy-twin recovery ladder runs only for the
-injected ``--fault-inject device-dispatch[-hang]:N`` /
-``demote-repromote:N`` drills; a real dispatch failure (a kernel that does
-not build, a launch or CUDA error, a watchdog timeout) ends the run.
+ride the fleet's batched launch instead, synchronously.  With
+``--tpu-devices D`` (D >= 2) the flow table is sharded over a mesh of D
+shards on that one device (parallel/mesh/): each dispatch is one launch of
+the mesh span kernel and one of the mesh flush kernel, the state in the
+padded layout.  There is no hidden fallback: the numpy-twin recovery
+ladder runs only for the injected ``--fault-inject
+device-dispatch[-hang]:N`` / ``demote-repromote:N`` drills, and the
+``device-lost:ROUND`` drill re-shards onto D-1 shards; a real dispatch
+failure (a kernel that does not build, a launch or CUDA error, a watchdog
+timeout) ends the run.
 """
 
 from __future__ import annotations
@@ -361,6 +364,10 @@ class DeviceTrafficPlane:
         self._active_plan: Optional[_SuperPlan] = None
         self.superwindows = 0
         self._rounds_launched = 0    # virtual rounds covered by launches
+        self._mesh = None
+        self._shard = None           # layout dict when sharded
+        self._sharded_step = None
+        self._mesh_make_step = None
         self.specs = specs
         for i, s in enumerate(specs):
             s.circuit = i
@@ -392,6 +399,7 @@ class DeviceTrafficPlane:
                 engine.options)
         else:
             self._costmodel, self._costmodel_status = None, "off"
+        self._meshinfo = None        # set by attach_mesh when sharded
         self._build_layout(engine)
         # COSTMODEL auto-tuner (prof/autotune.py): with a
         # loaded model covering this flow table, pick the effective
@@ -424,16 +432,26 @@ class DeviceTrafficPlane:
                     self._flush_caps = (self._tune_plan.flush_cap_chains,
                                         self._tune_plan.flush_cap_nodes)
         engine.metrics.source("autotune", self._autotune_metrics)
-        # multi-chip (the JAX package shards the flow table over a device
-        # mesh on the same --tpu-devices axis): not ported.  One card;
-        # --tpu-devices 0 (all devices) means the one card the port drives
+        # quiet-tick exchange-leg fusion: set by attach_mesh — per-chain
+        # leg bitmasks; dispatch picks a variant step with the quiet legs
+        # left out (superset masks are bit-identical)
+        self._chain_leg_bits = None
+        self._full_leg_bits = 0
+        self._active_leg_bits = 0
+        self._sharded_variants: Dict[int, object] = {}
+        # the mesh: shard the flow table over D shards (the same
+        # --tpu-devices axis the scheduler policy shards its hop on), all
+        # on the plane's one device.  Exact — see parallel/mesh/ (partition
+        # + BvN exchange); state/API stay in the ORIGINAL flow space,
+        # translated at the dispatch boundary.  --tpu-devices 0 (all
+        # devices in the JAX package) means one device, no mesh, here.
         if mode == "device":
             n_dev = int(getattr(engine.options, "tpu_devices", 1) or 0) or 1
             if n_dev > 1:
-                raise NotImplementedError(
-                    f"the device plane over {n_dev} devices (the sharded "
-                    "mesh, --tpu-devices > 1) is not ported yet: ROADMAP "
-                    "A10")
+                # the mesh path's launch cut is the exchange-leg mask;
+                # flush compaction stays single-table
+                self._flush_caps = None
+                self._setup_sharding(n_dev)
         self._state = None           # lazy: built at first activation
         # processless flows (scale tier): (start_ns, circuit) ascending;
         # the plane self-activates each at its start time — next_time()
@@ -510,12 +528,14 @@ class DeviceTrafficPlane:
                                        "device-dispatch-hang"):
             self._fault_dispatch = fault["dispatch"]
             self._fault_hang = fault["kind"] == "device-dispatch-hang"
-        # self-healing: a demote-repromote poison fails like
-        # device-dispatch:N but the demotion serves a probation
-        # (--repromote-after clean collects) and then climbs back to the
-        # device rung once, replay guard armed.  (The JAX package's
-        # device-lost drill re-shards its mesh, which the port does not
-        # have.)
+        # self-healing: an injected device loss re-shards the mesh onto
+        # D-1 shards at the next quiesced round boundary; a
+        # demote-repromote poison fails like device-dispatch:N but the
+        # demotion serves a probation (--repromote-after clean collects)
+        # and then climbs back to the device rung once, replay guard armed
+        self._fault_device_lost = 0
+        if fault and fault["kind"] == "device-lost":
+            self._fault_device_lost = fault["round"]
         if fault and fault["kind"] == "demote-repromote":
             self._fault_dispatch = fault["dispatch"]
         self._repromote_after = int(
@@ -530,13 +550,14 @@ class DeviceTrafficPlane:
         # ride the shared batched launch (lane.dispatch pads to the shape
         # class, the batched kernels advance every parked lane at once,
         # the lane hands back this plane's row).  The lane path is
-        # synchronous (the digest-pinned --device-plane-sync shape).  Flush
+        # synchronous (the digest-pinned --device-plane-sync shape) and
+        # single-table only — a sharded mesh keeps its own step.  Flush
         # caps stay off: the lane's flush section is always full-length
         # (repacked host-side), so the capped variant would only add an
         # overflow path the batch cannot re-run.
         self._lane = None
         lane = getattr(engine.options, "_fleet_lane", None)
-        if lane is not None and mode == "device":
+        if lane is not None and mode == "device" and self._shard is None:
             self._flush_caps = None
             self._lane = lane
             lane.attach_plane(self)
@@ -703,8 +724,13 @@ class DeviceTrafficPlane:
 
     # -- state ------------------------------------------------------------
     def _init_state(self):
-        f, h = self.n_flows, self.n_nodes
-        tokens0 = self.capacity_step
+        if self._shard is not None:
+            f = len(self._shard["src"])
+            h = len(self._shard["refill"])
+            tokens0 = self._shard["capacity"]
+        else:
+            f, h = self.n_flows, self.n_nodes
+            tokens0 = self.capacity_step
         from ..ops.torcells_device import RING_DTYPE
         zeros_f = np.zeros(f, dtype=np.int64)
         state = (np.int64(self._ticks_synced),
@@ -742,6 +768,122 @@ class DeviceTrafficPlane:
             return a.cpu().numpy()
         return np.asarray(a)
 
+    def _setup_sharding(self, n_dev: int) -> None:
+        """The ONE sharding entry point: the mesh plane (parallel/mesh/)
+        owns partition, exchange schedule, step, and metrics."""
+        from .mesh.meshplane import attach_mesh
+        attach_mesh(self, n_dev)
+
+    def _unshard_state(self, lay) -> tuple:
+        """Translate the live padded state back to the ORIGINAL flow/node
+        space under layout ``lay`` — the inverse of the pad_state
+        translation: flow arrays gather through ``inv``, node arrays
+        scatter through ``node_src`` (each global node lives on exactly
+        one shard, so the scatter is an assignment).  Numpy out."""
+        t, queued, ring, tokens, delivered, target, done_tick, node_sent = \
+            (self._host(a) for a in self._state)
+        inv = lay["inv"]
+        node_src = lay["node_src"]
+        valid = node_src >= 0
+        tok = np.zeros(self.n_nodes, dtype=np.int64)
+        sent = np.zeros(self.n_nodes, dtype=np.int64)
+        tok[node_src[valid]] = tokens[valid]
+        sent[node_src[valid]] = node_sent[valid]
+        return (np.int64(t), queued[inv], np.ascontiguousarray(ring[:, inv]),
+                tok, delivered[inv], target[inv], done_tick[inv], sent)
+
+    @staticmethod
+    def _state_digest(state) -> str:
+        """Canonical digest of an original-space state tuple (dtype, shape,
+        bytes per array) — the re-layout pin: translating state between
+        device layouts must be the identity in the original space."""
+        import hashlib
+        h = hashlib.sha256()
+        for a in state:
+            arr = np.asarray(a)
+            h.update(str(arr.dtype).encode())
+            h.update(str(arr.shape).encode())
+            h.update(np.ascontiguousarray(arr).tobytes())
+        return h.hexdigest()
+
+    def _reshard(self, engine) -> None:
+        """Mid-run shard loss on the mesh (``--fault-inject
+        device-lost:ROUND``): at a quiesced round boundary (no dispatch in
+        flight), translate the live padded state back to the original flow
+        space, re-run the chain partitioner and BvN exchange schedule for
+        the surviving D-1 shards, translate the state into the new layout,
+        and PIN the round trip — the original-space digest before the
+        re-layout must equal the digest read back through the new layout,
+        or the run aborts loudly.  The plane's mode, pipeline, superwindow
+        and checkpoint contracts are untouched; only the layout moved.
+        D=2 loses the mesh entirely and continues on the single-table
+        kernels (same digest pin, identity translation)."""
+        import time as _wt
+        t0 = _wt.perf_counter_ns()
+        old = self._shard
+        n_old = int(old["n_shards"])
+        n_new = n_old - 1
+        old_info = self._meshinfo
+        orig = self._unshard_state(old)
+        digest_before = self._state_digest(orig)
+        # old-layout steps and caches die with the lost shard
+        self._sharded_variants.clear()
+        self._flow_args_cached = None
+        self._zero_inject_cached = None
+        if n_new < 2:
+            self._mesh = None
+            self._shard = None
+            self._sharded_step = None
+            self._mesh_make_step = None
+            self._chain_leg_bits = None
+            self._full_leg_bits = 0
+            self._active_leg_bits = 0
+            state = orig
+            if old_info is not None:
+                old_info.n_devices = 1
+                old_info.exchange_mode = "single"
+            digest_after = self._state_digest(state)
+        else:
+            self._setup_sharding(n_new)
+            # the new schedule's leg numbering shares nothing with the old
+            # mask bookkeeping: run the always-correct full step from here
+            # on (-1 is the full-step sentinel; future activations OR into
+            # it harmlessly)
+            self._active_leg_bits = -1
+            lay = self._shard
+            from .mesh.partition import pad_state
+            keep, src = lay["keep"], lay["src"]
+            ring_o = orig[2]
+            ring_p = np.zeros((self.ring_len, len(src)), dtype=ring_o.dtype)
+            ring_p[:, keep] = ring_o[:, src[keep]]
+            node_src = lay["node_src"]
+            valid = node_src >= 0
+            tok_p = np.zeros(len(node_src), dtype=np.int64)
+            sent_p = np.zeros(len(node_src), dtype=np.int64)
+            tok_p[valid] = orig[3][node_src[valid]]
+            sent_p[valid] = orig[7][node_src[valid]]
+            state = (orig[0], pad_state(lay, orig[1]), ring_p, tok_p,
+                     pad_state(lay, orig[4]), pad_state(lay, orig[5]),
+                     pad_state(lay, orig[6], fill=-1), sent_p)
+            self._state = state
+            digest_after = self._state_digest(self._unshard_state(lay))
+            # runtime counters survive the re-layout (the schedule-shape
+            # fields are the NEW mesh's, by design)
+            self._meshinfo.cross_shard_cells += old_info.cross_shard_cells
+            self._meshinfo.host_bounces += old_info.host_bounces
+        if digest_after != digest_before:
+            raise RuntimeError(
+                f"device plane re-shard {n_old}->{n_new}: state digest "
+                f"changed across the re-layout ({digest_before[:12]} != "
+                f"{digest_after[:12]}) — the translation is not the "
+                "identity; aborting rather than continuing on corrupt "
+                "state")
+        if self.mode == "device":
+            state = self._to_device(state)
+        self._state = state
+        engine.supervision.count_reshard(
+            n_old, n_new, mttr_ns=_wt.perf_counter_ns() - t0)
+
     def _read_summaries(self):
         """(delivered, done_tick, node_sent) in the ORIGINAL flow/node
         space, whatever the execution layout.  Final-state reader for
@@ -752,7 +894,14 @@ class DeviceTrafficPlane:
         delivered = self._host(self._state[4])
         done_tick = self._host(self._state[6])
         node_sent = self._host(self._state[7])
-        return delivered, done_tick, node_sent
+        if self._shard is None:
+            return delivered, done_tick, node_sent
+        inv = self._shard["inv"]
+        node_src = self._shard["node_src"]
+        global_sent = np.zeros(self.n_nodes, dtype=np.int64)
+        valid = node_src >= 0
+        np.add.at(global_sent, node_src[valid], node_sent[valid])
+        return delivered[inv], done_tick[inv], global_sent
 
     def _flow_args(self):
         """The static flow tables, resident where the kernel runs: device
@@ -760,7 +909,16 @@ class DeviceTrafficPlane:
         int64 tables per dispatch at 10k circuits would waste host link
         bandwidth every round, with the kernel's derived tables — arrival
         latencies, node segments — computed once beside them), plain numpy
-        for the twin."""
+        for the twin.  On the mesh: the padded layout's statics (the
+        sharded step's argument list), on the plane's device."""
+        if self._flow_args_cached is None and self._shard is not None:
+            lay = self._shard
+            args = tuple(lay[k] for k in (
+                "flow_node_local", "succ_global", "seg_start_local",
+                "refill", "capacity", "arr_lat", "shard_base"))
+            if self.mode == "device":
+                args = self._to_device((0,) + args)[1:]
+            self._flow_args_cached = args
         if self._flow_args_cached is None:
             args = (self.flow_node, self.flow_lat_steps, self.flow_succ,
                     self.seg_start, self.refill_step, self.capacity_step,
@@ -780,7 +938,9 @@ class DeviceTrafficPlane:
         re-uploading two [F] int64 zero vectors per dispatch is exactly the
         per-round transfer chatter the pipeline exists to cut."""
         if self._zero_inject_cached is None:
-            z = np.zeros(self.n_flows, dtype=np.int64)
+            f = len(self._shard["src"]) if self._shard is not None \
+                else self.n_flows
+            z = np.zeros(f, dtype=np.int64)
             if self.mode == "device":
                 z = self._to_device((0, z))[1]
             self._zero_inject_cached = z
@@ -814,6 +974,17 @@ class DeviceTrafficPlane:
         if up:
             self._inject_buf.append((2 * spec.circuit + 1, up))
         self.total_injected_cells += down + up
+        if self._chain_leg_bits is not None:
+            # quiet-tick fusion bookkeeping: the chains this injection
+            # activates may now carry cells over their exchange legs —
+            # the active-leg superset only ever GROWS (in-flight cells
+            # never migrate legs), which is what keeps every cached
+            # masked variant digest-identical to the full step
+            self._active_leg_bits |= int(self._chain_leg_bits[
+                2 * spec.circuit])
+            if up:
+                self._active_leg_bits |= int(self._chain_leg_bits[
+                    2 * spec.circuit + 1])
         return spec.circuit
 
     def check_route(self, client_name: str, hops: List[str]) -> None:
@@ -855,6 +1026,22 @@ class DeviceTrafficPlane:
             return
         from ..ops.torcells_device import (RING_DTYPE,
                                            torcells_step_window_flush)
+        if self._shard is not None:
+            lay = self._shard
+            fp, hp = len(lay["src"]), len(lay["refill"])
+            zp = np.zeros(fp, dtype=np.int64)
+            state = self._to_device(
+                (0, zp, np.zeros((self.ring_len, fp), dtype=RING_DTYPE),
+                 lay["capacity"], zp, zp, np.full(fp, -1, dtype=np.int64),
+                 np.zeros(hp, dtype=np.int64)))
+            zero = self._to_device((0, zp))[1]
+            args = self._flow_args()
+            with self._on_stream():
+                out = self._sharded_step(*state, zero, zero,
+                                         self._pad_targets([1]),
+                                         np.int64(0), *args)
+            self._host(out[9])
+            return
         f, h = self.n_flows, self.n_nodes
         z = np.zeros(f, dtype=np.int64)
         state = self._to_device(
@@ -885,7 +1072,8 @@ class DeviceTrafficPlane:
         kernels on the plane's stream (the plain versions on the CPU), and
         start the flush's copy back.  Returns (the 10-tuple, the flush
         handle): a :class:`_FlushHandle` on the card, the finished numpy
-        buffer on the CPU."""
+        buffer on the CPU.  On the mesh the launch is the sharded step's
+        (the state and injections in the padded layout)."""
         from ..ops.torcells_device import torcells_step_window_flush
         args = self._flow_args()
         caps = self._flush_caps
@@ -893,7 +1081,7 @@ class DeviceTrafficPlane:
         with self._on_stream():
             if isinstance(inject, np.ndarray):
                 if self._stream is not None:
-                    up = self._pinned.acquire((2, self.n_flows))
+                    up = self._pinned.acquire((2, len(inject)))
                     up[0].numpy()[:] = inject
                     up[1].numpy()[:] = inject_target
                     held.append(up)
@@ -915,12 +1103,17 @@ class DeviceTrafficPlane:
                 self._inflight_caps = caps
                 self._inflight_args = (state, inject, inject_target, tvec,
                                        np.int64(idle))
-            out = torcells_step_window_flush(
-                *launch_state, inject, inject_target, tvec, np.int64(idle),
-                *args, ring_len=self.ring_len,
-                cap_chains=caps[0] if caps else None,
-                cap_nodes=caps[1] if caps else None,
-                tables=self._span_tables)
+            if self._shard is not None:
+                out = self._pick_sharded_step()(
+                    *launch_state, inject, inject_target, tvec,
+                    np.int64(idle), *args)
+            else:
+                out = torcells_step_window_flush(
+                    *launch_state, inject, inject_target, tvec,
+                    np.int64(idle), *args, ring_len=self.ring_len,
+                    cap_chains=caps[0] if caps else None,
+                    cap_nodes=caps[1] if caps else None,
+                    tables=self._span_tables)
             if self._stream is None:
                 return out, out[9].numpy()
             pin = self._pinned.acquire((out[9].shape[0],))
@@ -1016,6 +1209,14 @@ class DeviceTrafficPlane:
         t0 = _wt.perf_counter_ns()
         assert not self._inflight, \
             "device plane: launch with an uncollected dispatch in flight"
+        if self._fault_device_lost and self._shard is not None \
+                and self._state is not None \
+                and engine.rounds_executed + 1 >= self._fault_device_lost:
+            # injected shard loss: the plane is quiesced here (no dispatch
+            # in flight — the assert above IS the boundary condition), so
+            # re-partition onto the survivors before this round's launch
+            self._fault_device_lost = 0
+            self._reshard(engine)
         if self._auto_pos < len(self._auto):
             ws = engine.scheduler.window_start
             if self._state is None and not self._inject_buf \
@@ -1070,6 +1271,10 @@ class DeviceTrafficPlane:
                 inject_target[self.last_flow[circ]] += cells
                 self._cells_dispatched += cells
             self._inject_buf.clear()
+            if self._shard is not None:
+                from .mesh.partition import pad_state
+                inject = pad_state(self._shard, inject)
+                inject_target = pad_state(self._shard, inject_target)
             if self.mode == "device":
                 self.device_calls += 1          # inject upload
         else:
@@ -1154,8 +1359,12 @@ class DeviceTrafficPlane:
         # are a re-base jump, not loop iterations, so they don't count)
         self._launch_base = int(targets[-1]) - int(n)
         if self._costmodel is not None and self.mode == "device":
-            kernel_flows = self.n_flows
-            ex_us = 0.0
+            if self._shard is not None:
+                kernel_flows = len(self._shard["src"])
+                ex_us = self._meshinfo.predicted_us
+            else:
+                kernel_flows = self.n_flows
+                ex_us = 0.0
             # only predict INSIDE the model's measured range (the
             # two-sided CostModel.covers guard): a table far below the
             # smallest — or above the largest — calibrated flow count
@@ -1260,7 +1469,25 @@ class DeviceTrafficPlane:
                 self.granule, pred_us,
                 self._costmodel.band if self._costmodel is not None
                 else 0.0,
-                engine.scheduler.window_start, "single")
+                engine.scheduler.window_start,
+                self._meshinfo.exchange_mode if self._meshinfo is not None
+                else "single")
+        if self._meshinfo is not None:
+            # mesh flush: ONE trailing slot carries the window's
+            # cross-shard cell count (zero extra device reads; a
+            # standard-length buffer — the numpy twin after a demotion —
+            # contributes 0)
+            from .mesh.exchange import mesh_flush_extra
+            self._meshinfo.cross_shard_cells += mesh_flush_extra(
+                flush, self.n_chains, self.n_nodes)
+            if self.mode == "numpy" and forwards > 0 \
+                    and self._meshinfo.cross_edges > 0:
+                # demoted sharded plane: this window's cross-shard
+                # forwards executed HOST-side on the twin — counted so
+                # the mesh.host_bounces == 0 steady-state gate is
+                # falsifiable, not a tautology (the fault drill pins it
+                # going nonzero after a demotion)
+                self._meshinfo.host_bounces += 1
         self.total_forwards += forwards
         self._cells_delivered_seen = delivered_sum
         plan, self._active_plan = self._active_plan, None
@@ -1434,6 +1661,38 @@ class DeviceTrafficPlane:
         m["prof.flush_overflows"] = self.flush_overflows
         return m
 
+    def _pick_sharded_step(self):
+        """The sharded step variant for this dispatch (quiet-tick
+        exchange-leg fusion): when the active chains touch only a subset
+        of the schedule's legs, run a variant with the quiet legs left out
+        — each masked ppermute leg is one exchange fewer per tick, and an
+        all-masked span exchanges nothing.  The active-leg set only grows,
+        every variant is a superset of the cells actually in flight, and a
+        full variant cache falls back to the always-correct full step."""
+        if self._chain_leg_bits is None or self._full_leg_bits == 0:
+            return self._sharded_step
+        bits = self._active_leg_bits
+        full = self._full_leg_bits
+        if bits < 0 or full < 0 or bits == full:
+            if self._meshinfo is not None:
+                self._meshinfo.legs_active = full.bit_length() \
+                    if full >= 0 else self._meshinfo.legs
+            return self._sharded_step
+        step = self._sharded_variants.get(bits)
+        if step is None:
+            if len(self._sharded_variants) >= 4:
+                # variant budget spent: the full step is always right
+                if self._meshinfo is not None:
+                    self._meshinfo.legs_active = full.bit_length()
+                return self._sharded_step
+            n_legs = full.bit_length()
+            mask = tuple(bool(bits >> k & 1) for k in range(n_legs))
+            step = self._mesh_make_step(mask)
+            self._sharded_variants[bits] = step
+        if self._meshinfo is not None:
+            self._meshinfo.legs_active = bin(bits).count("1")
+        return step
+
     def _recover_dispatch(self, engine, exc: BaseException) -> np.ndarray:
         """Graceful device-plane degradation: the in-flight dispatch failed
         (exception or watchdog timeout), so rebuild the plane's state by
@@ -1455,6 +1714,11 @@ class DeviceTrafficPlane:
         engine.supervision.count_dispatch_recovery(
             f"device dispatch recovered on the numpy twin ({exc!r}); "
             "backend demoted for the rest of the run")
+        self._mesh = None
+        self._shard = None
+        self._sharded_step = None
+        self._sharded_variants.clear()
+        self._chain_leg_bits = None
         # the twin packs full-length flushes only; drop the capped-path
         # bookkeeping with the device backend
         self._flush_caps = None
@@ -1512,7 +1776,9 @@ class DeviceTrafficPlane:
         demotion served its probation, so re-attempt the device rung ONCE
         with the window-replay guard re-armed — the current twin state is
         stashed as the replay base, so a second dispatch failure rebuilds
-        from it (base + log replay) and re-demotes permanently."""
+        from it (base + log replay) and re-demotes permanently.  Single-
+        table rung only: a demotion drops the mesh, and a lost shard
+        re-enters through the re-shard path, not here."""
         self._replay_base = (int(self._ticks_synced),
                              tuple(np.asarray(a).copy()
                                    for a in self._state))

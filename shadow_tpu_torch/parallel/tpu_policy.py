@@ -29,8 +29,10 @@ same packets at exactly the same times as under ``global``/``steal``
 (asserted by tests/test_torch_tpu_policy*.py, which also hold the port to
 the JAX package's ``tpu`` runs).
 
-Not ported here: the sharded hop over several devices (``--tpu-devices`` >
-1, ``--tpu-shard-matrix``; ROADMAP B7), which core/controller.py refuses.
+With ``--tpu-devices N`` (N > 1) the hop runs sharded over a mesh of N
+shards on the one device (ops/round_step.ShardedPacketHopKernel: the batch
+split into N slices, or with ``--tpu-shard-matrix`` the path matrices split
+into N row slices), bit-identical to the unsharded hop.
 """
 
 from __future__ import annotations
@@ -137,22 +139,31 @@ class _TPUBatchMixin:
     # -- round-boundary flush ---------------------------------------------
     def _ensure_kernel(self, engine):
         if self._kernel is None:
-            from ..ops.round_step import PacketHopKernel
+            from ..ops.round_step import (PacketHopKernel,
+                                          ShardedPacketHopKernel)
             topo = engine.topology
             opts = engine.options
-            # --tpu-devices > 1 and --tpu-shard-matrix (the sharded hop,
-            # ROADMAP B7) were refused by the Controller (refuse_unported)
-            if getattr(opts, "tpu_devices", 0) == 0:
+            n_dev = getattr(opts, "tpu_devices", 0)
+            if n_dev == 0:
                 # 0 = all local devices in the JAX package; the port's hop
-                # runs on one card
+                # runs on one card, unsharded
                 get_logger().message(
                     "tpu", "--tpu-devices 0: the packet hop runs on one "
                     "device")
             device = resolve_device(getattr(opts, "device", "cuda"))
             threshold = getattr(opts, "tpu_device_threshold", 0)
-            self._kernel = PacketHopKernel(
-                topo, engine._drop_key, engine.bootstrap_end, device,
-                device_threshold=threshold)
+            if n_dev > 1:
+                # the round batch (or, with --tpu-shard-matrix, the path
+                # matrices) sharded over a mesh of n_dev shards, all on
+                # this one device
+                self._kernel = ShardedPacketHopKernel(
+                    topo, engine._drop_key, engine.bootstrap_end, n_dev,
+                    shard_matrix=getattr(opts, "tpu_shard_matrix", False),
+                    device=device, device_threshold=threshold)
+            else:
+                self._kernel = PacketHopKernel(
+                    topo, engine._drop_key, engine.bootstrap_end, device,
+                    device_threshold=threshold)
             if self._chunk is None:
                 self._chunk = getattr(opts, "tpu_chunk", 0)
             # --processes shards hand cross-shard hops to their owner at the

@@ -9,6 +9,9 @@ buffers, own stream, several chunks pending at once) and the wrappers'
 argument checks, run the small tor configs (with and without device-mode
 clients) end to end on the card against the port's CPU run, and check that
 a failed launch of the device plane ends the run instead of demoting it.
+The mesh's kernels (mesh_span, the mesh flush, the sharded hop in both
+layouts) are held the same way, and the small tor config on D shards of the
+card equals its CPU run, with every dispatch through the mesh kernels.
 """
 
 import numpy as np
@@ -169,7 +172,7 @@ def test_torcells_kernels_bit_exact_vs_plain_versions(dev, seed, idle, caps):
         assert torch.equal(a, b)
 
 
-def _run_device_tor(device):
+def _run_device_tor(device, **extra):
     """The small device-client tor config of test_torch_device_plane.py
     through the port (no JAX here: the card's machine has none)."""
     from shadow_tpu_torch.core import configuration
@@ -182,14 +185,16 @@ def _run_device_tor(device):
         device_data=True))
     ctl = Controller(Options(scheduler_policy="tpu", device=device, seed=3,
                              workers=0, stop_time_sec=60,
-                             log_level="warning"), cfg)
+                             log_level="warning", **extra), cfg)
     assert ctl.run() == 0
     e = ctl.engine
     st = e.device_plane.stats()
     return {"digest": state_digest(e), "events": e.events_executed,
             "rounds": e.rounds_executed, "forwards": st["forwards"],
             "completed": st["completed"], "dispatches": st["dispatches"],
-            "mode": st["mode"], "recoveries": st["recoveries"]}
+            "mode": st["mode"], "recoveries": st["recoveries"],
+            "mesh": {k: v for k, v in e.metrics.scrape().items()
+                     if k.startswith("mesh.")}}
 
 
 def test_device_clients_on_card_equal_cpu_run(dev):
@@ -350,3 +355,140 @@ def test_model_wrappers_reject_what_their_kernels_do_not_take(dev):
                      i64, i64, (1, 2), 10)
     with pytest.raises(ValueError, match="size"):
         sd.saturate_run(i64, i64, 0, i64, i64, 4, 10)
+
+
+# ---------------------------------------------------------------------------
+# the mesh: mesh_span + the mesh flush, the sharded hop
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n_dev,mode,masked", [
+    (8, "fused", False), (8, "ppermute", False), (8, "ppermute", True),
+    (3, "fused", False), (3, "none", False), (2, "ppermute", False)])
+def test_mesh_kernels_bit_exact_vs_plain_version(dev, n_dev, mode, masked):
+    from shadow_tpu_torch.ops.torcells_device import DeviceTorCells
+    from shadow_tpu_torch.parallel.mesh import device_mesh
+    from shadow_tpu_torch.parallel.mesh import exchange as ex
+    from shadow_tpu_torch.parallel.mesh.partition import (build_mesh_layout,
+                                                          pad_state)
+    inst = DeviceTorCells(n_relays=60, n_circuits=2000, seed=7,
+                          relay_bw_kibps=512, max_latency_ms=20,
+                          device="cpu")
+    fl = inst.flows
+    h = len(inst.refill)
+    last_flow = np.flatnonzero(fl["flow_succ"] < 0)
+    lay = build_mesh_layout(fl["flow_node"], fl["flow_lat"], fl["flow_succ"],
+                            fl["seg_start"], inst.refill, inst.capacity,
+                            n_dev)
+    legs = lay["exchange"].legs
+    lm = tuple(k % 2 == 0 for k in range(legs)) if masked else None
+    fp, hp = len(lay["src"]), len(lay["refill"])
+    statics = tuple(torch.as_tensor(lay[k], device=dev) for k in (
+        "flow_node_local", "succ_global", "seg_start_local", "refill",
+        "capacity", "arr_lat", "shard_base"))
+    q0 = pad_state(lay, np.where(fl["flow_stage"] == 0, 30, 0))
+    t0 = pad_state(lay, np.where(fl["flow_succ"] < 0, 30, 0))
+    zp = np.zeros(fp, np.int64)
+
+    def windows(step):
+        st = [torch.zeros(fp, dtype=torch.int64, device=dev),
+              torch.zeros((inst.ring_len, fp), dtype=torch.int32,
+                          device=dev),
+              torch.as_tensor(lay["capacity"], device=dev),
+              torch.zeros(fp, dtype=torch.int64, device=dev),
+              torch.zeros(fp, dtype=torch.int64, device=dev),
+              torch.full((fp,), -1, dtype=torch.int64, device=dev),
+              torch.zeros(hp, dtype=torch.int64, device=dev)]
+        out, t = [], 0
+        for inj, inj_t, tv, idle in ((q0, t0, [40], 0),
+                                     (zp, zp, [140, 240, 540], 0),
+                                     (q0, t0, [560, 600], 5)):
+            o = step(t, *st, torch.as_tensor(inj, device=dev),
+                     torch.as_tensor(inj_t, device=dev), np.array(tv), idle,
+                     *statics)
+            out.append([x.clone() for x in o])
+            t, st = int(o[0]), list(o[1:8])
+        return out
+
+    step = ex.make_mesh_span_flush(
+        device_mesh(n_dev, device=dev), "flows", inst.ring_len, lay,
+        lay["inv"][last_flow], lay["node_src"], h, mode=mode, leg_mask=lm)
+    s0, p0 = ex.mesh_span.launches, ex.mesh_pack_flush.launches
+    got = windows(step)
+    assert (ex.mesh_span.launches - s0, ex.mesh_pack_flush.launches - p0) \
+        == (3, 3)
+
+    def plain(*a):
+        return ex.mesh_span_flush_torch(
+            *a, ring_len=inst.ring_len, schedule=lay["exchange"],
+            last_flow_pad=torch.as_tensor(lay["inv"][last_flow], device=dev),
+            node_src=torch.as_tensor(lay["node_src"], device=dev),
+            n_nodes=h, mode=mode, leg_mask=lm)
+    want = windows(plain)
+    torch.cuda.synchronize()
+    for w, (g, p) in enumerate(zip(got, want)):
+        for i, (a, b) in enumerate(zip(g, p)):
+            assert torch.equal(a, b), (w, i)
+
+
+@pytest.mark.parametrize("n_dev,shard_matrix", [(8, False), (8, True),
+                                                (3, False), (3, True)])
+def test_sharded_hop_kernels_bit_exact(dev, n_dev, shard_matrix):
+    rng = np.random.default_rng(n_dev)
+    lat = rng.integers(1_000_000, 90_000_000, size=(A, A), dtype=np.int64)
+    rel = rng.random((A, A)).astype(np.float32)
+    rel[rng.random((A, A)) < 0.3] = 1.0
+    card = rs.ShardedPacketHopKernel.from_arrays(
+        lat, rel, DROP_KEY, BOOTSTRAP_END, dev, n_devices=n_dev,
+        shard_matrix=shard_matrix)
+    plain = rs.ShardedPacketHopKernel.from_arrays(
+        lat, rel, DROP_KEY, BOOTSTRAP_END, "cpu", n_devices=n_dev,
+        shard_matrix=shard_matrix)
+    one = rs.PacketHopKernel.from_arrays(lat, rel, DROP_KEY, BOOTSTRAP_END,
+                                         dev)
+    for n in (256, 4096, 65536):
+        cols = (rng.integers(0, A, n), rng.integers(0, A, n),
+                rng.integers(0, 2 ** 64, size=n, dtype=np.uint64),
+                rng.integers(0, 2 * BOOTSTRAP_END, n))
+        s0 = rs.packet_hop_sharded.launches
+        a = card.step(*cols, BOOTSTRAP_END + 40_000_000)
+        launched = rs.packet_hop_sharded.launches - s0
+        assert launched == (1 if shard_matrix else n_dev)
+        for other in (plain, one):
+            b = other.step(*cols, BOOTSTRAP_END + 40_000_000)
+            np.testing.assert_array_equal(a[0], b[0])
+            np.testing.assert_array_equal(a[1], b[1])
+
+
+def test_device_clients_on_the_mesh_on_card_equal_cpu_run(dev):
+    from shadow_tpu_torch.ops import torcells_device as td
+    from shadow_tpu_torch.parallel.mesh import exchange as ex
+    counts = (ex.mesh_span.launches, ex.mesh_pack_flush.launches,
+              td.torcells_span.launches, rs.packet_hop_sharded.launches,
+              rs.packet_hop_packed.launches)
+    card = _run_device_tor("cuda", tpu_devices=8)
+    launched = [a - b for a, b in zip(
+        (ex.mesh_span.launches, ex.mesh_pack_flush.launches,
+         td.torcells_span.launches, rs.packet_hop_sharded.launches,
+         rs.packet_hop_packed.launches), counts)]
+    cpu = _run_device_tor("cpu", tpu_devices=8)
+    for key in ("digest", "events", "rounds", "forwards", "completed",
+                "dispatches", "mesh"):
+        assert card[key] == cpu[key], key
+    # one mesh span and one mesh flush launch a dispatch, no single-table
+    # span, and the hop through the batch-sharded kernel only
+    assert launched[0] == launched[1] == card["dispatches"] > 0
+    assert launched[2] == 0 and launched[4] == 0 and launched[3] > 0
+    assert card["mesh"]["mesh.host_bounces"] == 0
+    assert card["mesh"]["mesh.cross_shard_cells"] > 0
+
+
+def test_a_failed_mesh_launch_ends_the_run(dev, monkeypatch):
+    from shadow_tpu_torch.parallel.mesh import exchange as ex
+    real = ex._bound
+
+    def bound(name, symbol, argtypes):
+        fn = real(name, symbol, argtypes)
+        return (lambda *_a: 2) if name == "mesh_span" else fn
+    monkeypatch.setattr(ex, "_bound", bound)
+    with pytest.raises(RuntimeError, match="mesh_span kernel launch failed"):
+        _run_device_tor("cuda", tpu_devices=8)

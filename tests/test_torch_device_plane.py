@@ -14,22 +14,34 @@ A real dispatch failure ends the run instead.
 """
 
 import glob
+import io
 
 import pytest
 
 import shadow_tpu.core.checkpoint as jckpt
 import shadow_tpu.core.configuration as jconf
 import shadow_tpu.core.controller as jctl
+import shadow_tpu.core.logger as jlog
 import shadow_tpu.core.options as jopt
 import shadow_tpu_torch.core.checkpoint as tckpt
 import shadow_tpu_torch.core.configuration as tconf
 import shadow_tpu_torch.core.controller as tctl
+import shadow_tpu_torch.core.logger as tlog
 import shadow_tpu_torch.core.options as topt
 from shadow_tpu_torch import cli
 from shadow_tpu_torch.tools.workloads import tor_network
 
 PACKAGES = {"jax": (jconf, jctl, jopt, jckpt),
             "torch": (tconf, tctl, topt, tckpt)}
+_LOGGERS = {"jax": jlog, "torch": tlog}
+
+
+def fresh_logger(pkg):
+    """Give ``pkg`` a logger of its own for the next run.  The process-wide
+    default binds ``sys.stderr`` when it is first made, and under pytest that
+    may be a capture an earlier test has since closed."""
+    mod = _LOGGERS[pkg]
+    mod.set_logger(mod.SimLogger(stream=io.StringIO(), level="warning"))
 STOP = 60
 XML = tor_network(8, n_clients=5, n_servers=2, stoptime=STOP,
                   stream_spec="512:20200", device_data=True)
@@ -49,6 +61,7 @@ def run(pkg, policy="global", mode="device", xml=XML, **extra):
                                    seed=3, stop_time_sec=STOP,
                                    log_level="warning", device_plane=mode,
                                    **extra), cfg)
+    fresh_logger(pkg)
     assert c.run() == 0
     st = c.engine.device_plane.stats()
     return {"digest": ckpt.state_digest(c.engine),

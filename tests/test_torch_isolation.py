@@ -43,6 +43,7 @@ VERBATIM = [
     "tools/workloads", "tools/mkscenario",
     "fuzz/__init__", "fuzz/gen",
     "fleet/__init__", "fleet/__main__", "fleet/driver",
+    "parallel/mesh/partition",
 ]
 
 

@@ -1,6 +1,8 @@
 """Paths the port has not ported refuse with NotImplementedError naming
 their ROADMAP item, before any simulation work — they never quietly take
-another path — and the port's CLI runs a config end to end on the CPU."""
+another path — the paths that were refused before their slice run and
+equal the JAX package, and the port's CLI runs a config end to end on the
+CPU."""
 
 import pytest
 
@@ -17,17 +19,16 @@ ECHO = ('<shadow stoptime="5"><plugin id="e" path="python:echo" />'
 FLOW = ('<shadow stoptime="5"><host id="s" /><host id="c">'
         '<flow dest="s" down="1000" /></host></shadow>')
 DEVICE_TOR = tor_network(2, n_clients=1, n_servers=1, device_data=True)
+# three relays: a device-mode circuit needs three hops
+DEVICE_TOR3 = tor_network(3, n_clients=2, n_servers=1, stoptime=60,
+                          device_data=True)
 
 
 @pytest.mark.parametrize("xml,opts,item", [
     (ECHO, {"processes": 2}, "A9"),
     (ECHO, {"dataplane": "native"}, "A14"),
-    (ECHO, {"scheduler_policy": "tpu", "tpu_devices": 2}, "B7"),
-    (ECHO, {"scheduler_policy": "tpu", "tpu_shard_matrix": True}, "B7"),
     (DEVICE_TOR, {"cost_model": "COSTMODEL.json"}, "A7"),
     (ECHO, {"cost_model": "COSTMODEL.json"}, "A7"),
-    (DEVICE_TOR, {"tpu_devices": 2}, "A10"),
-    (DEVICE_TOR, {"scheduler_policy": "tpu", "tpu_devices": 2}, "A10"),
 ])
 def test_unported_paths_raise(xml, opts, item):
     cfg = configuration.parse_xml(xml)
@@ -36,6 +37,45 @@ def test_unported_paths_raise(xml, opts, item):
         run_simulation(options, cfg)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         Controller(options, cfg)
+
+
+@pytest.mark.parametrize("xml,opts", [
+    (ECHO, {"scheduler_policy": "tpu", "tpu_devices": 2}),
+    (ECHO, {"scheduler_policy": "tpu", "tpu_shard_matrix": True}),
+    (DEVICE_TOR3, {"tpu_devices": 2}),
+    (DEVICE_TOR3, {"scheduler_policy": "tpu", "tpu_devices": 2}),
+    (DEVICE_TOR3, {"scheduler_policy": "tpu", "tpu_devices": 3,
+                   "tpu_shard_matrix": True}),
+])
+def test_sharded_paths_run_and_equal_jax(xml, opts):
+    """The sharded hop and the sharded traffic plane (once refused as
+    ROADMAP B7 and A10) run on the CPU and end in the JAX package's state
+    digest and event count."""
+    import io
+
+    from shadow_tpu.core import configuration as jconfiguration
+    from shadow_tpu.core.checkpoint import state_digest as jdigest
+    from shadow_tpu.core.controller import Controller as JController
+    from shadow_tpu.core.logger import SimLogger as JSimLogger
+    from shadow_tpu.core.logger import set_logger as jset_logger
+    from shadow_tpu.core.options import Options as JOptions
+    from shadow_tpu_torch.core.checkpoint import state_digest
+    from shadow_tpu_torch.core.logger import SimLogger, set_logger
+    set_logger(SimLogger(stream=io.StringIO(), level="warning"))
+    stop = 60 if xml is DEVICE_TOR3 else 5
+    ctrl = Controller(Options(device="cpu", stop_time_sec=stop, **opts),
+                      configuration.parse_xml(xml))
+    assert ctrl.run() == 0
+    jset_logger(JSimLogger(stream=io.StringIO(), level="warning"))
+    jctrl = JController(JOptions(stop_time_sec=stop, **opts),
+                        jconfiguration.parse_xml(xml))
+    assert jctrl.run() == 0
+    assert (state_digest(ctrl.engine), ctrl.engine.events_executed) == \
+        (jdigest(jctrl.engine), jctrl.engine.events_executed)
+    if xml is DEVICE_TOR3:
+        plane = ctrl.engine.device_plane
+        assert plane._shard is not None
+        assert plane.stats()["completed"] == 2
 
 
 @pytest.mark.parametrize("xml,opts", [
