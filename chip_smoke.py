@@ -18,7 +18,10 @@ result line:
    on the tor10k plane's own flow table (F = 100,000, C = 20,000,
    H = 30,494), bit-exact on all ten outputs: a mid-span halt, an idle
    fold, an injection on a boundary, a capped flush with and without
-   overflow; and ``pack_flush`` alone, all-empty, all-full and random;
+   overflow; the same five cases on a table whose nodes run longer than a
+   tile and the kernel's 512-flow chunk (``DeviceTorCells``, 800 circuits
+   over 4 relays: ~600 flows a relay); and ``pack_flush`` alone,
+   all-empty, all-full and random;
 4. times (CUDA events; graph replay for the kernels that are launch-bound)
    beside the least time the card could take for the same work;
 5. the tor1k slice: ``tor_network(1000)`` (2,050 hosts) on a seeded
@@ -43,17 +46,21 @@ result line:
    and a serial ``torcells_span`` + ``pack_flush`` launch on each lane's
    real rows: a halt mid-span while others run on, an idle fold, an
    injection on a boundary, lanes at different t_stops; and the batched
-   pack alone against its plain version;
+   pack alone against its plain version; then W in {1, 2, 4} on the
+   sweep lanes' rows, and two lanes of the long-node table, against the
+   plain batched version;
 10. fleet times: one batched dispatch at W in {1, 2, 4, 8} against W
-    serial dispatches (CUDA events), the batched kernels alone at W = 8
-    (the pack by graph replay), each beside its bound;
+    serial dispatches (CUDA events), the batched span kernel alone at each
+    W and the pack alone at W = 8 (by graph replay), each beside its
+    bound;
 11. ``simfleet smoke`` on cuda: 8 fuzz-drawn scenarios run serially and
     as 8 fleet lanes, digest-gated, with batched launches;
 12. the sweep: the genscen ``tor10k`` preset (10,000 hosts, every transfer
-    a processless device chain) with seeds 1..8, each run serially on cuda,
-    then as 8 lanes of one fleet: every lane equal to its serial run, lane
-    1 to the JAX package's, one batched span and one batched pack launch
-    per fleet launch, no serial kernel launched;
+    a processless device chain) with seeds 1..8, each run serially on cuda
+    (every ``torcells_span`` launch bracketed by CUDA events: its card time
+    inside the real runs), then as 8 lanes of one fleet: every lane equal
+    to its serial run, lane 1 to the JAX package's, one batched span and
+    one batched pack launch per fleet launch, no serial kernel launched;
 13. the sweep's fleet under ``torch.profiler``: one batched span and one
     batched pack kernel per fleet launch, the card's busy time and idle
     share;
@@ -418,6 +425,53 @@ def tor10k_plane():
     return plane
 
 
+# A table whose nodes run longer than a tile (256 flows) and the span
+# kernels' 512-flow chunk: DeviceTorCells with 800 circuits over 4 relays
+# (each circuit crosses 3 of them, so every relay paces ~600 flows)
+LONG_NODE = {"n_relays": 4, "n_circuits": 800, "seed": 41}
+
+
+class LongNodeTable:
+    """DeviceTorCells(LONG_NODE)'s flow table on ``device`` with the plane
+    attributes the span checks read (flow tables, chains, ring_len, the
+    span kernel's tables)."""
+
+    def __init__(self, device: str = "cuda"):
+        import numpy as np
+        import torch
+        from shadow_tpu_torch.ops import torcells_device as td
+        tc = td.DeviceTorCells(LONG_NODE["n_relays"],
+                               LONG_NODE["n_circuits"],
+                               seed=LONG_NODE["seed"], device=device)
+        fl = tc.flows
+        self.device = tc.device
+        self.flow_node, self.flow_lat_steps = fl["flow_node"], fl["flow_lat"]
+        self.flow_succ, self.seg_start = fl["flow_succ"], fl["seg_start"]
+        self.refill_step, self.capacity_step = tc.refill, tc.capacity
+        self.ring_len = tc.ring_len
+        self.n_flows, self.n_nodes = len(fl["flow_node"]), len(tc.refill)
+        self.n_chains = c = LONG_NODE["n_circuits"]
+        last, first = fl["flow_succ"] < 0, fl["flow_stage"] == 0
+        self.last_flow = np.empty(c, dtype=np.int64)
+        self.last_flow[fl["flow_circ"][last]] = np.flatnonzero(last)
+        self.first_flow = np.empty(c, dtype=np.int64)
+        self.first_flow[fl["flow_circ"][first]] = np.flatnonzero(first)
+        self._args = tc.tensors + (torch.as_tensor(self.last_flow,
+                                                   device=self.device),)
+        self._span_tables = tc.tables
+        self.longest = int(np.bincount(self.flow_node).max())
+
+    def _to_device(self, state) -> tuple:
+        import numpy as np
+        import torch
+        return (np.int64(state[0]),) + tuple(
+            torch.as_tensor(np.ascontiguousarray(a), device=self.device)
+            for a in state[1:])
+
+    def _flow_args(self) -> tuple:
+        return self._args
+
+
 def busy_state(plane, rng, t0: int):
     """A busy carried state on the plane's table, made with numpy from a
     seed: cells queued and in flight in the int32 ring, buckets part full,
@@ -457,8 +511,9 @@ def span_cases(plane):
     st = busy_state(plane, rng, 9000)
     inj = np.zeros(f, dtype=np.int64)
     inj_t = np.zeros(f, dtype=np.int64)
-    chains = rng.choice(plane.n_chains, size=2000, replace=False)
-    cells = rng.integers(1, 300, size=2000)
+    k = min(2000, plane.n_chains // 2)
+    chains = rng.choice(plane.n_chains, size=k, replace=False)
+    cells = rng.integers(1, 300, size=k)
     inj[plane.first_flow[chains]] = cells
     inj_t[plane.last_flow[chains]] = cells
     # t0 is the previous superwindow's last boundary
@@ -1134,12 +1189,11 @@ def fleet_batch(fp, lanes, rows, width: int):
     padded += [filler] * (width - len(padded))
     batch = tuple(np.stack([np.asarray(r[i]) for r in padded])
                   for i in range(12))
-    # each lane's seven flow tables and derived node_off, arr_lat
+    # each lane's seven flow tables and derived node_off, meta, tiles
     trows = [ln._tables for ln in lanes[:len(rows)]]
     trows += [cls.filler_tables(fp.device)] * (width - len(rows))
-    stacked = [torch.stack([r[i] for r in trows]) for i in range(9)]
-    return batch, tuple(stacked[:7]), BatchedSpanTables(stacked[7],
-                                                        stacked[8])
+    stacked = [torch.stack([r[i] for r in trows]) for i in range(10)]
+    return batch, tuple(stacked[:7]), BatchedSpanTables(*stacked[7:])
 
 
 def _on_card(batch):
@@ -1263,8 +1317,7 @@ def check_fleet_kernels(planes, fp, lanes) -> dict:
     st_t = _on_card(batch)
     args = td.lane_args(batch[0], batch[11], batch[10], "cuda")
     t_stop, done_in, sent_in = td.torcells_span_batched(
-        *st_t[1:10], tables[2], tables[3], tables[4], tables[5], tables[6],
-        args, lr, span)
+        *st_t[1:10], tables[4], tables[5], tables[6], args, lr, span)
     pk = td.pack_flush_batched(t_stop, done_in, st_t[6], tables[6], st_t[4],
                                sent_in, st_t[7])
     pp = td.pack_flush_batched_torch(t_stop, done_in, st_t[6], tables[6],
@@ -1279,6 +1332,84 @@ def check_fleet_kernels(planes, fp, lanes) -> dict:
           f"{max_err}; pack_flush_batched alone == plain, max_abs_err "
           f"{pack_err}", flush=True)
     return {"span_b_err": max_err, "pack_b_err": pack_err}
+
+
+def _held_to_plain(label, kern, plain) -> int:
+    """Fail unless the kernels' ten outputs equal the plain version's
+    (numpy lists); returns the largest absolute difference (0)."""
+    import numpy as np
+    names = ("t_stop", "queued", "ring", "tokens", "delivered", "target",
+             "done_tick", "node_sent", "forwards", "flush")
+    for name, a, b in zip(names, kern, plain):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            fail(f"{label}: {name} shape/dtype {a.shape} {a.dtype} != plain "
+                 f"{b.shape} {b.dtype}")
+        err = int(np.abs(a.astype(np.int64) - b.astype(np.int64)).max()) \
+            if a.size else 0
+        if err:
+            fail(f"{label}: {name} differs from the plain version (max "
+                 f"|diff| {err})")
+    return 0
+
+
+def check_fleet_widths(planes, fp, lanes) -> int:
+    """The batched kernels at W = 1, 2 and 4 on the sweep lanes' first
+    rows of fleet_cases (no filler), bit-exact against the plain batched
+    version on the card."""
+    import torch
+    from shadow_tpu_torch.ops import torcells_device as td
+    rows = fleet_cases(planes)
+    lr = lanes[0].cls.ring_len
+    for width in (1, 2, 4):
+        batch, tables, span = fleet_batch(fp, lanes, rows[:width], width)
+        kern = td.torcells_step_span_flush_batched(
+            *_on_card(batch)[:10], batch[10], batch[11], *tables,
+            ring_len=lr, tables=span)
+        plain = td.torcells_step_span_flush_batched_torch(
+            *_on_card(batch)[:10], batch[10], batch[11], *tables,
+            ring_len=lr)
+        torch.cuda.synchronize()
+        _held_to_plain(f"fleet kernels at W = {width}",
+                       [o.cpu().numpy() for o in kern],
+                       [o.cpu().numpy() for o in plain])
+        print(f"fleet kernels at W = {width} (sweep lanes): == plain "
+              f"version bit-exact; t_stop {kern[0].tolist()}", flush=True)
+    return 0
+
+
+def check_long_node_batched(table) -> int:
+    """The batched kernels on two lanes of the long-node table (nodes of
+    ~600 flows, longer than a tile and a chunk), one halting mid-span and
+    one idle-folded, bit-exact against the plain batched version."""
+    import numpy as np
+    import torch
+    from shadow_tpu_torch.ops import torcells_device as td
+    rng = np.random.default_rng(32)
+    f = table.n_flows
+    zero = np.zeros(f, dtype=np.int64)
+    rows = []
+    for t0, idle in ((4000, 0), (6000, 5)):
+        st = busy_state(table, rng, t0)
+        rows.append((*st, zero, zero, t0 + 4 * np.arange(1, 9),
+                     np.int64(idle)))
+    batch = tuple(np.stack([np.asarray(r[i]) for r in rows])
+                  for i in range(12))
+    tables = tuple(torch.stack([a] * 2) for a in table._flow_args())
+    lr = table.ring_len
+
+    def run(fn, **kw):
+        out = fn(batch[0], *(torch.as_tensor(a.copy(), device="cuda")
+                             for a in batch[1:10]), batch[10], batch[11],
+                 *tables, ring_len=lr, **kw)
+        torch.cuda.synchronize()
+        return [o.cpu().numpy() for o in out]
+    kern = run(td.torcells_step_span_flush_batched)
+    _held_to_plain("batched kernels on the long-node table", kern,
+                   run(td.torcells_step_span_flush_batched_torch))
+    print(f"fleet kernels on the long-node table (W = 2, longest node "
+          f"{table.longest} flows): == plain version bit-exact; t_stop "
+          f"{kern[0].tolist()}, forwards {kern[8].tolist()}", flush=True)
+    return 0
 
 
 def time_fleet(planes, fp, lanes) -> dict:
@@ -1361,13 +1492,16 @@ def time_fleet(planes, fp, lanes) -> dict:
         t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / ALU32_OPS_PER_S * 1e3
         row.update(bytes=nbytes, ops=ops, bound_ms=max(t_b, t_o),
                    bound_by="bytes" if t_b >= t_o else "operations")
+
+        # the span kernel alone
+        def span_only():
+            td.torcells_span_batched(*live, tables[4], tables[5], tables[6],
+                                     args, lr, span)
+        row["span_ms"] = timed(span_only, restore)
+        row["span_us_per_tick"] = row["span_ms"] * 1e3 / FLEET_TIME_TICKS
+        row["serial_us_per_tick"] = serial_ms * 1e3 / FLEET_TIME_TICKS
         if width == max(FLEET_WIDTHS):
-            # the span kernel alone, and the plain versions, at W = 8
-            def span_only():
-                td.torcells_span_batched(*live, tables[2], tables[3],
-                                         tables[4], tables[5], tables[6],
-                                         args, lr, span)
-            row["span_ms"] = timed(span_only, restore)
+            # the plain versions and the pack alone, at W = 8
             restore()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1380,8 +1514,7 @@ def time_fleet(planes, fp, lanes) -> dict:
                 sum(b["ops"] for b in sb)
             restore()
             t_stop, done_in, sent_in = td.torcells_span_batched(
-                *live, tables[2], tables[3], tables[4], tables[5], tables[6],
-                args, lr, span)
+                *live, tables[4], tables[5], tables[6], args, lr, span)
             pargs = (t_stop, done_in, live[5], tables[6], live[3], sent_in,
                      live[6])
             row["pack_ms"] = graph_ms(lambda: td.pack_flush_batched(*pargs))
@@ -1405,7 +1538,9 @@ def time_fleet(planes, fp, lanes) -> dict:
                                     >= sops / ALU32_OPS_PER_S
                                     else "operations")
         out[width] = row
-        print(f"W={width}: one batched dispatch {ms:.4f} ms, {width} serial "
+        print(f"W={width}: one batched dispatch {ms:.4f} ms (the span "
+              f"kernel alone {row['span_ms']:.4f} ms, "
+              f"{row['span_us_per_tick']:.3f} us a tick), {width} serial "
               f"dispatches {serial_ms:.4f} ms ({FLEET_TIME_TICKS} ticks); "
               f"bound {row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}, "
               f"{nbytes} B, {ops} ops)", flush=True)
@@ -1613,12 +1748,65 @@ def run_sweep(serial: dict, trace: bool = False) -> dict:
     return out
 
 
+class SpanEvents:
+    """While active, ``torcells_device.torcells_span`` is a wrapper that
+    brackets each launch with CUDA events on the launching stream, so the
+    span kernel's card time inside a real run is measured without a trace.
+    A spin kernel first keeps that stream busy while the host prepares the
+    launch, so the interval holds the kernel and not the host's call.  The
+    launch count stays on the wrapped function."""
+
+    SPIN_CYCLES = 400_000      # ~0.2 ms at the H100's clock
+
+    def __enter__(self):
+        import torch
+        from shadow_tpu_torch.ops import torcells_device as td
+        self.td, self.orig, self.pairs = td, td.torcells_span, []
+        orig, pairs = self.orig, self.pairs
+
+        class Timed:
+            launches = property(
+                lambda _self: orig.launches,
+                lambda _self, v: setattr(orig, "launches", v))
+
+            def __call__(self, *args, **kw):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                torch.cuda._sleep(SpanEvents.SPIN_CYCLES)
+                e0.record()
+                out = orig(*args, **kw)
+                e1.record()
+                pairs.append((e0, e1))
+                return out
+        td.torcells_span = Timed()
+        return self
+
+    def __exit__(self, *exc):
+        self.td.torcells_span = self.orig
+
+    def times_ms(self) -> list:
+        import torch
+        torch.cuda.synchronize()
+        return [e0.elapsed_time(e1) for e0, e1 in self.pairs]
+
+
 def run_sweep_serial() -> dict:
+    """Each sweep lane run serially on cuda, with its span launches timed
+    by CUDA events (SpanEvents): the kernel's card time and its mean per
+    tick inside the real runs."""
     out = {}
     for s in SWEEP["seeds"]:
         _reset_counts()
-        r = run_sweep_lane(s)
+        with SpanEvents() as ev:
+            r = run_sweep_lane(s)
         r["counts"] = _counts()
+        span = ev.times_ms()
+        r["span_ms"] = sum(span)
+        r["span_mean_ms"] = r["span_ms"] / max(len(span), 1)
+        r["span_us_per_tick"] = r["span_ms"] * 1e3 / max(r["steps"], 1)
+        if len(span) != r["counts"]["span"]:
+            fail(f"sweep serial seed {s}: {len(span)} timed span launches "
+                 f"for {r['counts']['span']} counted")
         out[s] = r
         print(json.dumps(r), flush=True)
         if r["rc"] != 0 or r["completed"] != r["circuits"] \
@@ -2716,6 +2904,11 @@ def main(argv=None) -> int:
         phase("kernels vs plain versions")
         res["hop_err"] = check_kernel()
         res["span_err"] = check_torcells(plane)
+        long_table = LongNodeTable()
+        print(f"long-node table: F {long_table.n_flows} C "
+              f"{long_table.n_chains} H {long_table.n_nodes}, longest node "
+              f"{long_table.longest} flows", flush=True)
+        res["span_err"] = max(res["span_err"], check_torcells(long_table))
         res["pack_err"] = check_pack(plane.n_chains, plane.n_nodes)
     if "times" in want:
         phase("times")
@@ -2834,6 +3027,9 @@ def main(argv=None) -> int:
     if "fleet-kernels" in want:
         phase("fleet kernels vs plain versions (the sweep's class, W = 8)")
         res.update(check_fleet_kernels(planes, fp, lanes))
+        res["span_b_err"] = max(res["span_b_err"],
+                                check_fleet_widths(planes, fp, lanes),
+                                check_long_node_batched(LongNodeTable()))
     if "fleet-times" in want:
         phase("fleet times: one batched dispatch vs W serial dispatches")
         res["fleet_times"] = time_fleet(planes, fp, lanes)
@@ -2844,6 +3040,15 @@ def main(argv=None) -> int:
     if want & {"sweep", "sweep-trace"}:
         phase("sweep: genscen tor10k seeds 1..8, each run serially on cuda")
         res["sweep_serial"] = run_sweep_serial()
+        ser = list(res["sweep_serial"].values())
+        n_span = sum(r["counts"]["span"] for r in ser)
+        span_ms = sum(r["span_ms"] for r in ser)
+        ticks = sum(r["steps"] for r in ser)
+        print(f"sweep serial: torcells_span {n_span} launches in the 8 "
+              f"lanes, {span_ms:.3f} ms of card time (CUDA events), "
+              f"{span_ms / max(n_span, 1):.4f} ms a launch, "
+              f"{span_ms * 1e3 / max(ticks, 1):.3f} us a tick over {ticks} "
+              "ticks", flush=True)
     if "sweep" in want:
         phase("sweep: the 8 seeds as one fleet of 8 lanes on cuda")
         res["sweep"] = run_sweep(res["sweep_serial"])
@@ -2889,6 +3094,9 @@ def main(argv=None) -> int:
             cur = cur[k]
         return cur
 
+    ser = (res.get("sweep_serial") or {}).values()
+    sweep_span = (sum(r["counts"]["span"] for r in ser) or None,
+                  sum(r["span_ms"] for r in ser) or None)
     hop = get("hop_times", MAIN_B) or {}
     span = get("torcells_times", "span") or {}
     pack = get("torcells_times", "pack") or {}
@@ -2907,7 +3115,10 @@ def main(argv=None) -> int:
          "launches": get("tor10k", "span_launches"),
          "max_abs_err": res.get("span_err"), "ms": span.get("ms"),
          "plain_ms": span.get("plain_ms"), "bound_ms": span.get("bound_ms"),
-         "bound_by": span.get("bound_by"), "library_ms": None},
+         "bound_by": span.get("bound_by"), "library_ms": None,
+         "us_per_tick": (span.get("ms_per_tick") or 0) * 1e3 or None,
+         "sweep_serial_launches": sweep_span[0],
+         "sweep_serial_ms": sweep_span[1]},
         {"name": "pack_flush", "route": "cuda",
          "source": "shadow_tpu_torch/ops/csrc/pack_flush.cu",
          "replaces": "shadow_tpu/ops/torcells_device.py:337",
@@ -2922,7 +3133,8 @@ def main(argv=None) -> int:
          "max_abs_err": res.get("span_b_err"), "ms": fleet.get("span_ms"),
          "plain_ms": fleet.get("plain_ms"),
          "bound_ms": fleet.get("span_bound_ms"),
-         "bound_by": fleet.get("span_bound_by"), "library_ms": None},
+         "bound_by": fleet.get("span_bound_by"), "library_ms": None,
+         "us_per_tick": fleet.get("span_us_per_tick")},
         {"name": "pack_flush_batched", "route": "cuda",
          "source": "shadow_tpu_torch/ops/csrc/pack_flush.cu",
          "replaces": "shadow_tpu/ops/torcells_device.py:586",

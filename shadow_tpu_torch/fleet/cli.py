@@ -13,12 +13,13 @@ bit-identical digests plus a real batched launch count.  Runs on
 kernels' plain version runs).  Prints ONE summary JSON line last; exit 0 =
 digest-gated pass, 1 = mismatch or no launches, 2 = usage errors.
 
-The port's copy of the JAX package's ``simfleet``.  It has no device mesh
-yet, so of the JAX smoke's compile-budget cross-check it keeps the
-``fleet.compiles`` half: the measured count must be nonzero and within the
-``[tool.simjit.budget]`` entry of the repository's ``pyproject.toml``
-(read here with ``tomllib``).  The mesh's ``device_plane.sharded_variants``
-half waits for the mesh (ROADMAP A10).
+The port's copy of the JAX package's ``simfleet``, with its compile-budget
+cross-check: the measured ``fleet.compiles`` (launch shapes) and the
+process's ``device_plane.sharded_variants`` high-water mark (the mesh's
+quiet-tick variant cache) against the runtime entries of the repository's
+``pyproject.toml`` ``[tool.simjit.budget]`` (read here with ``tomllib``).
+Growth past a budget fails, and so does a budgeted key the run no longer
+reports; ``--numpy`` launches no kernel and checks neither.
 """
 
 from __future__ import annotations
@@ -28,43 +29,58 @@ import json
 import os
 import sys
 import time as _walltime
-from typing import List, Optional
-
-_BUDGET_KEY = "fleet.compiles"
+from typing import Dict, List, Optional, Tuple
 
 
 def _say(msg: str) -> None:
     print(f"simfleet: {msg}", file=sys.stderr, flush=True)
 
 
-def load_fleet_budget() -> Optional[int]:
-    """``[tool.simjit.budget]."fleet.compiles"`` from the repository's
-    pyproject.toml (beside the package), or None where there is none."""
+def load_runtime_budget() -> Dict[str, int]:
+    """The runtime entries (dotted keys that name no ``.py`` file) of
+    ``[tool.simjit.budget]`` in the repository's pyproject.toml (beside
+    the package); empty where there is none."""
     import tomllib
     root = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     path = os.path.join(root, "pyproject.toml")
     if not os.path.exists(path):
-        return None
+        return {}
     with open(path, "rb") as f:
         cfg = tomllib.load(f)
-    value = cfg.get("tool", {}).get("simjit", {}).get("budget", {}).get(
-        _BUDGET_KEY)
-    return None if value is None else int(value)
+    budget = cfg.get("tool", {}).get("simjit", {}).get("budget", {})
+    return {k: int(v) for k, v in budget.items() if not k.endswith(".py")}
 
 
-def budget_problems(measured: int, budget: Optional[int]) -> List[str]:
-    """The fleet's compile-budget check: a smoke that launched must have
-    counted at least one launch shape, and no more than the budget."""
-    if budget is None:
-        return []
-    if measured == 0:
-        return [f"measured `{_BUDGET_KEY}` = 0 against a budget of "
-                f"{budget}: the fleet never launched a shape"]
-    if measured > budget:
-        return [f"measured `{_BUDGET_KEY}` = {measured} exceeds its "
-                f"[tool.simjit.budget] = {budget}"]
-    return []
+def crosscheck_budget(measured: Dict[str, int], budget: Dict[str, int],
+                      require_nonzero: Tuple[str, ...] = ()) -> List[str]:
+    """Measured runtime counts against the budget, failing on either
+    direction of drift: a count above its budget, a budgeted key that was
+    not measured, or a measured key with no budget.  A measured 0 is fine
+    for a cache the run need not use (the mesh's variants) but fails for
+    the keys in ``require_nonzero``.  Returns the problems; empty means
+    consistent."""
+    problems: List[str] = []
+    for key, declared in sorted(budget.items()):
+        got = measured.get(key)
+        if got is None:
+            problems.append(
+                f"budgeted runtime cache `{key}` (= {declared}) was not "
+                "measured: stale budget entry or dropped metric")
+        elif got > declared:
+            problems.append(
+                f"measured `{key}` = {got} exceeds its "
+                f"[tool.simjit.budget] = {declared}")
+        elif got == 0 and key in require_nonzero:
+            problems.append(
+                f"measured `{key}` = 0 against a budget of {declared}: "
+                "the run never exercised it")
+    for key in sorted(measured):
+        if key not in budget:
+            problems.append(
+                f"runtime cache `{key}` = {measured[key]} has no "
+                "[tool.simjit.budget] entry")
+    return problems
 
 
 def cmd_smoke(args) -> int:
@@ -122,14 +138,24 @@ def cmd_smoke(args) -> int:
     if not launched:
         _say("no batched launches fired — the fleet plane was never "
              "exercised (gate fails closed)")
-    measured = {_BUDGET_KEY: int(stats.get(_BUDGET_KEY, 0))}
-    budget = load_fleet_budget()
-    if budget is None:
-        _say("no [tool.simjit.budget] fleet.compiles entry found; "
+    from ..parallel.device_plane import DeviceTrafficPlane
+    measured = {
+        "fleet.compiles": int(stats.get("fleet.compiles", 0)),
+        "device_plane.sharded_variants":
+            int(DeviceTrafficPlane.sharded_variants_high_water),
+    }
+    budget = load_runtime_budget()
+    problems: List[str] = []
+    if args.numpy:
+        pass    # the numpy twin launches nothing: no budget to hold
+    elif not budget:
+        _say("no [tool.simjit.budget] runtime entries found; "
              "compile-budget check skipped")
-    problems = budget_problems(measured[_BUDGET_KEY], budget)
-    for p in problems:
-        _say(f"compile-budget drift: {p}")
+    else:
+        problems = crosscheck_budget(measured, budget,
+                                     require_nonzero=("fleet.compiles",))
+        for p in problems:
+            _say(f"compile-budget drift: {p}")
     ok = matched and launched and not problems
     summary = {"simfleet": {
         "lanes": args.lanes,

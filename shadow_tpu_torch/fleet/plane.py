@@ -46,9 +46,11 @@ launch each of the batched span and pack kernels, on the CPU their plain
 version), and hands each lane row views of the results; the [W] flush
 buffers come to the host in one copy per launch.  Padding flows are spread
 over the class's padding nodes (the JAX package hangs them all on node
-H-1): the kernel walks a node's flows with one thread, and they are inert
-on any node.  ``use_numpy=True`` (``--numpy``) is an explicit debugging
-switch that runs the batched numpy twin instead, never a fallback.
+H-1): the kernel gives each node's run to one block as part of a tile, so
+tens of thousands of them on one node would be one very long tile, and
+they are inert on any node.  ``use_numpy=True`` (``--numpy``) is an
+explicit debugging switch that runs the batched numpy twin instead, never
+a fallback.
 """
 
 from __future__ import annotations
@@ -109,7 +111,8 @@ def _lane_tables(flow_node, flow_lat, flow_succ, seg_start, refill,
                  ring_len: int):
     """One lane's static tables padded into the class (numpy int64:
     flow_node, flow_lat, flow_succ, seg_start, refill, capacity,
-    last_flow) and the batched span kernel's derived (node_off, arr_lat)."""
+    last_flow) and the batched span kernel's derived (node_off, meta,
+    tiles)."""
     from ..ops.torcells_device import lane_span_tables
     i64 = np.int64
     f = len(flow_node)
@@ -152,8 +155,8 @@ class _ShapeClass:
 
     def filler_tables(self, device) -> tuple:
         """The inert lane's tables (a member with no traffic) on
-        ``device``: the seven flow tables, then the derived node_off and
-        arr_lat (see :func:`_lane_tables`); its state is zero, its
+        ``device``: the seven flow tables, then the derived node_off,
+        meta and tiles (see :func:`_lane_tables`); its state is zero, its
         done_tick -1, and its targets all equal its base step 0 (the
         batched loop is false for it before the first iteration) — the
         fill values a launch stages every row with."""
@@ -241,7 +244,7 @@ class FleetLane:
             dev_plane.flow_succ, dev_plane.seg_start, dev_plane.refill_step,
             dev_plane.capacity_step, dev_plane.last_flow, self.cls.f2,
             self.cls.h2, self.cls.c2, ring_len)
-        # the seven flow tables, then the derived node_off and arr_lat
+        # the seven flow tables, then the derived node_off, meta and tiles
         self._tables = tuple(torch.as_tensor(a, device=self.plane.device)
                              for a in tables + derived)
 
@@ -398,8 +401,8 @@ class FleetPlane:
         from ..ops.torcells_device import BatchedSpanTables
         rows = [s.lane._tables for s in subs]
         rows += [cls.filler_tables(self.device)] * (width - len(subs))
-        stacked = [torch.stack([r[i] for r in rows]) for i in range(9)]
-        return stacked[:7], BatchedSpanTables(stacked[7], stacked[8])
+        stacked = [torch.stack([r[i] for r in rows]) for i in range(10)]
+        return stacked[:7], BatchedSpanTables(*stacked[7:])
 
     def _stage(self, cls: _ShapeClass, subs: List[_Submit],
                width: int) -> tuple:

@@ -8,8 +8,8 @@ subprocess runner, oracles, shrinker and ``simfuzz`` CLI are ROADMAP A12.
 
 Changes from the JAX package's runner: :func:`run_one_mode` takes the
 ``device`` the run's device work goes to (``--device``, cuda unless the
-caller asks for the CPU); mesh modes (``tpu_devices > 1``) are reported as
-skipped, since the port has no device mesh yet (ROADMAP A10); and a
+caller asks for the CPU); mesh modes (``tpu_devices > 1``) run their D
+shards on that one device (``parallel/mesh``), so none is skipped; and a
 ``processes >= 2`` mode raises NotImplementedError naming ROADMAP A9 inside
 the run's guard, so it is reported as rc -1 and never run another way.
 
@@ -72,13 +72,6 @@ def _mode_options(spec: Dict, mode: Dict, device: str = "cuda"):
     return opts
 
 
-def _mesh_skip_reason(mode: Dict) -> Optional[str]:
-    if int(mode.get("tpu_devices", 1)) <= 1:
-        return None
-    return ("mesh mode: the port has no multi-device mesh yet "
-            "(ROADMAP A10)")
-
-
 def _run_resume_mode(spec: Dict, opts, out: Dict) -> None:
     """The checkpoint+``--resume`` leg: a writer pass
     snapshots every few rounds into a scratch dir, then a FRESH
@@ -138,10 +131,6 @@ def run_one_mode(spec: Dict, mode: Dict, lane=None,
                  "skipped": None, "rc": None, "digest": None,
                  "events": None, "rounds": None, "supervision": None,
                  "scrape": {}, "log_tail": "", "wall_sec": None}
-    reason = _mesh_skip_reason(mode)
-    if reason:
-        out["skipped"] = reason
-        return out
     buf = io.StringIO()
     if lane is not None:
         set_thread_logger(SimLogger(stream=buf, level="warning"))

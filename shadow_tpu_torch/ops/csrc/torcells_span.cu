@@ -1,5 +1,6 @@
 // torcells_span: one superwindow of the device traffic plane, the whole tick
-// loop in one persistent cooperative launch, for Hopper (sm_90a).
+// loop in one persistent cooperative launch, a thread per flow, for Hopper
+// (sm_90a).
 //
 // Replaces the JAX package's span step shadow_tpu/ops/torcells_device.py:428
 // (_step_span_impl, run through _step_span_flush_impl :512 and jitted as
@@ -12,57 +13,57 @@
 // delivered sum) behind.
 //
 // The model.  F flows, sorted by paced node; node n paces flows
-// node_off[n] .. node_off[n+1].  Per tick t, for every node:
-//   tokens    = min(capacity, tokens + refill)
-//   cap_cells = tokens / CELL                       (tokens >= 0: a floor)
-//   for each of its flows j in order (the segmented cumsum, serially):
-//     q        = queued[j] + ring[(t - arr_lat[j]) mod L, j]
-//     served   = clip(cap_cells - before, 0, q);  before += q
-//     queued[j] = q - served
-//     last stage: delivered += served, done_tick = t on reaching target
-//     else      : ring[t mod L, succ[j]] = served   (int32)
-//   tokens -= spent * CELL; node_sent += spent * CELL
-// and the ring row t mod L is set whole: a column no flow feeds gets 0.
-// At each boundary targets[idx] the loop halts iff a chain completed in
-// the span just ended; otherwise the next span starts clean.
+// node_off[n] .. node_off[n+1], which form one seg_start segment.  Per tick
+// t every node refills its bucket and serves its flows greedily in order
+// (the JAX package's segmented cumsum), a served cell arrives at the
+// successor flow after the edge latency through the int32 [L, F] ring, and
+// the ring row t mod L is set whole (a column no flow feeds gets 0): the
+// tick body is span_tile.cuh's, which states it in full.  At each boundary
+// targets[idx] the loop halts iff a chain completed in the span just ended;
+// otherwise the next span starts clean.
 //
 // Design.  The halt depends on the data, and the host must not sync per
 // tick, so the loop lives on the card: a cooperative launch, sized by the
-// occupancy API so every block is resident, with grid-stride loops and ONE
-// grid sync per tick.  One thread per node walks its node's flows serially
-// (flows are sorted by node, so each node's segment is contiguous and the
-// greedy allocation needs no scan and no atomics: the node's thread owns
-// its tokens, node_sent and the flows it paces).  The successor scatter is
-// conflict-free (flow_succ is injective), and since every arrival latency
-// is in [1, L) (checked by the wrapper, SpanTables) the row a tick writes is
-// never a row any flow reads in that tick, so a tick needs no sync inside
-// it.  The tick's "any chain newly done" flag is a device word; three of
-// them rotate (t mod 3) so thread 0 can clear the next tick's flag while
-// others still read this one.  t, the boundary index, span_done and the
-// halt are replicated in every thread's registers and evolve identically
-// from what each reads after the sync.  The superwindow boundaries come in
-// by value in the parameter block (at most MAX_TARGETS).
+// occupancy API to every block that can be resident (never more blocks than
+// tiles), ONE grid sync per tick.  The flow table is cut, once per table on
+// the host, into tiles of whole nodes (~256 flows each); blocks take tiles
+// grid-strided, the same tiles every tick, and a tile's flows are a thread
+// each: a block-wide segmented scan gives each flow the cells queued ahead
+// of it in its node, where the earlier kernel gave each node one thread that
+// walked its flows one after another (a tick lasted the longest node's walk,
+// 37 flows at tor10k, 116 on a sweep lane, each step a chain of dependent
+// memory round trips).  The successor scatter is conflict-free (flow_succ
+// is injective) and every arrival latency is in [1, L) (checked by the
+// wrapper, SpanTables), so a tick needs no sync inside it.  The tick's "any
+// chain newly done" flag is a device word; three of them rotate so thread
+// 0 can clear the next tick's flag while others still read this one.  t,
+// the boundary index, span_done and the halt are replicated in every
+// thread's registers and evolve identically from what each reads after the
+// sync.  The superwindow boundaries come in by value in the parameter block
+// (at most MAX_TARGETS).
 //
-// Bound.  Per tick the work touches every flow once (~10 int64 ops and a
-// ring gather + scatter) and every node once: about 3.3 M 32-bit
-// operations at tor10k width (F = 100,000, H = 30,494), ~50 us at the
-// card's scalar peak, against ~13 MB of state that stays in the 50 MB L2.
-// One grid sync per tick costs a few microseconds and is paid T times.
-// Each arrival and send is a scattered 4-byte access; the loop is latency-
-// bound, not bandwidth-bound.  Making it fast is later work.
+// Bound.  Per tick the work touches every flow once (~12 int64 operations,
+// a ring gather and scatter) and every node once: about 3.4 M 32-bit
+// operations at tor10k width (F = 100,000, H = 30,494), against ~13 MB of
+// state that stays in the 50 MB L2.  A tick is each block's tiles one
+// after another, each a wave of loads once the flows' meta words are in,
+// two block scans and the stores, then the grid sync: that latency chain
+// bounds it, not the bytes or the operations.  At tor10k the 391 tiles
+// fall on 264 blocks (two an SM at 112 registers), ~7 us a tick on an
+// H100 (PERF.md section 6, row 3).
 
 #include <cstdint>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "span_tile.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int MAX_TARGETS = 64;
-constexpr int THREADS = 256;
-// 512 B cell + the TCP/IP/Ethernet header (core/defs.py)
-constexpr int64_t CELL_WIRE_BYTES = 512 + 66;
+constexpr int THREADS = span::THREADS;
 
 struct SpanParams {
   // carried state, updated in place
@@ -76,10 +77,10 @@ struct SpanParams {
   // this dispatch's injections
   const int64_t* inject;         // [F]
   const int64_t* inject_target;  // [F]
-  // static tables
+  // static tables (SpanTables)
+  const int4* meta;          // [F]: node, succ, arrival latency, flags
+  const int4* tiles;         // [T + 1]: first node, first flow, empty nodes
   const int64_t* node_off;   // [H + 1]
-  const int64_t* arr_lat;    // [F]
-  const int64_t* flow_succ;  // [F]
   const int64_t* refill;     // [H]
   const int64_t* capacity;   // [H]
   const int64_t* last_flow;  // [C]
@@ -89,7 +90,7 @@ struct SpanParams {
   uint8_t* newly;        // [C] bool
   int64_t* done_last;    // [C] (holds the entry snapshot during the loop)
   int64_t* sent_delta;   // [H] (holds the entry snapshot during the loop)
-  int64_t f, h, c, ring_len, t0, idle_ticks;
+  int64_t f, h, c, n_tiles, ring_len, t0, idle_ticks;
   int n_targets;
   int64_t targets[MAX_TARGETS];
 };
@@ -140,50 +141,22 @@ torcells_span_kernel(const SpanParams p) {
   grid.sync();
 
   // -- the tick loop; every thread runs the same iterations
+  __shared__ span::Shared sh;
+  const span::Table tb{p.queued,   p.ring,      p.tokens,    p.delivered,
+                       p.target,   p.done_tick, p.node_sent, p.meta,
+                       p.tiles,    p.node_off,  p.refill,    p.capacity,
+                       f,          p.h,         p.n_tiles,   (int)L};
   int64_t t = p.t0;
+  int row_t = (int)floor_mod(t, L), k3 = 0;
   const int64_t end = p.targets[p.n_targets - 1];
   int idx = 0;
   bool span_done = false, halt = false;
   int64_t forwards = 0;
   while (t < end && !halt) {
-    const int64_t k3 = (t - p.t0) % 3;
     if (tid == 0) p.scalars[3 + (k3 + 1) % 3] = 0;
-    const int64_t row = floor_mod(t, L) * f;
     bool any_new = false;
-    for (int64_t n = tid; n < p.h; n += nthreads) {
-      const int64_t cap = p.capacity[n];
-      int64_t tok = p.tokens[n] + p.refill[n];
-      tok = tok < cap ? tok : cap;
-      const int64_t cap_cells = tok / CELL_WIRE_BYTES;
-      int64_t before = 0, spent = 0;
-      const int64_t j1 = p.node_off[n + 1];
-      for (int64_t j = p.node_off[n]; j < j1; ++j) {
-        const int64_t al = p.arr_lat[j];
-        const int64_t q = p.queued[j] + (int64_t)p.ring[floor_mod(t - al, L) * f + j];
-        int64_t s = cap_cells - before;
-        s = s < 0 ? 0 : (s > q ? q : s);
-        before += q;
-        p.queued[j] = q - s;
-        spent += s;
-        const int64_t succ = p.flow_succ[j];
-        if (succ < 0) {
-          const int64_t d = p.delivered[j] + s;
-          p.delivered[j] = d;
-          const int64_t tg = p.target[j];
-          if (tg > 0 && p.done_tick[j] < 0 && d >= tg) {
-            p.done_tick[j] = t;
-            any_new = true;
-          }
-        } else {
-          p.ring[row + succ] = (int32_t)s;
-        }
-        // a column no flow feeds: its own thread sets it (after its read)
-        if (al == 0) p.ring[row + j] = 0;
-      }
-      p.tokens[n] = tok - spent * CELL_WIRE_BYTES;
-      p.node_sent[n] += spent * CELL_WIRE_BYTES;
-      forwards += spent;
-    }
+    for (int64_t ti = blockIdx.x; ti < p.n_tiles; ti += gridDim.x)
+      span::span_tile(tb, 0, (int)ti, t, row_t, &forwards, &any_new, sh);
     if (any_new) p.scalars[3 + k3] = 1;
     grid.sync();
     const bool any = *(volatile int64_t*)&p.scalars[3 + k3] != 0;
@@ -196,6 +169,8 @@ torcells_span_kernel(const SpanParams p) {
       span_done = false;
     }
     ++t;
+    if (++row_t == L) row_t = 0;
+    if (++k3 == 3) k3 = 0;
   }
 
   // -- epilogue: the flush kernel's inputs (each thread finishes the
@@ -227,13 +202,16 @@ torcells_span_kernel(const SpanParams p) {
 extern "C" int torcells_span_launch(
     void* queued, void* ring, void* tokens, void* delivered, void* target,
     void* done_tick, void* node_sent, const void* inject,
-    const void* inject_target, const void* node_off, const void* arr_lat,
-    const void* flow_succ, const void* refill, const void* capacity,
+    const void* inject_target, const void* meta, const void* tiles,
+    const void* node_off, const void* refill, const void* capacity,
     const void* last_flow, void* scalars, void* newly, void* done_last,
-    void* sent_delta, int64_t f, int64_t h, int64_t c, int64_t ring_len,
-    int64_t t0, int64_t idle_ticks, int n_targets, const int64_t* targets,
-    void* stream) {
-  if (n_targets < 1 || n_targets > MAX_TARGETS || ring_len < 1)
+    void* sent_delta, int64_t f, int64_t h, int64_t c, int64_t n_tiles,
+    int64_t ring_len, int64_t t0, int64_t idle_ticks, int n_targets,
+    const int64_t* targets, void* stream) {
+  // the tile body indexes the ring and the tables with 32-bit offsets
+  if (n_targets < 1 || n_targets > MAX_TARGETS || ring_len < 1 ||
+      n_tiles < 1 || ring_len * f >= ((int64_t)1 << 31) ||
+      h >= ((int64_t)1 << 31))
     return (int)cudaErrorInvalidValue;
   SpanParams p;
   p.queued = (int64_t*)queued;
@@ -245,9 +223,9 @@ extern "C" int torcells_span_launch(
   p.node_sent = (int64_t*)node_sent;
   p.inject = (const int64_t*)inject;
   p.inject_target = (const int64_t*)inject_target;
+  p.meta = (const int4*)meta;
+  p.tiles = (const int4*)tiles;
   p.node_off = (const int64_t*)node_off;
-  p.arr_lat = (const int64_t*)arr_lat;
-  p.flow_succ = (const int64_t*)flow_succ;
   p.refill = (const int64_t*)refill;
   p.capacity = (const int64_t*)capacity;
   p.last_flow = (const int64_t*)last_flow;
@@ -258,6 +236,7 @@ extern "C" int torcells_span_launch(
   p.f = f;
   p.h = h;
   p.c = c;
+  p.n_tiles = n_tiles;
   p.ring_len = ring_len;
   p.t0 = t0;
   p.idle_ticks = idle_ticks;
@@ -274,9 +253,9 @@ extern "C" int torcells_span_launch(
         &per_sm, torcells_span_kernel, THREADS, 0);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  // enough blocks for one node per thread, but never more than can all be
-  // resident at once (a cooperative launch needs every block resident)
-  int64_t want = (h + THREADS - 1) / THREADS;
+  // every block that can be resident (a cooperative launch needs every
+  // block resident), but no more than there are tiles
+  int64_t want = n_tiles;
   const int64_t cap = (int64_t)per_sm * sms;
   if (want < 1) want = 1;
   if (want > cap) want = cap;

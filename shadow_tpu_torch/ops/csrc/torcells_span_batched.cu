@@ -10,49 +10,56 @@
 // plain step; every lane agrees with it, and with the serial kernel
 // csrc/torcells_span.cu on its own row, bit for bit (int64, the ring int32).
 //
-// The model is the serial kernel's (see csrc/torcells_span.cu), per lane:
-// every operand carries its lane's row ([W, F] flows, [W, H] nodes,
-// [W, L, F] rings, [W, C] chains, [W, 2 + P] launch words: t0, idle ticks
-// and the P superwindow boundaries).  Under vmap the while loop runs while
-// any lane is live; a lane that reached its halt or its last boundary is
-// frozen (its t, ring, state and forwards no longer change), and a lane
-// whose boundaries equal its t0 (the fleet's filler rows) never starts.
+// The model is the serial kernel's (see csrc/torcells_span.cu and the tick
+// body csrc/span_tile.cuh), per lane: every operand carries its lane's row
+// ([W, F] flows, [W, H] nodes, [W, L, F] rings, [W, C] chains, [W, 2 + P]
+// launch words: t0, idle ticks and the P superwindow boundaries).  Under
+// vmap the while loop runs while any lane is live; a lane that reached its
+// halt or its last boundary is frozen (its t, ring, state and forwards no
+// longer change), and a lane whose boundaries equal its t0 (the fleet's
+// filler rows) never starts.  Unlike the serial kernel's tables, a node's
+// run may hold several seg_start segments (the fleet pads a lane with inert
+// flows, each its own segment): the greedy allocation restarts at every
+// segment head while a node's spent still sums its whole run, which the
+// tile body keeps apart (two scans, two kinds of head).
 //
 // Design.  One cooperative launch for the whole batch, sized by the
-// occupancy API so every block is resident; a launch needing more blocks
-// than can be resident is refused, never split.  Work items are (lane,
-// node) pairs, grid-strided, so W x H larger than one resident grid still
-// fits.  A thread owning a node walks that node's flows serially (flows
-// are sorted by node): no scan, no atomics, and it owns the node's tokens
-// and node_sent.  Unlike the serial kernel, a node's run may hold several
-// seg_start segments (the fleet pads a lane with inert flows, each its own
-// segment): the greedy allocation restarts at each segment's first flow,
-// which is the JAX segmented cumsum exactly (the wrapper checks that every
-// segment is a contiguous run of one node's flows, and every arrival
-// latency is in [1, L)).  One grid sync per tick serves every lane.  Each
-// lane's loop control (t, boundary index, span-done, live) is replicated
-// in every block's shared memory and updated after the sync from the
-// lane's "newly done" flag word, three of which rotate per lane (iteration
-// mod 3) so one sync per tick suffices.  Frozen lanes do no work and write
+// occupancy API to every block that can be resident (never more blocks than
+// work items); a launch needing more blocks than can be resident is
+// refused, never split.  Work items are (lane, tile) pairs, lane-major and
+// grid-strided, the same items for a block every tick; every lane of a
+// shape class has the same tile count (BatchedSpanTables), so one launch
+// shape serves the fleet.  A tile is whole nodes, its flows a thread each,
+// advanced by span_tile.cuh's block-wide segmented scans: a tick no longer
+// lasts the longest node's serial walk (116 flows on a sweep lane).  One
+// grid sync per tick serves every lane.  Each lane's loop control (t, its
+// ring row, boundary index, span-done, live) is replicated in every
+// block's shared memory and updated after the sync from the lane's "newly
+// done" flag word, three of which rotate per lane (iteration mod 3) so one
+// sync per tick suffices.  Frozen and filler lanes do no work and write
 // nothing; the loop ends when no lane is live.  No host sync per tick.
 //
 // Bound.  Per tick the work is the serial kernel's per live lane: every
 // flow touched once (~12 int64 operations, a ring gather and scatter) and
-// every node once.  It is latency-bound like the serial kernel: a tick
-// lasts as long as the longest node walk, plus one grid sync.
+// every node once.  A block takes W x T / grid items a tick, one after
+// another, each a wave of loads, two block scans and the stores; that
+// chain and the grid sync bound a tick, not the bytes or the operations.
+// At W = 8 lanes of the sweep's class (512 tiles a lane, 264 blocks) a
+// tick is ~71 us on an H100, the lanes' 176 MB missing the 50 MB L2
+// (PERF.md section 6, row 5).
 
 #include <cstdint>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "span_tile.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int MAX_LANES = 256;
-constexpr int THREADS = 256;
-// 512 B cell + the TCP/IP/Ethernet header (core/defs.py)
-constexpr int64_t CELL_WIRE_BYTES = 512 + 66;
+constexpr int THREADS = span::THREADS;
 
 struct BatchParams {
   // carried state, updated in place
@@ -66,11 +73,10 @@ struct BatchParams {
   // this dispatch's injections
   const int64_t* inject;         // [W, F]
   const int64_t* inject_target;  // [W, F]
-  // static tables
+  // static tables (BatchedSpanTables)
+  const int4* meta;          // [W, F]: node, succ, arrival latency, flags
+  const int4* tiles;         // [W, T + 1]: first node, first flow, empties
   const int64_t* node_off;   // [W, H + 1]
-  const int64_t* arr_lat;    // [W, F]
-  const int64_t* seg_start;  // [W, F]
-  const int64_t* flow_succ;  // [W, F]
   const int64_t* refill;     // [W, H]
   const int64_t* capacity;   // [W, H]
   const int64_t* last_flow;  // [W, C]
@@ -80,7 +86,7 @@ struct BatchParams {
   int64_t* flags;    // [3, W] per-iteration "a chain newly done" words
   int64_t* done_in;  // [W, C] done_tick[last_flow] at entry (for the pack)
   int64_t* sent_in;  // [W, H] node_sent at entry (for the pack)
-  int64_t w, f, h, c, ring_len, p;
+  int64_t w, f, h, c, n_tiles, ring_len, p;
 };
 
 __device__ __forceinline__ int64_t floor_mod(int64_t x, int64_t m) {
@@ -91,7 +97,9 @@ __device__ __forceinline__ int64_t floor_mod(int64_t x, int64_t m) {
 __global__ void __launch_bounds__(THREADS)
 torcells_span_batched_kernel(const BatchParams p) {
   __shared__ int64_t s_t[MAX_LANES];
+  __shared__ int32_t s_row[MAX_LANES];   // s_t mod L
   __shared__ int32_t s_idx[MAX_LANES];
+  __shared__ span::Shared sh;
   __shared__ uint8_t s_done[MAX_LANES];  // span_done
   __shared__ uint8_t s_live[MAX_LANES];
   cg::grid_group grid = cg::this_grid();
@@ -123,6 +131,7 @@ torcells_span_batched_kernel(const BatchParams p) {
   for (int64_t w = threadIdx.x; w < W; w += blockDim.x) {
     const int64_t t0 = p.args[w * A];
     s_t[w] = t0;
+    s_row[w] = (int32_t)floor_mod(t0, L);
     s_idx[w] = 0;
     s_done[w] = 0;
     s_live[w] = t0 < p.args[w * A + A - 1];
@@ -132,53 +141,22 @@ torcells_span_batched_kernel(const BatchParams p) {
   grid.sync();
 
   // -- the tick loop: one iteration advances every live lane one tick
+  const span::Table tb{p.queued,   p.ring,      p.tokens,    p.delivered,
+                       p.target,   p.done_tick, p.node_sent, p.meta,
+                       p.tiles,    p.node_off,  p.refill,    p.capacity,
+                       F,          H,           p.n_tiles,   (int)L};
+  const int64_t items = W * p.n_tiles;
+  int64_t unused_forwards = 0;   // the batched pack counts them
   for (int64_t it = 0; any_live; ++it) {
     const int64_t k3 = it % 3;
     if (tid == 0)
       for (int64_t w = 0; w < W; ++w) p.flags[((it + 1) % 3) * W + w] = 0;
-    for (int64_t item = tid; item < W * H; item += nthreads) {
-      const int64_t w = item / H;
+    for (int64_t item = blockIdx.x; item < items; item += gridDim.x) {
+      const int64_t w = item / p.n_tiles;
       if (!s_live[w]) continue;
-      const int64_t n = item - w * H;
-      const int64_t t = s_t[w];
-      const int64_t fo = w * F;               // lane's flow offset
-      const int64_t ro = w * L * F;           // lane's ring offset
-      const int64_t row = ro + floor_mod(t, L) * F;
-      const int64_t cap = p.capacity[item];
-      int64_t tok = p.tokens[item] + p.refill[item];
-      tok = tok < cap ? tok : cap;
-      const int64_t cap_cells = tok / CELL_WIRE_BYTES;
-      int64_t before = 0, spent = 0;
       bool any_new = false;
-      const int64_t* off = p.node_off + w * (H + 1);
-      const int64_t j1 = off[n + 1];
-      for (int64_t j = off[n]; j < j1; ++j) {
-        const int64_t g = fo + j;
-        if (p.seg_start[g] == j) before = 0;   // a new segment
-        const int64_t al = p.arr_lat[g];
-        const int64_t q = p.queued[g] + (int64_t)p.ring[ro + floor_mod(t - al, L) * F + j];
-        int64_t s = cap_cells - before;
-        s = s < 0 ? 0 : (s > q ? q : s);
-        before += q;
-        p.queued[g] = q - s;
-        spent += s;
-        const int64_t succ = p.flow_succ[g];
-        if (succ < 0) {
-          const int64_t d = p.delivered[g] + s;
-          p.delivered[g] = d;
-          const int64_t tg = p.target[g];
-          if (tg > 0 && p.done_tick[g] < 0 && d >= tg) {
-            p.done_tick[g] = t;
-            any_new = true;
-          }
-        } else {
-          p.ring[row + succ] = (int32_t)s;
-        }
-        // a column no flow feeds: its own thread sets it (after its read)
-        if (al == 0) p.ring[row + j] = 0;
-      }
-      p.tokens[item] = tok - spent * CELL_WIRE_BYTES;
-      p.node_sent[item] += spent * CELL_WIRE_BYTES;
+      span::span_tile(tb, w, (int)(item - w * p.n_tiles), s_t[w], s_row[w],
+                      &unused_forwards, &any_new, sh);
       if (any_new) p.flags[k3 * W + w] = 1;
     }
     grid.sync();
@@ -198,6 +176,7 @@ torcells_span_batched_kernel(const BatchParams p) {
           done = false;
         }
         s_t[w] = t + 1;
+        s_row[w] = s_row[w] + 1 == L ? 0 : s_row[w] + 1;
         s_idx[w] = idx;
         s_done[w] = done;
         s_live[w] = !halt && (t + 1) < p.args[w * A + A - 1];
@@ -219,13 +198,14 @@ torcells_span_batched_kernel(const BatchParams p) {
 extern "C" int torcells_span_batched_launch(
     void* queued, void* ring, void* tokens, void* delivered, void* target,
     void* done_tick, void* node_sent, const void* inject,
-    const void* inject_target, const void* node_off, const void* arr_lat,
-    const void* seg_start, const void* flow_succ, const void* refill,
-    const void* capacity, const void* last_flow, const void* args,
-    void* t_stop, void* flags, void* done_in, void* sent_in, int64_t w,
-    int64_t f, int64_t h, int64_t c, int64_t ring_len, int64_t p,
-    void* stream) {
-  if (w < 1 || w > MAX_LANES || p < 1 || ring_len < 1)
+    const void* inject_target, const void* meta, const void* tiles,
+    const void* node_off, const void* refill, const void* capacity,
+    const void* last_flow, const void* args, void* t_stop, void* flags,
+    void* done_in, void* sent_in, int64_t w, int64_t f, int64_t h, int64_t c,
+    int64_t n_tiles, int64_t ring_len, int64_t p, void* stream) {
+  // the tile body indexes a lane's ring and tables with 32-bit offsets
+  if (w < 1 || w > MAX_LANES || p < 1 || ring_len < 1 || n_tiles < 1 ||
+      ring_len * f >= ((int64_t)1 << 31) || h >= ((int64_t)1 << 31))
     return (int)cudaErrorInvalidValue;
   BatchParams bp;
   bp.queued = (int64_t*)queued;
@@ -237,10 +217,9 @@ extern "C" int torcells_span_batched_launch(
   bp.node_sent = (int64_t*)node_sent;
   bp.inject = (const int64_t*)inject;
   bp.inject_target = (const int64_t*)inject_target;
+  bp.meta = (const int4*)meta;
+  bp.tiles = (const int4*)tiles;
   bp.node_off = (const int64_t*)node_off;
-  bp.arr_lat = (const int64_t*)arr_lat;
-  bp.seg_start = (const int64_t*)seg_start;
-  bp.flow_succ = (const int64_t*)flow_succ;
   bp.refill = (const int64_t*)refill;
   bp.capacity = (const int64_t*)capacity;
   bp.last_flow = (const int64_t*)last_flow;
@@ -253,6 +232,7 @@ extern "C" int torcells_span_batched_launch(
   bp.f = f;
   bp.h = h;
   bp.c = c;
+  bp.n_tiles = n_tiles;
   bp.ring_len = ring_len;
   bp.p = p;
 
@@ -265,9 +245,9 @@ extern "C" int torcells_span_batched_launch(
         &per_sm, torcells_span_batched_kernel, THREADS, 0);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  // enough blocks for one (lane, node) item per thread, but never more
-  // than can all be resident at once (grid-stride covers the rest)
-  int64_t want = (w * h + THREADS - 1) / THREADS;
+  // every block that can be resident (grid-stride covers the rest), but
+  // no more than there are (lane, tile) items
+  int64_t want = w * n_tiles;
   const int64_t cap = (int64_t)per_sm * sms;
   if (want < 1) want = 1;
   if (want > cap) want = cap;

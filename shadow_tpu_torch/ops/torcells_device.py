@@ -488,22 +488,94 @@ def torcells_step_span_flush_batched_torch(
 # plain versions)
 # ---------------------------------------------------------------------------
 
-class SpanTables:
-    """What the span kernel derives from a static flow table, computed and
-    checked once per table: ``arr_lat`` [F] and each node's flow range
-    ``node_off`` [H+1].  The kernel walks node n's flows
-    ``node_off[n]:node_off[n+1]`` serially, which is the JAX segmented
-    cumsum exactly when every ``seg_start`` segment is one node's whole
-    contiguous run of flows; it reads a flow's arrival from a ring row
-    other than the one the tick writes, which needs every arrival
-    latency in [1, ring_len).  A table breaking either is refused here."""
+# The span kernels' tiles (csrc/span_tile.cuh): contiguous runs of whole
+# nodes, ~TILE_FLOWS flows each, a block's work item; the kernel takes a
+# tile's flows CHUNK_FLOWS at a time (THREADS x FPT there), carrying its
+# scans' running sums from one chunk to the next.  The flags of a flow's
+# meta word (meta[:, 3] >> 2 is its offset in its node's run).
+TILE_FLOWS = 256
+CHUNK_FLOWS = 512
+SEG_HEAD = 1
+NODE_TAIL = 2
 
-    __slots__ = ("arr_lat", "node_off")
+
+def span_tile_tables(flow_node, arr_lat, flow_succ, seg_start, n_nodes: int,
+                     ring_len: int, tile_flows: int = TILE_FLOWS):
+    """The span kernels' static tables for one flow table (numpy [F] each,
+    flow_node sorted): ``node_off`` int64 [H+1] (node n paces flows
+    ``node_off[n]:node_off[n+1]``); ``meta`` int32 [F, 4] (node, successor,
+    arrival latency, ``noff << 2 | NODE_TAIL | SEG_HEAD`` with noff the
+    flow's offset in its node's run); and ``tiles`` int32 [T+1, 4], row i
+    tile i's first node, first flow and count of nodes with no flow, row T
+    (H, F, 0, 0).  Tile i holds the nodes whose first flow lies in
+    ``[i * tile_flows, (i+1) * tile_flows)``, so T = ceil(F / tile_flows)
+    (at least 1) depends on F alone, a tile is whole nodes, and a node longer
+    than a tile is one tile (the tiles it covers besides are empty).  The
+    kernel's 32-bit offsets need ``ring_len * F`` and H below 2**31, and F
+    below 2**29 (a flow's offset in its node shares a word with two
+    flags)."""
+    fn = np.asarray(flow_node, dtype=np.int64)
+    f = len(fn)
+    if ring_len * f >= 2 ** 31 or n_nodes >= 2 ** 31 or f >= 2 ** 29:
+        raise ValueError(f"span kernels: a table of F = {f}, H = {n_nodes}, "
+                         f"L = {ring_len} overflows their 32-bit offsets")
+    node_off = np.searchsorted(fn, np.arange(n_nodes + 1),
+                               side="left").astype(np.int64)
+    j = np.arange(f, dtype=np.int64)
+    noff = j - node_off[fn]
+    tail = j == node_off[fn + 1] - 1
+    head = np.asarray(seg_start, dtype=np.int64) == j
+    meta = np.stack([fn, np.asarray(flow_succ, dtype=np.int64),
+                     np.asarray(arr_lat, dtype=np.int64),
+                     noff << 2 | tail * NODE_TAIL | head * SEG_HEAD],
+                    axis=1).astype(np.int32)
+    n_tiles = max(1, -(-f // tile_flows))
+    first = np.searchsorted(node_off[:n_nodes],
+                            np.arange(n_tiles) * tile_flows, side="left")
+    first = np.r_[0, first[1:], n_nodes]
+    empty = np.r_[0, np.cumsum(np.diff(node_off) == 0)]
+    tiles = np.zeros((n_tiles + 1, 4), dtype=np.int32)
+    tiles[:, 0] = first
+    tiles[:, 1] = node_off[first]
+    tiles[:-1, 2] = empty[first[1:]] - empty[first[:-1]]
+    return node_off, np.ascontiguousarray(meta), tiles
+
+
+def _arrival_checked(flow_lat, flow_succ, ring_len: int, who: str):
+    """``arrival_latency`` (numpy), refusing a flow with a predecessor
+    whose arrival latency is outside [1, ring_len): the kernels read a
+    flow's arrival from a ring row other than the one the tick writes."""
+    succ = np.asarray(flow_succ, dtype=np.int64)
+    lat = np.asarray(flow_lat, dtype=np.int64)
+    is_last = succ < 0
+    arr_lat = np.zeros(len(succ), dtype=np.int64)
+    np.add.at(arr_lat, np.maximum(succ, 0), np.where(is_last, 0, lat))
+    has_pred = np.zeros(len(succ), dtype=bool)
+    has_pred[succ[succ >= 0]] = True
+    if np.any(has_pred & ((arr_lat < 1) | (arr_lat >= ring_len))):
+        raise ValueError(f"{who}: every arrival latency must be in "
+                         "[1, ring_len)")
+    return arr_lat
+
+
+class SpanTables:
+    """What the span kernels derive from a static flow table, computed and
+    checked once per table, on the table's device: ``arr_lat`` [F],
+    ``node_off`` [H+1] and the tile tables ``meta``, ``tiles`` of
+    :func:`span_tile_tables`.  The single-table kernel's scan restarts at
+    every node's first flow, which is the JAX segmented cumsum exactly when
+    every ``seg_start`` segment is one node's whole contiguous run of
+    flows; it reads a flow's arrival from a ring row other than the one the
+    tick writes, which needs every arrival latency in [1, ring_len).  A
+    table breaking either, or too large for the kernels' 32-bit offsets,
+    is refused here.  (``csrc/torcells_run.cu`` reads ``node_off`` and
+    ``arr_lat``.)"""
+
+    __slots__ = ("arr_lat", "node_off", "meta", "tiles")
 
     def __init__(self, flow_node, flow_lat, flow_succ, seg_start,
                  n_nodes: int, ring_len: int):
         fn = flow_node.cpu().numpy()
-        succ = flow_succ.cpu().numpy()
         ss = seg_start.cpu().numpy()
         f = len(fn)
         if f and (np.any(np.diff(fn) < 0) or fn[0] < 0
@@ -514,21 +586,21 @@ class SpanTables:
         if f and not np.array_equal(ss, off[fn]):
             raise ValueError("torcells_span: every seg_start segment must "
                              "be one node's whole run of flows")
-        arr_lat = arrival_latency(flow_lat.cpu(), flow_succ.cpu())
-        has_pred = np.zeros(f, dtype=bool)
-        has_pred[succ[succ >= 0]] = True
-        al = arr_lat.numpy()
-        if np.any(has_pred & ((al < 1) | (al >= ring_len))):
-            raise ValueError("torcells_span: every arrival latency must be "
-                             "in [1, ring_len)")
+        succ = flow_succ.cpu().numpy()
+        arr_lat = _arrival_checked(flow_lat.cpu().numpy(), succ, ring_len,
+                                   "torcells_span")
+        node_off, meta, tiles = span_tile_tables(fn, arr_lat, succ, ss,
+                                                 n_nodes, ring_len)
         dev = flow_node.device
-        self.arr_lat = arr_lat.to(dev)
-        self.node_off = torch.as_tensor(off.astype(np.int64), device=dev)
+        self.arr_lat = torch.as_tensor(arr_lat, device=dev)
+        self.node_off = torch.as_tensor(node_off, device=dev)
+        self.meta = torch.as_tensor(meta, device=dev)
+        self.tiles = torch.as_tensor(tiles, device=dev)
 
 
 _VP = ctypes.c_void_p
 _I64 = ctypes.c_int64
-_SPAN_ARGTYPES = ([_VP] * 19 + [_I64] * 6 + [ctypes.c_int, _VP, _VP])
+_SPAN_ARGTYPES = ([_VP] * 19 + [_I64] * 7 + [ctypes.c_int, _VP, _VP])
 _PACK_ARGTYPES = [_VP] * 7 + [_I64] * 4 + [_VP]
 
 
@@ -575,6 +647,9 @@ def torcells_span(t0, queued, ring, tokens, delivered, target, done_tick,
     if tables is None:
         tables = SpanTables(flow_node, flow_lat, flow_succ, seg_start, h,
                             ring_len)
+    _check("torcells_span: meta", tables.meta, torch.int32, (f, 4), dev)
+    _check("torcells_span: tiles", tables.tiles, torch.int32,
+           (tables.tiles.shape[0], 4), dev)
     # [0] t_stop, [1] forwards, [2] delivered_sum, [3:6] the per-tick
     # completion flags; the kernel initialises all six
     scalars = torch.empty(6, dtype=i64, device=dev)
@@ -587,12 +662,12 @@ def torcells_span(t0, queued, ring, tokens, delivered, target, done_tick,
         queued.data_ptr(), ring.data_ptr(), tokens.data_ptr(),
         delivered.data_ptr(), target.data_ptr(), done_tick.data_ptr(),
         node_sent.data_ptr(), inject.data_ptr(), inject_target.data_ptr(),
-        tables.node_off.data_ptr(), tables.arr_lat.data_ptr(),
-        flow_succ.data_ptr(), refill.data_ptr(), capacity.data_ptr(),
+        tables.meta.data_ptr(), tables.tiles.data_ptr(),
+        tables.node_off.data_ptr(), refill.data_ptr(), capacity.data_ptr(),
         last_flow.data_ptr(), scalars.data_ptr(), newly.data_ptr(),
         done_last.data_ptr(), sent_delta.data_ptr(),
-        f, h, c, int(ring_len), int(t0), int(idle_ticks),
-        len(tv), tv.ctypes.data, stream)
+        f, h, c, tables.tiles.shape[0] - 1, int(ring_len), int(t0),
+        int(idle_ticks), len(tv), tv.ctypes.data, stream)
     if rc != 0:
         raise RuntimeError(f"torcells_span kernel launch failed: CUDA error "
                            f"{rc} (F={f}, H={h}, C={c}, L={ring_len})")
@@ -713,22 +788,21 @@ MAX_LANES = 256
 
 
 def lane_span_tables(flow_node, flow_lat, flow_succ, seg_start,
-                     n_nodes: int, ring_len: int) -> Tuple[np.ndarray,
-                                                           np.ndarray]:
+                     n_nodes: int, ring_len: int) -> Tuple[np.ndarray, ...]:
     """What the batched span kernel derives from one lane's flow table
-    (numpy, [F] each): ``node_off`` [H+1] (node n paces flows
-    ``node_off[n]:node_off[n+1]``) and ``arr_lat`` [F].  The kernel walks a
-    node's flows serially and restarts the greedy allocation at every flow
-    that opens a ``seg_start`` segment, which is the JAX segmented cumsum
-    exactly when flow_node is sorted and every segment is a contiguous run
-    of one node's flows; it needs every arrival latency in [1, ring_len).
-    A table breaking either is refused here.  (Unlike the serial kernel's
-    :class:`SpanTables`, a node's run may hold several segments: the fleet's
-    padding flows are each their own segment.)"""
+    (numpy, [F] each): ``node_off`` [H+1] and the tile tables ``meta``
+    [F, 4], ``tiles`` [T+1, 4] of :func:`span_tile_tables`
+    (T depends on F alone, so every lane of a fleet shape class has the
+    same).  The kernel restarts the greedy allocation at every flow that
+    opens a ``seg_start`` segment and sums a node's spent over its whole
+    run, which is the JAX segmented cumsum exactly when flow_node is sorted
+    and every segment is a contiguous run of one node's flows; it needs
+    every arrival latency in [1, ring_len).  A table breaking either is
+    refused here.  (Unlike the serial kernel's :class:`SpanTables`, a
+    node's run may hold several segments: the fleet's padding flows are
+    each their own.)"""
     fn = np.asarray(flow_node, dtype=np.int64)
     ss = np.asarray(seg_start, dtype=np.int64)
-    succ = np.asarray(flow_succ, dtype=np.int64)
-    lat = np.asarray(flow_lat, dtype=np.int64)
     f = len(fn)
     if f and (np.any(np.diff(fn) < 0) or fn[0] < 0 or fn[-1] >= n_nodes):
         raise ValueError("torcells_span_batched: flow_node must be sorted "
@@ -739,31 +813,25 @@ def lane_span_tables(flow_node, flow_lat, flow_succ, seg_start,
             raise ValueError("torcells_span_batched: every seg_start "
                              "segment must be a contiguous run of one "
                              "node's flows")
-    is_last = succ < 0
-    arr_lat = np.zeros(f, dtype=np.int64)
-    np.add.at(arr_lat, np.maximum(succ, 0), np.where(is_last, 0, lat))
-    has_pred = np.zeros(f, dtype=bool)
-    has_pred[succ[succ >= 0]] = True
-    if np.any(has_pred & ((arr_lat < 1) | (arr_lat >= ring_len))):
-        raise ValueError("torcells_span_batched: every arrival latency "
-                         "must be in [1, ring_len)")
-    node_off = np.searchsorted(fn, np.arange(n_nodes + 1),
-                               side="left").astype(np.int64)
-    return node_off, arr_lat
+    arr_lat = _arrival_checked(flow_lat, flow_succ, ring_len,
+                               "torcells_span_batched")
+    return span_tile_tables(fn, arr_lat, flow_succ, ss, n_nodes, ring_len)
 
 
 class BatchedSpanTables:
     """The batched span kernel's derived tables, [W]-leading tensors on one
-    device: ``node_off`` [W, H+1] and ``arr_lat`` [W, F].  Built from the
-    [W]-leading flow tables (:meth:`build`), or stacked from per-lane
-    :func:`lane_span_tables` results, which the fleet plane computes once
-    per lane."""
+    device: ``node_off`` [W, H+1], ``meta`` [W, F, 4] and ``tiles``
+    [W, T+1, 4].  Built from the [W]-leading flow tables
+    (:meth:`build`), or stacked from per-lane :func:`lane_span_tables`
+    results, which the fleet plane computes once per lane."""
 
-    __slots__ = ("node_off", "arr_lat")
+    __slots__ = ("node_off", "meta", "tiles")
 
-    def __init__(self, node_off: torch.Tensor, arr_lat: torch.Tensor):
+    def __init__(self, node_off: torch.Tensor, meta: torch.Tensor,
+                 tiles: torch.Tensor):
         self.node_off = node_off
-        self.arr_lat = arr_lat
+        self.meta = meta
+        self.tiles = tiles
 
     @classmethod
     def build(cls, flow_node, flow_lat, flow_succ, seg_start, n_nodes: int,
@@ -773,13 +841,11 @@ class BatchedSpanTables:
         lanes = [lane_span_tables(*(a[w] for a in host), n_nodes, ring_len)
                  for w in range(flow_node.shape[0])]
         dev = flow_node.device
-        return cls(torch.as_tensor(np.stack([n for n, _ in lanes]),
-                                   device=dev),
-                   torch.as_tensor(np.stack([a for _, a in lanes]),
-                                   device=dev))
+        return cls(*(torch.as_tensor(np.stack([ln[i] for ln in lanes]),
+                                     device=dev) for i in range(3)))
 
 
-_SPAN_B_ARGTYPES = [_VP] * 21 + [_I64] * 6 + [_VP]
+_SPAN_B_ARGTYPES = [_VP] * 20 + [_I64] * 7 + [_VP]
 _PACK_B_ARGTYPES = [_VP] * 9 + [_I64] * 4 + [_VP]
 
 
@@ -801,9 +867,8 @@ def lane_args(t0, idle_ticks, targets, device) -> torch.Tensor:
 
 def torcells_span_batched(queued, ring, tokens, delivered, target,
                           done_tick, node_sent, inject, inject_target,
-                          flow_succ, seg_start, refill, capacity, last_flow,
-                          args: torch.Tensor, ring_len: int,
-                          tables: BatchedSpanTables):
+                          refill, capacity, last_flow, args: torch.Tensor,
+                          ring_len: int, tables: BatchedSpanTables):
     """Launch csrc/torcells_span_batched.cu on [W]-leading CUDA tensors: every
     lane's superwindow in one cooperative launch on the current stream, no
     synchronisation; ``args`` is :func:`lane_args`.  The state tensors are
@@ -830,15 +895,17 @@ def torcells_span_batched(queued, ring, tokens, delivered, target,
                            ("node_sent", node_sent, (w, h)),
                            ("inject", inject, (w, f)),
                            ("inject_target", inject_target, (w, f)),
-                           ("flow_succ", flow_succ, (w, f)),
-                           ("seg_start", seg_start, (w, f)),
                            ("refill", refill, (w, h)),
                            ("capacity", capacity, (w, h)),
                            ("last_flow", last_flow, (w, c)),
                            ("args", args, (w, p + 2)),
-                           ("node_off", tables.node_off, (w, h + 1)),
-                           ("arr_lat", tables.arr_lat, (w, f))):
+                           ("node_off", tables.node_off, (w, h + 1))):
         _check(f"torcells_span_batched: {name}", t, i64, shape, dev)
+    n_tiles = tables.tiles.shape[1] - 1
+    _check("torcells_span_batched: meta", tables.meta, torch.int32,
+           (w, f, 4), dev)
+    _check("torcells_span_batched: tiles", tables.tiles, torch.int32,
+           (w, n_tiles + 1, 4), dev)
     _check("torcells_span_batched: ring", ring, RING_TORCH_DTYPE,
            (w, ring_len, f), dev)
     t_stop = torch.empty(w, dtype=i64, device=dev)
@@ -851,11 +918,11 @@ def torcells_span_batched(queued, ring, tokens, delivered, target,
         queued.data_ptr(), ring.data_ptr(), tokens.data_ptr(),
         delivered.data_ptr(), target.data_ptr(), done_tick.data_ptr(),
         node_sent.data_ptr(), inject.data_ptr(), inject_target.data_ptr(),
-        tables.node_off.data_ptr(), tables.arr_lat.data_ptr(),
-        seg_start.data_ptr(), flow_succ.data_ptr(), refill.data_ptr(),
-        capacity.data_ptr(), last_flow.data_ptr(), args.data_ptr(),
-        t_stop.data_ptr(), flags.data_ptr(), done_in.data_ptr(),
-        sent_in.data_ptr(), w, f, h, c, int(ring_len), p, stream)
+        tables.meta.data_ptr(), tables.tiles.data_ptr(),
+        tables.node_off.data_ptr(), refill.data_ptr(), capacity.data_ptr(),
+        last_flow.data_ptr(), args.data_ptr(), t_stop.data_ptr(),
+        flags.data_ptr(), done_in.data_ptr(), sent_in.data_ptr(), w, f, h, c,
+        n_tiles, int(ring_len), p, stream)
     if rc != 0:
         raise RuntimeError(f"torcells_span_batched kernel launch failed: "
                            f"CUDA error {rc} (W={w}, F={f}, H={h}, C={c}, "
@@ -962,8 +1029,8 @@ def torcells_step_span_flush_batched(t0, queued, ring, tokens, delivered,
     args = lane_args(t0, idle_ticks, targets, queued.device)
     t_stop, done_in, sent_in = torcells_span_batched(
         queued, ring, tokens, delivered, target, done_tick, node_sent,
-        inject, inject_target, flow_succ, seg_start, refill, capacity,
-        last_flow, args, ring_len, tables)
+        inject, inject_target, refill, capacity, last_flow, args, ring_len,
+        tables)
     flush, forwards = pack_flush_batched(t_stop, done_in, done_tick,
                                          last_flow, delivered, sent_in,
                                          node_sent)

@@ -323,6 +323,12 @@ class DeviceTrafficPlane:
     """Owns the device-resident state for all registered bulk flows and the
     engine-side activation/wake bookkeeping."""
 
+    # process-wide high-water mark of the quiet-tick sharded-variant
+    # cache, reported by `simfleet smoke` against the checked-in
+    # [tool.simjit.budget] "device_plane.sharded_variants" entry (the cap
+    # in _pick_sharded_step is the same value)
+    sharded_variants_high_water = 0
+
     def __init__(self, engine, specs: List[_FlowSpec], mode: str = "device"):
         if engine.shard_count > 1:
             raise RuntimeError(
@@ -1689,6 +1695,9 @@ class DeviceTrafficPlane:
             mask = tuple(bool(bits >> k & 1) for k in range(n_legs))
             step = self._mesh_make_step(mask)
             self._sharded_variants[bits] = step
+            DeviceTrafficPlane.sharded_variants_high_water = max(
+                DeviceTrafficPlane.sharded_variants_high_water,
+                len(self._sharded_variants))
         if self._meshinfo is not None:
             self._meshinfo.legs_active = bin(bits).count("1")
         return step

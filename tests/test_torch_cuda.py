@@ -4,11 +4,13 @@ A CUDA kernel has no CPU mode, so these tests skip where there is no GPU or
 no nvcc, with the reason; on a machine with an H100 they run with
 ``python -m pytest tests/test_torch_cuda.py``.  They hold each kernel
 (packet_hop, torcells_span, pack_flush) bit-exact against its plain torch
-version on the same card tensors, check the hop's async launch path (pinned
-buffers, own stream, several chunks pending at once) and the wrappers'
-argument checks, run the small tor configs (with and without device-mode
-clients) end to end on the card against the port's CPU run, and check that
-a failed launch of the device plane ends the run instead of demoting it.
+version on the same card tensors (the span kernel also on a table with
+nodes longer than its tiles and chunks, and a skewed one), check the hop's
+async launch path (pinned buffers, own stream, several chunks pending at
+once) and the wrappers' argument checks, run the small tor configs (with
+and without device-mode clients) end to end on the card against the port's
+CPU run, and check that a failed launch of the device plane ends the run
+instead of demoting it.
 The mesh's kernels (mesh_span, the mesh flush, the sharded hop in both
 layouts) are held the same way, and the small tor config on D shards of the
 card equals its CPU run, with every dispatch through the mesh kernels.
@@ -170,6 +172,39 @@ def test_torcells_kernels_bit_exact_vs_plain_versions(dev, seed, idle, caps):
     for a, b in zip(got, want):
         assert a.device == dev and a.dtype == b.dtype
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("table", [(800, 4, 2.0), (2000, 150, 1.2)],
+                         ids=["long node", "skewed"])
+def test_torcells_kernels_bit_exact_on_long_and_skewed_tables(dev, table):
+    """The span kernel on a table whose nodes run longer than a tile and
+    the kernel's 512-flow chunk (~600 flows on each of 4 relays), and on a
+    skewed one (a sweep lane's shape at a small size): bit-exact against
+    the plain versions on all ten outputs."""
+    from shadow_tpu_torch.ops import torcells_device as td
+    from test_torch_torcells_cases import (injection, random_state,
+                                           skewed_instance)
+    inst = skewed_instance(*table)
+    longest = int(np.bincount(inst["tables"][0]).max())
+    assert table[1] != 4 or longest > td.CHUNK_FLOWS
+    st = random_state(inst, 9)
+    inj, inj_t = injection(inst, np.arange(0, inst["c"], 2), 40)
+    targets = 500 + 3 * np.arange(1, 9)
+    kw = dict(ring_len=inst["ring_len"])
+    inj, inj_t = torch.as_tensor(inj, device=dev), torch.as_tensor(
+        inj_t, device=dev)
+    s0 = td.torcells_span.launches
+    state, tables = td.from_jax_state(st, inst["tables"], dev)
+    got = td.torcells_step_window_flush(*state, inj, inj_t, targets, 0,
+                                        *tables, **kw)
+    assert td.torcells_span.launches == s0 + 1
+    state, tables = td.from_jax_state(st, inst["tables"], dev)
+    want = td.torcells_step_window_flush_reference(
+        *state, inj, inj_t, targets, 0, *tables, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert int(got[8]) > 0
 
 
 def _run_device_tor(device, **extra):

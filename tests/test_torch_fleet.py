@@ -9,18 +9,25 @@ one shared plane.  Every lane's digest, rc, events, skip and scrape equal
 the port's serial run of the same mode and the JAX package's
 ``run_one_mode``.  Then the re-arm drill (a new lane on the same plane
 launches no new shape: ``fleet.compiles`` stays flat), the plane's device
-check, and the ``simfleet`` parser.
+check, the ``simfleet`` parser, and the smoke's compile-budget check: a
+one-scenario smoke on ``--device cpu`` passes with the mesh's variant
+high-water mark at its budget and fails (exit 1, "compile-budget drift")
+above it or when the budget table lacks the key.
 """
+
+import re
 
 import pytest
 
 from shadow_tpu.fuzz.gen import draw_spec as jax_draw_spec
 from shadow_tpu.fuzz.runner import run_one_mode as jax_run_one_mode
 from shadow_tpu_torch.fleet import FleetDriver, FleetPlane
-from shadow_tpu_torch.fleet.cli import (budget_problems, build_parser,
-                                        load_fleet_budget)
+from shadow_tpu_torch.fleet import cli as fleet_cli
+from shadow_tpu_torch.fleet.cli import (build_parser, crosscheck_budget,
+                                        load_runtime_budget)
 from shadow_tpu_torch.fuzz.gen import draw_spec
 from shadow_tpu_torch.fuzz.runner import mode_batchable, run_one_mode
+from shadow_tpu_torch.parallel.device_plane import DeviceTrafficPlane
 
 SEEDS = (11, 21, 3)
 PARITY_KEYS = ("digest", "rc", "events", "skipped", "scrape")
@@ -79,7 +86,10 @@ def test_fleet_really_batched(fleet_run):
     assert stats["fleet.shape_classes"] >= 2
     assert stats["fleet.launches_amortized"] >= 1.0
     assert 0.0 < stats["fleet.lane_occupancy"] <= 1.0
-    assert not budget_problems(stats["fleet.compiles"], load_fleet_budget())
+    assert not crosscheck_budget(
+        {"fleet.compiles": stats["fleet.compiles"],
+         "device_plane.sharded_variants": 0}, load_runtime_budget(),
+        require_nonzero=("fleet.compiles",))
 
 
 def test_rearm_launches_no_new_shape(fleet_run):
@@ -119,6 +129,37 @@ def test_cli_parser_surface():
     assert args.device == "cuda"
     assert build_parser().parse_args(
         ["smoke", "--device", "cpu"]).device == "cpu"
-    assert load_fleet_budget() == 64
-    assert budget_problems(0, 64) and budget_problems(65, 64)
-    assert not budget_problems(3, 64) and not budget_problems(0, None)
+    budget = load_runtime_budget()
+    assert budget == {"fleet.compiles": 64,
+                      "device_plane.sharded_variants": 4}
+    ok = {"fleet.compiles": 3, "device_plane.sharded_variants": 0}
+    assert not crosscheck_budget(ok, budget, ("fleet.compiles",))
+    for bad in ({**ok, "fleet.compiles": 0}, {**ok, "fleet.compiles": 65},
+                {**ok, "device_plane.sharded_variants": 5},
+                {"fleet.compiles": 3}, {**ok, "other.cache": 1}):
+        assert crosscheck_budget(bad, budget, ("fleet.compiles",))
+
+
+@pytest.mark.parametrize("drift", [None, "over budget", "no budget entry"])
+def test_smoke_checks_the_sharded_variant_budget(monkeypatch, capsys, drift):
+    """``simfleet smoke`` holds ``device_plane.sharded_variants`` (the
+    process's high-water mark) to ``[tool.simjit.budget]`` beside
+    ``fleet.compiles``: at the budget (4) it passes; one above, or with the
+    key gone from the table, it exits 1 naming the key."""
+    monkeypatch.setattr(DeviceTrafficPlane, "sharded_variants_high_water",
+                        5 if drift == "over budget" else 4)
+    if drift == "no budget entry":
+        budget = load_runtime_budget()
+        del budget["device_plane.sharded_variants"]
+        monkeypatch.setattr(fleet_cli, "load_runtime_budget",
+                            lambda: budget)
+    rc = fleet_cli.main(["smoke", "--device", "cpu", "--seeds", "1",
+                         "--seed-base", "21", "--lanes", "1"])
+    err = capsys.readouterr().err
+    if drift is None:
+        assert rc == 0, err
+        assert "compile-budget drift" not in err
+    else:
+        assert rc == 1
+        assert re.search(r"compile-budget drift: .*"
+                         r"`device_plane\.sharded_variants`", err), err

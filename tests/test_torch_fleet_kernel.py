@@ -10,10 +10,12 @@ vmapped ``torcells_step_span_flush_batched`` (XLA on the CPU), its numpy
 twin, and the port's plain batched version (and its copy of the twin):
 all ten outputs bit-exact.  The fleet's padding (``_lane_tables``) and
 ``_repack_flush`` round trip is held to the unpadded serial step, and the
-batched kernel's node walk (a segment restart inside a node's run) is
-re-stated in numpy and held to the plain version on padded tables.  The
-kernels themselves run on the card only (marker ``cuda``).  Tolerance:
-none (int64, exact).
+batched kernel's tiled algorithm (segment restarts inside a node's run,
+where the padding flows are each their own segment, and chunk carries) is
+re-stated in numpy and held to the plain version and the JAX function on
+padded tables.  The kernels themselves run on the card only (marker
+``cuda``), there also on a node longer than a tile and a skewed table.
+Tolerance: none (int64, exact).
 """
 
 import numpy as np
@@ -22,8 +24,9 @@ import torch
 
 import shadow_tpu_torch.ops.torcells_device as ttd
 from shadow_tpu_torch.fleet import plane as fplane
-from test_torch_torcells_cases import (injection, random_state, toy_instance,
-                                       zero_state)
+from test_torch_torcells_cases import (injection, random_state,
+                                       skewed_instance, tile_kernel_span,
+                                       toy_instance, zero_state)
 
 NAMES = ("t_stop", "queued", "ring", "tokens", "delivered", "target",
          "done_tick", "node_sent", "forwards", "flush")
@@ -190,83 +193,62 @@ def test_padding_and_repack_round_trip(inst):
         assert (port[6][w][f:] == -1).all() and not port[2][w][:, f:].any()
 
 
-def _walk_like_kernel(row, derived, ring_len):
-    """The batched span kernel's loop re-stated in numpy for one lane:
-    per tick, each node walks its flows node_off[n]:node_off[n+1] in
-    order, restarting the greedy allocation where seg_start[j] == j.
-    Returns (t_stop, queued, ring, tokens, delivered, done_tick,
-    node_sent)."""
-    (t0, queued, ring, tokens, delivered, target, done_tick, node_sent, inj,
-     inj_t, targets, idle, _fn, _lat, succ, ss, refill, cap, _lf) = \
-        [np.array(a) for a in row]
-    node_off, arr_lat = derived
-    size = ttd.CELL_WIRE_BYTES
-    queued += inj
-    target += inj_t
-    tokens = np.minimum(cap, tokens + refill * int(idle))
-    if int(idle) > 0:
-        ring[:] = 0
-    t, idx, span_done = int(t0), 0, False
-    while t < int(targets[-1]):
-        row_i = t % ring_len
-        any_new = False
-        for n in range(len(refill)):
-            tok = min(int(cap[n]), int(tokens[n] + refill[n]))
-            cap_cells = tok // size
-            before = spent = 0
-            for j in range(node_off[n], node_off[n + 1]):
-                if ss[j] == j:
-                    before = 0
-                q = int(queued[j]) + int(ring[(t - arr_lat[j]) % ring_len,
-                                              j])
-                s = min(max(cap_cells - before, 0), q)
-                before += q
-                queued[j] = q - s
-                spent += s
-                if succ[j] < 0:
-                    delivered[j] += s
-                    if target[j] > 0 and done_tick[j] < 0 \
-                            and delivered[j] >= target[j]:
-                        done_tick[j] = t
-                        any_new = True
-                else:
-                    ring[row_i, succ[j]] = s
-                if arr_lat[j] == 0:
-                    ring[row_i, j] = 0
-            tokens[n] = tok - spent * size
-            node_sent[n] += spent * size
-        span_done = span_done or any_new
-        boundary = t + 1 == targets[min(idx, len(targets) - 1)]
-        t += 1
-        if boundary:
-            idx += 1
-            if span_done:
-                break
-            span_done = False
-    return (t, queued, ring, tokens, delivered, done_tick, node_sent)
-
-
-def test_kernel_walk_matches_plain_on_padded_tables(inst):
-    """The batched kernel's node walk (several segments in one node's run:
-    the padding flows) equals the JAX segmented cumsum on padded lanes."""
+@pytest.mark.parametrize("geometry", [(4, 2, 4), (8, 2, 12),
+                                      (256, 2, ttd.TILE_FLOWS)],
+                         ids=lambda g: "x".join(map(str, g)))
+def test_kernel_walk_matches_plain_on_padded_tables(inst, geometry):
+    """The batched kernel's tiled algorithm on padded lanes (a node's run
+    holds several segments: the padding flows; nodes cross chunks and
+    tiles at the small geometries) equals the plain batched version and
+    the JAX vmapped step bit for bit."""
     f, h, c, lr = inst["f"], inst["h"], inst["c"], inst["ring_len"]
-    cls = fplane.FleetPlane(device="cpu")._class_for(f, h, c, 8, lr)
-    for lane in _lanes(inst)[1:3]:
-        row, derived = _pad_lane(inst, lane, cls)
+    threads, fpt, tile_flows = geometry
+    # a class with more padding flows than padding nodes, as the sweep's
+    # (42,072 over 13,768), so padding nodes pace several segments
+    cls = fplane._ShapeClass(256, 64, 32, 8, lr)
+    assert cls.f2 - f > 2 * (cls.h2 - h)
+    jtd = _jtd()
+    for lane in _lanes(inst)[1:4]:
+        row, _derived = _pad_lane(inst, lane, cls)
+        arr_lat = ttd.arrival_latency(torch.from_numpy(row[13]),
+                                      torch.from_numpy(row[14])).numpy()
+        node_off, meta, tiles = ttd.span_tile_tables(
+            row[12], arr_lat, row[14], row[15], cls.h2, lr, tile_flows)
+        # a node whose run holds several segments (padding flows)
+        heads = np.bincount(row[12][row[15] == np.arange(cls.f2)],
+                            minlength=cls.h2)
+        assert (heads > 1).any()
         batch = tuple(np.stack([np.asarray(row[i])]) for i in range(19))
         plain = _port(batch, lr)
-        walk = _walk_like_kernel(row, derived, lr)
-        for got, i in zip(walk, (0, 1, 2, 3, 4, 6, 7)):
-            np.testing.assert_array_equal(got, plain[i][0],
+        jout = jtd.torcells_step_span_flush_batched(
+            *(np.array(a) for a in batch), ring_len=lr)
+        got = tile_kernel_span(row[:8], row[8], row[9], row[10], row[11],
+                               row[16], row[17], node_off, meta, tiles, lr,
+                               threads, fpt)
+        for i in range(9):
+            np.testing.assert_array_equal(np.asarray(got[i]), plain[i][0],
+                                          err_msg=NAMES[i])
+            np.testing.assert_array_equal(np.asarray(got[i]),
+                                          np.asarray(jout[i])[0],
                                           err_msg=NAMES[i])
 
 
 def test_lane_span_tables_refuse_bad_tables(inst):
     fn, lat, succ, ss = (np.array(a) for a in inst["tables"][:4])
     h, lr = inst["h"], inst["ring_len"]
-    node_off, arr_lat = ttd.lane_span_tables(fn, lat, succ, ss, h, lr)
+    node_off, meta, tiles = ttd.lane_span_tables(fn, lat, succ, ss, h, lr)
     assert node_off[0] == 0 and node_off[-1] == len(fn)
     assert (np.diff(node_off) >= 0).all()
+    assert meta.shape == (len(fn), 4) and meta.dtype == np.int32
+    np.testing.assert_array_equal(meta[:, 2], ttd.arrival_latency(
+        torch.from_numpy(lat), torch.from_numpy(succ)).numpy())
+    # every lane of a shape class gets the same tile count: F2 sets it
+    cls = fplane._ShapeClass(128, 64, 32, 8, lr)
+    f2_tiles = [fplane._lane_tables(*inst["tables"], cls.f2, cls.h2, cls.c2,
+                                    lr)[1][2].shape,
+                cls.filler_tables("cpu")[9].shape]
+    n_tiles = max(1, -(-cls.f2 // ttd.TILE_FLOWS))
+    assert f2_tiles[0] == f2_tiles[1] == (n_tiles + 1, 4)
     # a segment spanning two nodes: the node walk could not restate it
     bad = ss.copy()
     j = int(np.flatnonzero(np.diff(fn) != 0)[0]) + 1
@@ -289,9 +271,8 @@ def test_batched_wrappers_refuse_cpu_for_kernels(inst):
                                          batch[15], inst["h"], lr)
     args = ttd.lane_args(batch[0], batch[11], batch[10], "cpu")
     with pytest.raises(ValueError, match="needs CUDA tensors"):
-        ttd.torcells_span_batched(*batch[1:10], batch[14], batch[15],
-                                  batch[16], batch[17], batch[18], args, lr,
-                                  tables)
+        ttd.torcells_span_batched(*batch[1:10], batch[16], batch[17],
+                                  batch[18], args, lr, tables)
     assert tuple(args.shape) == (1, 2 + 8)
 
 
@@ -307,10 +288,22 @@ def dev():
     return torch.device("cuda", 0)
 
 
+# the kernels' own chunk is 512 flows: 800 circuits over 4 relays give
+# every relay a run of ~600 flows, longer than a tile and a chunk; the
+# skewed table has the sweep's shape at a small size
+CARD_TABLES = {"long node": (800, 4, 2.0), "skewed": (2000, 150, 1.2)}
+
+
 @pytest.mark.cuda
-def test_batched_kernels_bit_exact_on_card(inst, dev):
+@pytest.mark.parametrize("table", ["toy", *CARD_TABLES])
+def test_batched_kernels_bit_exact_on_card(inst, dev, table):
     """The batched span and pack kernels against the plain batched version
-    on the same card tensors: four lanes plus four filler rows."""
+    on the same card tensors: four lanes plus four filler rows, on the toy
+    table, a table with nodes longer than a tile, and a skewed one."""
+    if table != "toy":
+        inst = skewed_instance(*CARD_TABLES[table])
+        longest = int(np.bincount(inst["tables"][0]).max())
+        assert table != "long node" or longest > ttd.CHUNK_FLOWS
     lr = inst["ring_len"]
     batch = _stack(inst, _lanes(inst), 4)
     want = _port(batch, lr)

@@ -7,9 +7,15 @@ package's ``torcells_step_window_flush_nodonate`` (or ``_capped`` with
 caps) and its numpy twin ``torcells_step_window_numpy_flush``, on a small
 ``build_flows`` instance with inputs made by numpy from a seed.  The packed
 flush alone (``pack_flush_torch``) is held to ``_pack_flush_jnp`` and
-``pack_flush_np``.  Tolerance: none (int64, exact).
+``pack_flush_np``.  The span kernels' algorithm (tiles of whole nodes, a
+thread per flow, segmented scans with a carry across chunks), re-stated in
+numpy by ``test_torch_torcells_cases.tile_kernel_span``, is held to the
+plain version and the JAX function on single-flow nodes, a node longer
+than a tile and a chunk, nodes with no flows, and tor10k-like and
+sweep-like skew.  Tolerance: none (int64, exact).
 """
 
+import functools
 import os
 import re
 
@@ -19,8 +25,9 @@ import torch
 
 import shadow_tpu.ops.torcells_device as jtd
 import shadow_tpu_torch.ops.torcells_device as ttd
-from test_torch_torcells_cases import (injection, random_state, toy_instance,
-                                  zero_state)
+from test_torch_torcells_cases import (injection, random_state,
+                                       skewed_instance, tile_kernel_span,
+                                       toy_instance, zero_state)
 
 NAMES = ("t_stop", "queued", "ring", "tokens", "delivered", "target",
          "done_tick", "node_sent", "forwards", "flush")
@@ -226,33 +233,142 @@ def test_from_jax_state_types(inst):
 
 
 def test_span_tables_refuse_what_the_kernel_cannot_walk(inst):
-    """The span kernel walks each node's flows serially and reads arrivals
-    from a ring row other than the one a tick writes: a table that breaks
-    either is refused before any launch."""
+    """The span kernel scans each node's flows as one segment, reads
+    arrivals from a ring row other than the one a tick writes, and indexes
+    with 32-bit offsets: a table that breaks any is refused before any
+    launch.  The tile table covers the flows in whole nodes."""
     fn, fl, fs, ss = (torch.from_numpy(a) for a in inst["tables"][:4])
-    tab = ttd.SpanTables(fn, fl, fs, ss, inst["h"], inst["ring_len"])
-    assert int(tab.node_off[-1]) == inst["f"]
+    f, h, lr = inst["f"], inst["h"], inst["ring_len"]
+    tab = ttd.SpanTables(fn, fl, fs, ss, h, lr)
+    assert int(tab.node_off[-1]) == f
     np.testing.assert_array_equal(
         tab.arr_lat.numpy()[fs.numpy()[fs.numpy() >= 0]],
         fl.numpy()[fs.numpy() >= 0])
+    meta, tiles, off = tab.meta.numpy(), tab.tiles.numpy(), \
+        tab.node_off.numpy()
+    assert meta.dtype == np.int32 and meta.shape == (f, 4)
+    np.testing.assert_array_equal(meta[:, 0], fn.numpy())
+    np.testing.assert_array_equal(meta[:, 1], fs.numpy())
+    np.testing.assert_array_equal(meta[:, 2], tab.arr_lat.numpy())
+    j = np.arange(f)
+    np.testing.assert_array_equal(meta[:, 3] >> 2, j - off[fn.numpy()])
+    np.testing.assert_array_equal((meta[:, 3] & ttd.SEG_HEAD) != 0,
+                                  ss.numpy() == j)
+    np.testing.assert_array_equal((meta[:, 3] & ttd.NODE_TAIL) != 0,
+                                  j == off[fn.numpy() + 1] - 1)
+    for tile_flows in (ttd.TILE_FLOWS, 7, 1):
+        tiles = ttd.span_tile_tables(fn.numpy(), tab.arr_lat.numpy(),
+                                     fs.numpy(), ss.numpy(), h, lr,
+                                     tile_flows)[2]
+        assert len(tiles) - 1 == max(1, -(-f // tile_flows))
+        assert tuple(tiles[0, :2]) == (0, 0) and tuple(tiles[-1]) == (h, f,
+                                                                      0, 0)
+        assert (np.diff(tiles[:, 0]) >= 0).all()
+        np.testing.assert_array_equal(tiles[:, 1], off[tiles[:, 0]])
     with pytest.raises(ValueError, match="sorted"):
-        ttd.SpanTables(fn.flip(0), fl, fs, ss, inst["h"], inst["ring_len"])
+        ttd.SpanTables(fn.flip(0), fl, fs, ss, h, lr)
     bad = ss.clone()
     bad[1] = 1 if int(ss[1]) == 0 else 0
     with pytest.raises(ValueError, match="segment"):
-        ttd.SpanTables(fn, fl, fs, bad, inst["h"], inst["ring_len"])
+        ttd.SpanTables(fn, fl, fs, bad, h, lr)
     with pytest.raises(ValueError, match="arrival latency"):
-        ttd.SpanTables(fn, fl, fs, ss, inst["h"], int(fl.max()))
+        ttd.SpanTables(fn, fl, fs, ss, h, int(fl.max()))
+    with pytest.raises(ValueError, match="32-bit offsets"):
+        ttd.SpanTables(fn, fl, fs, ss, h, 2 ** 31 // f + 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_instance(case):
+    """Small tables with the shapes the tile design must get right."""
+    if case == "single-flow nodes":
+        inst = dict(toy_instance())
+        f = inst["f"]
+        rng = np.random.default_rng(3)
+        bw = rng.integers(256, 4096, size=f)
+        refill, cap = ttd.bucket_params(bw)
+        fn, lat, succ, _ss, _r, _c, last = inst["tables"]
+        inst["tables"] = (np.arange(f, dtype=np.int64), lat, succ,
+                          np.arange(f, dtype=np.int64),
+                          refill.astype(np.int64), cap.astype(np.int64),
+                          last)
+        inst["h"] = f
+        return inst
+    return {"long node": lambda: skewed_instance(60, 6, 2.5),
+            "empty nodes": lambda: skewed_instance(40, 8, 1.0,
+                                                   empty_every=3),
+            "tor10k-like skew": lambda: skewed_instance(150, 80, 0.6),
+            "sweep-like skew": lambda: skewed_instance(150, 30, 1.3)}[case]()
+
+
+TILE_CASES = ("single-flow nodes", "long node", "empty nodes",
+              "tor10k-like skew", "sweep-like skew")
+# (threads, flows a thread, tile flows): small chunks and tiles, so nodes
+# run across chunk and tile boundaries, and the kernel's own
+TILE_GEOMETRY = ((4, 2, 4), (16, 2, 24), (256, 2, ttd.TILE_FLOWS))
+
+
+@pytest.mark.parametrize("geometry", TILE_GEOMETRY,
+                         ids=lambda g: "x".join(map(str, g)))
+@pytest.mark.parametrize("case", TILE_CASES)
+def test_tile_restatement_matches_plain_and_jax(case, geometry):
+    """The span kernels' tiled algorithm, re-stated in numpy, equals the
+    plain version and the JAX package's span step bit for bit (all nine
+    span outputs) on a busy state with an injection and eight boundaries
+    (an idle fold on the empty-nodes table)."""
+    inst = _tile_instance(case)
+    threads, fpt, tile_flows = geometry
+    fn, fl, fs, ss, refill, cap, _last = inst["tables"]
+    f, h, lr = inst["f"], inst["h"], inst["ring_len"]
+    tab = ttd.SpanTables(*(torch.from_numpy(a) for a in (fn, fl, fs, ss)),
+                         h, lr)
+    node_off, meta, tiles = ttd.span_tile_tables(
+        fn, tab.arr_lat.numpy(), fs, ss, h, lr, tile_flows)
+    lengths = np.diff(node_off)
+    if case == "long node":
+        assert lengths.max() > max(tile_flows, threads * fpt) or \
+            threads * fpt > f
+    if case == "empty nodes":
+        assert (lengths == 0).sum() > 0 and tiles[:, 2].any()
+    if case == "single-flow nodes":
+        assert (lengths == 1).all()
+    st = random_state(inst, 17)
+    inj, inj_t = injection(inst, np.arange(0, inst["c"], 3), 30)
+    targets = 500 + 3 * np.arange(1, 9)
+    idle = 2 if case == "empty nodes" else 0
+    got = tile_kernel_span(st, inj, inj_t, targets, idle, refill, cap,
+                           node_off, meta, tiles, lr, threads, fpt)
+    copy = lambda: tuple(np.array(a) for a in st)  # noqa: E731
+    tstate, ttables = ttd.from_jax_state(copy(), inst["tables"], "cpu")
+    plain = ttd.torcells_step_span_torch(
+        *tstate, torch.from_numpy(inj), torch.from_numpy(inj_t), targets,
+        idle, *ttables[:6], ring_len=lr)
+    jout = jtd.torcells_step_window_flush_nodonate(
+        *copy(), inj, inj_t, targets, np.int64(idle), *inst["tables"],
+        ring_len=lr)
+    for i, name in enumerate(NAMES[:9]):
+        np.testing.assert_array_equal(np.asarray(got[i]),
+                                      np.asarray(plain[i]), err_msg=name)
+        np.testing.assert_array_equal(np.asarray(got[i]),
+                                      np.asarray(jout[i]), err_msg=name)
+    assert got[8] > 0 and got[0] > 500
 
 
 def test_kernel_cell_size_matches_the_model():
-    """csrc/torcells_span.cu compiles in the wire size of a cell; it must
-    be the model's CELL_WIRE_BYTES."""
+    """The span kernels' tick body (csrc/span_tile.cuh) compiles in the
+    wire size of a cell, its chunk and its meta flags; they must be the
+    model's CELL_WIRE_BYTES and the wrapper's CHUNK_FLOWS, SEG_HEAD and
+    NODE_TAIL."""
     path = os.path.join(os.path.dirname(ttd.__file__), "csrc",
-                        "torcells_span.cu")
+                        "span_tile.cuh")
     with open(path, encoding="utf-8") as f:
-        m = re.search(r"CELL_WIRE_BYTES = (\d+) \+ (\d+);", f.read())
+        src = f.read()
+    m = re.search(r"CELL_WIRE_BYTES = (\d+) \+ (\d+);", src)
     assert m and int(m.group(1)) + int(m.group(2)) == ttd.CELL_WIRE_BYTES
+    const = {k: int(v) for k, v in re.findall(
+        r"constexpr int (\w+) = (\d+);", src)}
+    assert const["THREADS"] * const["FPT"] == ttd.CHUNK_FLOWS
+    assert (const["SEG_HEAD"], const["NODE_TAIL"]) == (ttd.SEG_HEAD,
+                                                        ttd.NODE_TAIL)
 
 
 def test_cuda_dispatch_refuses_cpu_tensors():
