@@ -65,7 +65,8 @@ result line:
     batched pack kernel per fleet launch, the card's busy time and idle
     share;
 14. model kernels vs plain versions: ``phold`` (1,024 hosts x 16,384
-    messages, to 3 s), ``saturate`` (4,096 interfaces x 30,000 ticks),
+    messages, to 3 s; and 65,536 messages, the device-memory path, to
+    1 s), ``saturate`` (4,096 interfaces x 30,000 ticks),
     ``torcells_run`` (200 relays, 2,000 circuits, 200 cells each, to
     completion) and ``torcells_step_window`` (split windows and an idle
     fold, through ``torcells_span``), ``admit_sorted`` (N in {256, 8,192,
@@ -91,7 +92,9 @@ M1. mesh kernels vs plain versions: ``mesh_span`` + the mesh entry of
     span cases: bit-exact on all ten outputs (the trailing cross-shard slot
     included) against the plain mesh version on the card and, read back
     through the layout, against ``torcells_span`` + ``pack_flush`` on the
-    unpadded table; the sharded hop in both layouts at B in {256, 4096,
+    unpadded table; the same on the long-node table at D = 2 (fused,
+    ppermute, none: nodes of up to 614 flows, longer than a tile and the
+    512-flow chunk); the sharded hop in both layouts at B in {256, 4096,
     65536} and D in {8, 3} against its plain versions and ``packet_hop``;
 M2. mesh times: one 256-tick mesh dispatch at D = 8 in turns with the
     single-table span on the same state (CUDA events), the mesh flush and
@@ -1853,6 +1856,9 @@ EXPECTED_MODELS = {
 # hundred launches a window); the JAX package's hops by then
 PHOLD_CHECK_NS = 3_000_000_000
 PHOLD_CHECK_HOPS = 661533
+# the device-memory path (state beyond shared memory) at bench width:
+# 1,024 hosts x 65,536 messages to 1 s, held to the plain version
+PHOLD_WIDE = {"hosts": 1024, "msgs": 65536, "horizon_ns": 1_000_000_000}
 ADMIT_SIZES = (256, 8192, 65536)
 ADMIT_HOSTS = 2050
 # 32-bit operations: saturate per host and tick (two int64 compares, the
@@ -2010,6 +2016,29 @@ def check_models() -> dict:
           f"(max_abs_err {err}), hops {int(kern[2])} == JAX, windows "
           f"{int(kern[3])}; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms",
           flush=True)
+    w = pd.DevicePhold(PHOLD_WIDE["hosts"], PHOLD_WIDE["msgs"],
+                       seed=sizes["phold_seed"])
+    wargs = (w.latency, torch.as_tensor(w.msg_host, device=dev),
+             torch.as_tensor(w.msg_time, device=dev), (w.key_lo, w.key_hi),
+             PHOLD_WIDE["horizon_ns"])
+    kern, wms = _events_ms(lambda: pd.phold_run(*wargs, with_windows=True),
+                           1)
+    plain, wplain_ms = _host_ms(lambda: pd.phold_run_torch(
+        *wargs, with_windows=True))
+    werr = _max_err(zip(kern, plain))
+    if werr:
+        fail(f"phold kernel vs plain version at {PHOLD_WIDE['msgs']} "
+             f"messages (device memory): max_abs_err {werr}")
+    out["phold"]["err"] = max(err, werr)
+    out["phold"]["wide"] = {"msgs": PHOLD_WIDE["msgs"], "err": werr,
+                            "ms": wms, "plain_ms": wplain_ms,
+                            "hops": int(kern[2]), "windows": int(kern[3])}
+    print(f"phold {PHOLD_WIDE['hosts']} x {PHOLD_WIDE['msgs']} to "
+          f"{PHOLD_WIDE['horizon_ns'] / 1e9:g} s (state in device memory): "
+          f"kernel == plain version bit-exact (max_abs_err {werr}), hops "
+          f"{int(kern[2])}, windows {int(kern[3])}; kernel {wms:.3f} ms "
+          f"({wms * 1e3 / max(int(kern[3]), 1):.3f} us a window), plain "
+          f"{wplain_ms:.1f} ms", flush=True)
 
     bwv, first, npk = mb.saturate_flows(sizes)
     sat = sd.DeviceSaturate(bwv)
@@ -2297,6 +2326,7 @@ TOR1K_MATRIX_SHARDS = 4
 MESH_CHECK = ((8, ("fused", "ppermute", "ppermute-masked", "none")),
               (3, ("fused", "ppermute", "none")),
               (2, ("fused", "ppermute", "none")))
+MESH_LONG_NODE_CHECK = ((2, ("fused", "ppermute", "none")),)
 HOP_SHARDS = (8, 3)
 HOP_SHARD_SIZES = (256, 4096, 65536)
 MESH_TIME_TICKS = (16, 256)
@@ -2387,15 +2417,16 @@ def _mesh_run(fn, state, inject, inject_target, targets, idle, statics):
     return [o.cpu().numpy() for o in out]
 
 
-def check_mesh(plane) -> int:
+def check_mesh(plane, checks=MESH_CHECK) -> int:
     """mesh_span + the mesh flush against the plain mesh version on the
     card, bit-exact on all ten outputs (trailing slot included), and, read
     back through the layout, against one torcells_span + pack_flush launch
     on the unpadded table (the exactness argument; in the modes that
-    exchange every leg): on the tor10k plane's flow table, partitioned by
-    chain_partition, at every D and exchange mode of MESH_CHECK, for the
-    first three span cases (a mid-span halt, an idle fold, an injection on
-    a boundary).  Returns the largest absolute difference seen (0)."""
+    exchange every leg): on ``plane``'s flow table (the tor10k plane's, or
+    the long-node table's), partitioned by chain_partition, at every D and
+    exchange mode of ``checks``, for the first three span cases (a
+    mid-span halt, an idle fold, an injection on a boundary).  Returns the
+    largest absolute difference seen (0)."""
     import numpy as np
     from shadow_tpu_torch.ops import torcells_device as td
     from shadow_tpu_torch.ops.torcells_device import flush_len
@@ -2407,7 +2438,7 @@ def check_mesh(plane) -> int:
               for _n, st, inj, inj_t, tv, idle, _c in cases]
     base = flush_len(plane.n_chains, plane.n_nodes)
     max_err = 0
-    for n_shards, modes in MESH_CHECK:
+    for n_shards, modes in checks:
         t0 = time.perf_counter()
         lay = mesh_layout(plane, n_shards)
         statics = _mesh_statics(lay)
@@ -2452,9 +2483,14 @@ def check_mesh(plane) -> int:
                     fail(f"mesh D={n_shards} {mode} {name}: the flush "
                          "differs from the single-table kernels'")
         sched = lay["exchange"]
+        tables = ex.MeshTables(lay, plane.ring_len,
+                               lay["inv"][plane.last_flow], lay["node_src"],
+                               plane.n_nodes)
+        runs = np.diff(tables.node_off.cpu().numpy())
         print(f"mesh D={n_shards} (pad {lay['pad']}, h_pad {lay['h_pad']}, "
-              f"{sched.legs} legs, {sched.cross_edges} cross edges, pair "
-              f"width {sched.pair_width}): {', '.join(modes)} x "
+              f"{len(tables.tiles) - 1} tiles, longest node {runs.max()} "
+              f"flows, {sched.legs} legs, {sched.cross_edges} cross edges, "
+              f"pair width {sched.pair_width}): {', '.join(modes)} x "
               f"{len(cases)} cases == plain mesh version == single-table "
               f"kernels, bit-exact ({time.perf_counter() - t0:.1f} s)",
               flush=True)
@@ -2564,7 +2600,7 @@ def mesh_bound(plane, lay, ticks: int, tables) -> dict:
     span_bound, traffic that repeats each tick is not counted: the ring is
     counted once, and so are the slots (~0.45 MB at tor10k, in L2)."""
     row = span_bound(plane, ticks)
-    slots = int(tables.recv_slot.numel())
+    slots = tables.n_recv
     row = _bound_row(row["bytes"] + 16 * slots, row["ops"])
     row["slots"] = slots
     return row
@@ -2916,8 +2952,16 @@ def main(argv=None) -> int:
         res["torcells_times"] = time_torcells(plane)
     if "mesh-kernels" in want:
         phase("mesh kernels vs plain versions (mesh_span + the mesh flush "
-              "on the tor10k table at D in 8, 3, 2; the sharded hop)")
+              "on the tor10k table at D in 8, 3, 2 and the long-node table "
+              "at D = 2; the sharded hop)")
         res["mesh_err"] = check_mesh(plane)
+        # nodes longer than a tile and the 512-flow chunk, on 2 shards
+        long_table = LongNodeTable()
+        print(f"long-node table: F {long_table.n_flows} H "
+              f"{long_table.n_nodes}, longest node {long_table.longest} "
+              "flows", flush=True)
+        res["mesh_err"] = max(res["mesh_err"], check_mesh(
+            long_table, MESH_LONG_NODE_CHECK))
         res["hop_sharded_err"] = check_sharded_hop()
     if "mesh-times" in want:
         phase("mesh times: a mesh dispatch beside the single-table span, "

@@ -1,5 +1,6 @@
 // mesh_span: one superwindow of the sharded (mesh) traffic plane, all D
-// shards in one persistent cooperative launch, for Hopper (sm_90a).
+// shards in one persistent cooperative launch, a thread per flow, for
+// Hopper (sm_90a).
 //
 // Replaces the JAX package's mesh step shadow_tpu/parallel/mesh/exchange.py
 // :247 (make_mesh_span_raw -> shard_body, a shard_map over D devices with
@@ -12,92 +13,91 @@
 // the scalars t_stop, forwards, cross).
 //
 // Layout (the JAX package's global view of the sharded arrays): shard s
-// owns flow rows s*pad .. s*pad+pad-1 of every [D*pad] array, node slots
-// s*h_pad .. of every [D*h_pad] array, and ring columns s*pad .. of the
-// [L, D*pad] int32 ring (P(None, axis)).  Blocks are dealt to shards in
-// equal groups; a shard's blocks touch only that shard's rows, node slots
-// and ring columns, and its slots of the exchange buffer.  Cross-shard
-// cells go only through that buffer, never straight into another shard's
-// ring: the shard boundary stays real.
+// owns flow rows s*pad .. s*pad+pad-1 of every [F = D*pad] array, node
+// slots s*h_pad .. of every [H = D*h_pad] array, and ring columns s*pad ..
+// of the [L, F] int32 ring (P(None, axis)).  Cross-shard cells go only
+// through the exchange buffer, never straight into another shard's ring:
+// the shard boundary stays real.
 //
 // Per tick t, for each shard (the shard-local body of exchange.py:380-435):
-//   phase A, every node n of the shard (a thread per node, its flows
-//   node_off[n] .. node_off[n+1] walked serially — the segmented cumsum):
-//     tokens = min(capacity, tokens + refill); cap_cells = tokens / CELL
-//     q = queued[j] + ring[(t - arr_lat[j]) mod L, j]
-//     served = clip(cap_cells - before, 0, q); before += q; queued[j] = q-s
-//     last stage: delivered += served, done_tick = t on reaching target
-//     intra-shard successor: ring[t mod L, succ] = served
-//     cross-shard successor: xbuf[slot] = served (its sender slot:
-//       a2a_src in fused mode, the leg's send_src in ppermute mode)
-//     a column no row of its own shard feeds: set to 0 by its own walker
-//   grid sync
-//   phase B, every slot the shard receives (a2a_dst / recv_dst):
-//     ring[t mod L, col] = xbuf[slot]; cross += that
-//   and every thread reads the tick's completion word (the psum of newly)
-//   grid sync
-// The ring row t mod L is thus set whole, as the JAX ring.at[t].set(v)
-// does: every column by exactly one writer (circuits are chains: a row has
-// one successor, a column one predecessor), so no atomics.  A masked leg's
-// slots are not exchanged (their columns stay 0), as in JAX.  The reads of
-// a tick are rows (t - arr_lat) mod L with arr_lat in [1, L) (checked by
-// MeshTables), never the row it writes; the second sync orders phase B's
-// writes before the next tick's reads.  The psum of [served, newly]: each
-// thread keeps its served total (reduced once at the end — the sum is
-// exact in any order), and a newly-done chain sets this tick's completion
-// word; three words rotate (t mod 3) so thread 0 clears the next one while
-// others may still read this one.  The halt is decided on the card at each
-// targets boundary, by every thread alike.
+// every node refills its bucket and serves its flows greedily in order (the
+// segmented cumsum), a served cell goes to its successor's ring column
+// t mod L (an intra-shard successor), to its exchange slot (a cross-shard
+// one: a2a_src in fused mode, the leg's send_src in ppermute mode), or
+// nowhere (a leg this variant does not exchange, whose columns stay 0, as in
+// JAX); the receiving shard writes each slot into its column's row t mod L
+// (a2a_dst / recv_dst) and adds it to `cross`; the psum of [served, newly].
+// The ring row t mod L is thus set whole, as the JAX ring.at[t].set(v) does:
+// every column by exactly one writer.
+//
+// Design.  The tick body is csrc/span_tile.cuh's with its mesh cases
+// (MESH = true): the padded table is cut, once per MeshTables, into tiles
+// of whole nodes shard by shard (parallel/mesh/exchange.py
+// mesh_tile_tables), so a tile never crosses a shard; blocks take tiles
+// grid-strided, as csrc/torcells_span.cu does, a thread per flow and two
+// block scans a chunk, where the earlier kernel gave each node a thread that
+// walked its flows (blocks sized by h_pad, which chain_partition does not
+// balance) and ran two grid syncs a tick.  ONE grid sync a tick: the
+// exchange buffer is double-buffered by tick parity, and a receiving flow's
+// own thread writes the cell sent at tick t - 1 into its ring column at the
+// start of tick t, before its read (a ring column is read only by its own
+// flow's thread), so the receive needs no phase of its own.  After the loop
+// one pass lands the last tick's receives, so the state at t_stop is the
+// plain version's.  A column whose predecessor sits on an unexchanged leg,
+// or that has none, is set to 0 each tick by its own thread.  The padding
+// node slots (h_pad less a shard's nodes: 51,715 of 82,216 at tor10k, D =
+// 8) pace no flow and lie in each shard's last tile; refilled there a tick,
+// they made that tile the tick's longest, so they are refilled after the
+// loop instead, once for every tick run, spread over the grid.  The halt is
+// decided on the card at each targets boundary, by every thread alike, from
+// three rotating completion words.
 //
 // Bound.  The single-table span's work (csrc/torcells_span.cu: every flow
 // and node once a tick) plus the exchange slots: one 8-byte write and one
 // read per cross-shard edge a tick.  On one card the D shards buy no
-// parallelism the single-table kernel lacks and add a grid sync a tick.
+// parallelism the single-table kernel lacks; a tick is each block's tiles
+// one after another, then the grid sync, as there.
 
 #include <cstdint>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "span_tile.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int MAX_TARGETS = 64;
-constexpr int THREADS = 256;
-// 512 B cell + the TCP/IP/Ethernet header (core/defs.py)
-constexpr int64_t CELL_WIRE_BYTES = 512 + 66;
+constexpr int THREADS = span::THREADS;
 
 struct MeshParams {
   // carried state (global padded layout), updated in place
-  int64_t* queued;       // [D*pad]
-  int32_t* ring;         // [L, D*pad]
-  int64_t* tokens;       // [D*h_pad]
-  int64_t* delivered;    // [D*pad]
-  int64_t* target;       // [D*pad]
-  int64_t* done_tick;    // [D*pad]
-  int64_t* node_sent;    // [D*h_pad]
+  int64_t* queued;       // [F]
+  int32_t* ring;         // [L, F]
+  int64_t* tokens;       // [H]
+  int64_t* delivered;    // [F]
+  int64_t* target;       // [F]
+  int64_t* done_tick;    // [F]
+  int64_t* node_sent;    // [H]
   // this dispatch's injections
-  const int64_t* inject;         // [D*pad]
-  const int64_t* inject_target;  // [D*pad]
+  const int64_t* inject;         // [F]
+  const int64_t* inject_target;  // [F]
   // static tables (MeshTables)
-  const int64_t* node_off;   // [D*(h_pad+1)] local row offsets
-  const int64_t* arr_lat;    // [D*pad]
-  const int64_t* succ;       // [D*pad] global successor row, -1 = last
-  const int64_t* send_to;    // [D*pad] -1 last, <D*pad column, else slot
-  const uint8_t* zero_col;   // [D*pad]
-  const int64_t* refill;     // [D*h_pad]
-  const int64_t* capacity;   // [D*h_pad]
-  const int64_t* recv_off;   // [D+1]
-  const int64_t* recv_slot;  // [R]
-  const int64_t* recv_col;   // [R]
+  const int4* meta;          // [F]: global node, destination, arr_lat, flags
+  const int4* tiles;         // [T + 1]: first node, first flow, empty nodes
+  const int64_t* node_off;   // [H + 1] global row offsets
+  const int32_t* xin;        // [F]: receive slot, -1, or -2 (leg masked)
+  const int64_t* refill;     // [H]
+  const int64_t* capacity;   // [H]
   const int64_t* last_flow;  // [C] padded rows of the chains' last stages
   // outputs: scalars [0] t_stop, [1] forwards, [2] cross, [3..5] the
   // per-tick completion words; the flush's entry snapshots
   int64_t* scalars;
   int64_t* done_in;   // [C]
-  int64_t* sent_in;   // [D*h_pad]
-  int64_t* xbuf;      // [X] the exchange buffer
-  int64_t d, pad, h_pad, c, ring_len, t0, idle_ticks, xbuf_len;
+  int64_t* sent_in;   // [H]
+  int64_t* xbuf;      // [2, X] the exchange buffer, a half a tick parity
+  int64_t f, h, c, n_tiles, ring_len, t0, idle_ticks, xbuf_len;
   int n_targets;
   int64_t targets[MAX_TARGETS];
 };
@@ -121,100 +121,58 @@ __device__ __forceinline__ int64_t block_sum(int64_t v) {
   return v;  // valid in thread 0
 }
 
-__global__ void __launch_bounds__(THREADS)
+// two blocks an SM (at most 128 registers), as the span kernels have
+__global__ void __launch_bounds__(THREADS, 2)
 mesh_span_kernel(const MeshParams p) {
   cg::grid_group grid = cg::this_grid();
   const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t nthreads = (int64_t)gridDim.x * blockDim.x;
-  // this block's shard, and the thread's place among the shard's threads
-  const int64_t per_shard = gridDim.x / p.d;
-  const int64_t shard = blockIdx.x / per_shard;
-  const int64_t stid = (blockIdx.x % per_shard) * blockDim.x + threadIdx.x;
-  const int64_t sthreads = per_shard * blockDim.x;
-  const int64_t fp = p.d * p.pad, L = p.ring_len;
-  const int64_t row0 = shard * p.pad, node0 = shard * p.h_pad;
-  const int64_t* off = p.node_off + shard * (p.h_pad + 1);
+  const int64_t f = p.f, L = p.ring_len, x = p.xbuf_len;
 
-  // -- entry folds on the shard's own slice: injections, the idle-tick
-  //    refill, the ring clear, the flush's snapshot of node_sent
-  for (int64_t j = row0 + stid; j < row0 + p.pad; j += sthreads) {
+  // -- entry folds (elementwise, so each shard's own rows stay its own):
+  //    injections, the idle-tick refill, the ring clear, the flush's
+  //    snapshots, the exchange buffer's two halves
+  for (int64_t j = tid; j < f; j += nthreads) {
     p.queued[j] += p.inject[j];
     p.target[j] += p.inject_target[j];
   }
-  for (int64_t n = node0 + stid; n < node0 + p.h_pad; n += sthreads) {
+  for (int64_t n = tid; n < p.h; n += nthreads) {
     const int64_t tk = p.tokens[n] + p.refill[n] * p.idle_ticks;
     p.tokens[n] = tk < p.capacity[n] ? tk : p.capacity[n];
     p.sent_in[n] = p.node_sent[n];
   }
   if (p.idle_ticks > 0)
-    for (int64_t k = stid; k < L * p.pad; k += sthreads)
-      p.ring[(k / p.pad) * fp + row0 + k % p.pad] = 0;
-  // global snapshots: the chains' entry done_tick, the exchange buffer
+    for (int64_t k = tid; k < L * f; k += nthreads) p.ring[k] = 0;
   for (int64_t c = tid; c < p.c; c += nthreads)
     p.done_in[c] = p.done_tick[p.last_flow[c]];
-  for (int64_t k = tid; k < p.xbuf_len; k += nthreads) p.xbuf[k] = 0;
+  for (int64_t k = tid; k < 2 * x; k += nthreads) p.xbuf[k] = 0;
   if (tid == 0)
     for (int k = 0; k < 6; ++k) p.scalars[k] = 0;
   grid.sync();
 
   // -- the tick loop; every thread runs the same iterations
+  __shared__ span::Shared sh;
+  const span::Table tb{p.queued,   p.ring,      p.tokens,    p.delivered,
+                       p.target,   p.done_tick, p.node_sent, p.meta,
+                       p.tiles,    p.node_off,  p.refill,    p.capacity,
+                       f,          p.h,         p.n_tiles,   (int)L};
+  span::Exchange ex{p.xin, p.xbuf, 0, 0, -1};
   int64_t t = p.t0;
+  int row_t = (int)floor_mod(t, L), k3 = 0;
   const int64_t end = p.targets[p.n_targets - 1];
   int idx = 0;
   bool span_done = false, halt = false;
   int64_t forwards = 0, cross = 0;
-  const int64_t r0 = p.recv_off[shard], r1 = p.recv_off[shard + 1];
   while (t < end && !halt) {
-    const int64_t k3 = (t - p.t0) % 3;
     if (tid == 0) p.scalars[3 + (k3 + 1) % 3] = 0;
-    const int64_t row = floor_mod(t, L) * fp;
+    ex.send_half = (t & 1) * x;
+    ex.recv_half = x - ex.send_half;
     bool any_new = false;
-    // phase A: the shard's nodes
-    for (int64_t n = stid; n < p.h_pad; n += sthreads) {
-      const int64_t g = node0 + n;
-      const int64_t cap = p.capacity[g];
-      int64_t tok = p.tokens[g] + p.refill[g];
-      tok = tok < cap ? tok : cap;
-      const int64_t cap_cells = tok / CELL_WIRE_BYTES;
-      int64_t before = 0, spent = 0;
-      const int64_t j1 = row0 + off[n + 1];
-      for (int64_t j = row0 + off[n]; j < j1; ++j) {
-        const int64_t al = p.arr_lat[j];
-        const int64_t q =
-            p.queued[j] + (int64_t)p.ring[floor_mod(t - al, L) * fp + j];
-        int64_t s = cap_cells - before;
-        s = s < 0 ? 0 : (s > q ? q : s);
-        before += q;
-        p.queued[j] = q - s;
-        spent += s;
-        if (p.zero_col[j]) p.ring[row + j] = 0;
-        const int64_t to = p.send_to[j];
-        if (p.succ[j] < 0) {
-          const int64_t dv = p.delivered[j] + s;
-          p.delivered[j] = dv;
-          const int64_t tg = p.target[j];
-          if (tg > 0 && p.done_tick[j] < 0 && dv >= tg) {
-            p.done_tick[j] = t;
-            any_new = true;
-          }
-        } else if (to >= fp) {
-          p.xbuf[to - fp] = s;          // a cross-shard forward: its slot
-        } else if (to >= 0) {
-          p.ring[row + to] = (int32_t)s;  // an intra-shard forward
-        }                                 // -2: a leg not exchanged
-      }
-      p.tokens[g] = tok - spent * CELL_WIRE_BYTES;
-      p.node_sent[g] += spent * CELL_WIRE_BYTES;
-      forwards += spent;
-    }
+    for (int64_t ti = blockIdx.x; ti < p.n_tiles; ti += gridDim.x)
+      span::span_tile<true>(tb, 0, (int)ti, t, row_t, &forwards, &any_new,
+                            sh, &ex, &cross);
     if (any_new) p.scalars[3 + k3] = 1;
     grid.sync();
-    // phase B: the slots the shard receives, into its own ring columns
-    for (int64_t k = r0 + stid; k < r1; k += sthreads) {
-      const int64_t v = p.xbuf[p.recv_slot[k]];
-      p.ring[row + p.recv_col[k]] = (int32_t)v;
-      cross += v;
-    }
     const bool any = *(volatile int64_t*)&p.scalars[3 + k3] != 0;
     span_done = span_done || any;
     const bool boundary =
@@ -224,8 +182,37 @@ mesh_span_kernel(const MeshParams p) {
       ++idx;
       span_done = false;
     }
+    ex.prev_row = row_t;
     ++t;
-    grid.sync();
+    if (++row_t == L) row_t = 0;
+    if (++k3 == 3) k3 = 0;
+  }
+  // -- the last tick's receives (its sends are in before the loop's last
+  //    sync), so the ring and cross at t_stop are the plain version's; and
+  //    the refills of the nodes that pace no flow (the padding node slots),
+  //    one a tick run, which no flow read in the meantime
+  if (t > p.t0) {
+    const int64_t half = ((t - 1) & 1) * x;
+    const int64_t row = (int64_t)ex.prev_row * f;
+    for (int64_t j = tid; j < f; j += nthreads) {
+      const int32_t k = __ldg(&p.xin[j]);
+      if (k >= 0) {
+        const int64_t v =
+            (int64_t)__ldcg((const long long*)&p.xbuf[half + k]);
+        p.ring[row + j] = (int32_t)v;
+        cross += v;
+      }
+    }
+    for (int64_t n = tid; n < p.h; n += nthreads) {
+      if (__ldg(&p.node_off[n]) != __ldg(&p.node_off[n + 1])) continue;
+      const int64_t rf = p.refill[n], cp = p.capacity[n];
+      int64_t tk = p.tokens[n];
+      for (int64_t k = p.t0; k < t; ++k) {
+        tk = (int64_t)((uint64_t)tk + (uint64_t)rf);
+        tk = tk < cp ? tk : cp;
+      }
+      p.tokens[n] = tk;
+    }
   }
 
   forwards = block_sum(forwards);
@@ -245,16 +232,18 @@ mesh_span_kernel(const MeshParams p) {
 extern "C" int mesh_span_launch(
     void* queued, void* ring, void* tokens, void* delivered, void* target,
     void* done_tick, void* node_sent, const void* inject,
-    const void* inject_target, const void* node_off, const void* arr_lat,
-    const void* succ, const void* send_to, const void* zero_col,
-    const void* refill, const void* capacity, const void* recv_off,
-    const void* recv_slot, const void* recv_col, const void* last_flow,
-    void* scalars, void* done_in, void* sent_in, void* xbuf, int64_t d,
-    int64_t pad, int64_t h_pad, int64_t c, int64_t ring_len, int64_t t0,
+    const void* inject_target, const void* meta, const void* tiles,
+    const void* node_off, const void* xin, const void* refill,
+    const void* capacity, const void* last_flow, void* scalars,
+    void* done_in, void* sent_in, void* xbuf, int64_t f, int64_t h,
+    int64_t c, int64_t n_tiles, int64_t ring_len, int64_t t0,
     int64_t idle_ticks, int64_t xbuf_len, int n_targets,
     const int64_t* targets, void* stream) {
-  if (n_targets < 1 || n_targets > MAX_TARGETS || ring_len < 1 || d < 1 ||
-      pad < 1 || h_pad < 1)
+  // the tile body indexes the ring, the tables and the slots with 32-bit
+  // offsets
+  if (n_targets < 1 || n_targets > MAX_TARGETS || ring_len < 1 ||
+      n_tiles < 1 || xbuf_len < 1 || ring_len * f >= ((int64_t)1 << 31) ||
+      f + xbuf_len >= ((int64_t)1 << 31) || h >= ((int64_t)1 << 31))
     return (int)cudaErrorInvalidValue;
   MeshParams p;
   p.queued = (int64_t*)queued;
@@ -266,25 +255,21 @@ extern "C" int mesh_span_launch(
   p.node_sent = (int64_t*)node_sent;
   p.inject = (const int64_t*)inject;
   p.inject_target = (const int64_t*)inject_target;
+  p.meta = (const int4*)meta;
+  p.tiles = (const int4*)tiles;
   p.node_off = (const int64_t*)node_off;
-  p.arr_lat = (const int64_t*)arr_lat;
-  p.succ = (const int64_t*)succ;
-  p.send_to = (const int64_t*)send_to;
-  p.zero_col = (const uint8_t*)zero_col;
+  p.xin = (const int32_t*)xin;
   p.refill = (const int64_t*)refill;
   p.capacity = (const int64_t*)capacity;
-  p.recv_off = (const int64_t*)recv_off;
-  p.recv_slot = (const int64_t*)recv_slot;
-  p.recv_col = (const int64_t*)recv_col;
   p.last_flow = (const int64_t*)last_flow;
   p.scalars = (int64_t*)scalars;
   p.done_in = (int64_t*)done_in;
   p.sent_in = (int64_t*)sent_in;
   p.xbuf = (int64_t*)xbuf;
-  p.d = d;
-  p.pad = pad;
-  p.h_pad = h_pad;
+  p.f = f;
+  p.h = h;
   p.c = c;
+  p.n_tiles = n_tiles;
   p.ring_len = ring_len;
   p.t0 = t0;
   p.idle_ticks = idle_ticks;
@@ -301,18 +286,16 @@ extern "C" int mesh_span_launch(
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, mesh_span_kernel, THREADS, 0);
   if (err != cudaSuccess) return (int)err;
-  // the same number of blocks for every shard: enough for one node per
-  // thread, but never more than can all be resident at once (a
-  // cooperative launch needs every block resident)
+  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  // every block that can be resident (a cooperative launch needs every
+  // block resident), but no more than there are tiles
+  int64_t want = n_tiles;
   const int64_t cap = (int64_t)per_sm * sms;
-  int64_t per_shard = (h_pad + THREADS - 1) / THREADS;
-  if (per_shard * d > cap) per_shard = cap / d;
-  if (per_shard < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  if (want > cap) want = cap;
   void* args[] = {&p};
   err = cudaLaunchCooperativeKernel((const void*)mesh_span_kernel,
-                                    dim3((unsigned)(per_shard * d)),
-                                    dim3(THREADS), args, 0,
-                                    (cudaStream_t)stream);
+                                    dim3((unsigned)want), dim3(THREADS), args,
+                                    0, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

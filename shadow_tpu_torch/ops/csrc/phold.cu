@@ -22,24 +22,40 @@
 // the same result.
 //
 // Design.  A window's only coupling between messages is the minimum that
-// opens it, and the bench's 16,384 messages are ~220 ripe hops a window, too
-// little work to spread over the card.  So one block of 1,024 threads runs
-// every window with no host round trip and no grid sync: the message state
-// sits in shared memory (12 B a message; the whole state up to 18,773
-// messages, else it stays in the output arrays in device memory, through
-// the same generic pointers), each thread owns messages tid, tid + 1024, ...,
-// and a window costs one block-wide minimum (warp shuffles and two
-// __syncthreads) plus the thread's own messages.  A cooperative grid would
-// pay a grid sync per window (~1,000 windows a simulated second) for
-// nothing, since the per-window work is a few hundred hops.  The lookahead
-// is a block-wide minimum over the latency matrix at entry.
+// opens it, and after the first window (every message ripe, since the runs
+// start at time 0) the bench's 16,384 messages are ~220 ripe hops a window
+// (at most ~320): too little work to spread over the card.  So one block of
+// 1,024 threads runs every window with no host round trip and no grid
+// sync.  The message state sits in shared memory (12 B a message; the whole
+// state up to 18,773 messages, else it stays in the output arrays in device
+// memory, through the same generic pointers).  Thread tid owns messages
+// tid + 1024 i, and a window is
+//   1. one pass over the thread's messages (i < 32 a pass: a mask word of
+//      its ripe ones), the unripe times into a running minimum;
+//   2. a warp-wide exclusive scan of the mask words' popcounts, which places
+//      each lane's ripe messages in its warp's list (compaction, in lane
+//      order; ~7 a warp after the first window);
+//   3. the warp hops its list 32 entries a round, one entry a lane (the
+//      cipher and the latency gather once per ripe message, every warp's
+//      wave at once), the new times into the same minimum;
+//   4. a block-wide minimum (one barrier): the next window's start.
+// A warp hops only its own lanes' messages, so the list needs no block
+// barrier and never overflows (a round takes 32, the first window takes 16
+// rounds).  Messages beyond 32 a thread (M > 32,768, the device-memory
+// path) go through 1-3 as passes of 32,768.  A block-wide list (a block
+// scan and a list barrier more a window) measured slower on an H100, and
+// the design before both (each thread walking its 16 messages serially for
+// the hops: ~5-6 cipher runs a warp, each masked down to one or two lanes)
+// slower still (PERF.md section 6, row 9).
 //
 // Bound.  Inputs and outputs once (8 MB of latency at H = 1,024, 196 KB of
 // message state): ~2.6 us at HBM rate; each hop ~170 32-bit operations (the
 // cipher ~120) and each message ~4 a window (its minimum and its ripe
 // test): 6.5 M hops and ~30,000 windows by 30 s, ~3.1 G operations, ~46 us
 // at the scalar peak.  What bounds it is the serial window chain: ~30,000
-// windows, each a block-wide minimum, in one SM.
+// windows, each a dependent chain of the pass over the state (16 shared
+// loads a thread, about half the window), one cipher and L2 gather, and a
+// block-wide minimum, in one SM.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -50,6 +66,9 @@ namespace {
 
 constexpr int THREADS = 1024;
 constexpr int WARPS = THREADS / 32;
+constexpr int BITS = 32;  // messages a thread tests in a pass: a mask word
+constexpr int64_t PASS = (int64_t)THREADS * BITS;
+constexpr unsigned FULL = 0xffffffffu;
 constexpr int64_t NO_LOOKAHEAD = 1LL << 62;
 // shared memory for the message state (dynamic, 12 B a message)
 constexpr int64_t SMEM_LIMIT = 220 * 1024;
@@ -58,35 +77,16 @@ __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
   return a < b ? a : b;
 }
 
-// block-wide minimum of v, returned to every thread
-__device__ __forceinline__ int64_t block_min(int64_t v, int64_t* part,
-                                             int64_t* bcast) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int o = 16; o > 0; o >>= 1)
-    v = min64(v, __shfl_down_sync(0xffffffffu, v, o));
-  if (lane == 0) part[warp] = v;
+// block-wide minimum of v, returned to every thread: one barrier, the warp
+// minima in `part` (a caller alternates two, so the next call's writes
+// come after this call's barrier has been passed by every reader)
+__device__ __forceinline__ int64_t block_min(int64_t v, int64_t* part) {
+  for (int o = 16; o > 0; o >>= 1) v = min64(v, __shfl_xor_sync(FULL, v, o));
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = v;
   __syncthreads();
-  if (warp == 0) {
-    v = lane < WARPS ? part[lane] : INT64_MAX;
-    for (int o = 16; o > 0; o >>= 1)
-      v = min64(v, __shfl_down_sync(0xffffffffu, v, o));
-    if (lane == 0) *bcast = v;
-  }
-  __syncthreads();
-  return *bcast;
-}
-
-__device__ __forceinline__ int64_t block_sum(int64_t v, int64_t* part) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  if (lane == 0) part[warp] = v;
-  __syncthreads();
-  v = 0;
-  if (warp == 0) {
-    v = lane < WARPS ? part[lane] : 0;
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  }
-  return v;  // valid in thread 0
+  v = part[threadIdx.x & 31];  // WARPS == 32
+  for (int o = 16; o > 0; o >>= 1) v = min64(v, __shfl_xor_sync(FULL, v, o));
+  return v;
 }
 
 __device__ __forceinline__ int64_t wrap_add(int64_t a, int64_t b) {
@@ -100,9 +100,9 @@ phold_kernel(const int64_t* __restrict__ latency, int64_t h,
              uint32_t key1, int64_t horizon, bool in_smem,
              int32_t* host_out, int64_t* time_out, int64_t* stats_out) {
   extern __shared__ int64_t smem[];
-  __shared__ int64_t part[WARPS];
-  __shared__ int64_t bcast;
-  const int tid = threadIdx.x;
+  __shared__ int64_t part[2][WARPS];
+  __shared__ int32_t wlist[WARPS][32];  // a warp's list, one round of it
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   int64_t* time = in_smem ? smem : time_out;
   int32_t* host = in_smem ? (int32_t*)(smem + m) : host_out;
 
@@ -111,37 +111,89 @@ phold_kernel(const int64_t* __restrict__ latency, int64_t h,
     const int64_t v = latency[k];
     if (v > 0) lo = min64(lo, v);
   }
-  const int64_t lookahead = block_min(lo, part, &bcast);
+  const int64_t lookahead = block_min(lo, part[0]);
+  lo = INT64_MAX;
   for (int64_t k = tid; k < m; k += THREADS) {
-    time[k] = time_in[k];
+    const int64_t t = time_in[k];
+    time[k] = t;
     host[k] = host_in[k];
+    lo = min64(lo, t);
   }
-  // each thread reads back only its own messages, so no barrier is needed
-  // between the copy, a window's updates and the next window's minimum
+  int64_t start = block_min(lo, part[1]);
 
   const uint32_t mod = (uint32_t)(h - 1);
-  int64_t hops = 0;
+  int64_t hops = 0;  // this warp's (every lane holds it)
   uint32_t counter = 0;
-  for (;;) {
-    int64_t lo_t = INT64_MAX;
-    for (int64_t k = tid; k < m; k += THREADS) lo_t = min64(lo_t, time[k]);
-    const int64_t start = block_min(lo_t, part, &bcast);
-    if (start >= horizon) break;
+  int par = 0;
+  while (start < horizon) {
     const int64_t end = wrap_add(start, lookahead);
-    for (int64_t k = tid; k < m; k += THREADS) {
-      const int64_t t = time[k];
-      if (t >= end) continue;
-      int32_t src = host[k];
-      src = src < 0 ? 0 : (src >= h ? (int32_t)(h - 1) : src);
-      const uint32_t x0 =
-          threefry::threefry2x32_x0(key0, key1, (uint32_t)k, counter);
-      const int32_t kq = (int32_t)(x0 % mod);
-      const int32_t dst = kq >= host[k] ? kq + 1 : kq;
-      const int32_t dcl = dst >= h ? (int32_t)(h - 1) : dst;
-      time[k] = wrap_add(t, latency[(int64_t)src * h + dcl]);
-      host[k] = dst;
-      ++hops;
+    lo = INT64_MAX;
+    for (int64_t base = 0; base < m; base += PASS) {
+      // 1. the ripe test: `full` words every thread owns, then one more
+      //    for the threads below the remainder
+      const int64_t rem = m - base;
+      const int full = rem >= PASS ? BITS : (int)(rem / THREADS);
+      uint32_t mask = 0;
+#pragma unroll
+      for (int i = 0; i < BITS; ++i) {
+        if (i >= full) break;
+        const int64_t t = time[base + (int64_t)i * THREADS + tid];
+        if (t < end)
+          mask |= 1u << i;
+        else
+          lo = min64(lo, t);
+      }
+      if (full < BITS && tid < rem - (int64_t)full * THREADS) {
+        const int64_t t = time[base + (int64_t)full * THREADS + tid];
+        if (t < end)
+          mask |= 1u << full;
+        else
+          lo = min64(lo, t);
+      }
+      // 2. the warp's exclusive scan of the ripe counts
+      const int cnt = __popc(mask);
+      int incl = cnt;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(FULL, incl, o);
+        if (lane >= o) incl += v;
+      }
+      const int total = __shfl_sync(FULL, incl, 31);
+      const int pos = incl - cnt;
+      // 3. the warp's list, 32 entries a round, one a lane
+      for (int r0 = 0; r0 < total; r0 += 32) {
+        uint32_t mm = mask;
+        for (int p = pos; mm != 0 && p < r0 + 32; ++p) {
+          const int i = __ffs(mm) - 1;
+          mm &= mm - 1;
+          if (p >= r0)
+            wlist[warp][p - r0] = (int32_t)(base + (int64_t)i * THREADS + tid);
+        }
+        __syncwarp();
+        if (r0 + lane < total) {
+          const int64_t k = wlist[warp][lane];
+          const int64_t t = time[k];
+          const int32_t src = host[k];
+          const int32_t srcc =
+              src < 0 ? 0 : (src >= h ? (int32_t)(h - 1) : src);
+          const uint32_t x0 =
+              threefry::threefry2x32_x0(key0, key1, (uint32_t)k, counter);
+          const int32_t kq = (int32_t)(x0 % mod);
+          const int32_t dst = kq >= src ? kq + 1 : kq;
+          const int32_t dcl = dst >= h ? (int32_t)(h - 1) : dst;
+          const int64_t nt =
+              wrap_add(t, __ldg(&latency[(int64_t)srcc * h + dcl]));
+          time[k] = nt;
+          host[k] = dst;
+          lo = min64(lo, nt);
+        }
+        __syncwarp();
+      }
+      hops += total;
     }
+    // 4. the next window's start (its barrier orders this window's hops
+    //    before the copy out)
+    start = block_min(lo, part[par]);
+    par ^= 1;
     ++counter;
   }
   if (in_smem) {
@@ -150,9 +202,12 @@ phold_kernel(const int64_t* __restrict__ latency, int64_t h,
       host_out[k] = host[k];
     }
   }
-  hops = block_sum(hops, part);
+  if (lane == 0) part[par][warp] = hops;
+  __syncthreads();
   if (tid == 0) {
-    stats_out[0] = hops;
+    int64_t sum = 0;
+    for (int w = 0; w < WARPS; ++w) sum += part[par][w];
+    stats_out[0] = sum;
     stats_out[1] = counter;
   }
 }
@@ -166,7 +221,8 @@ extern "C" int phold_launch(const void* latency, int64_t h,
                             int64_t m, uint32_t key0, uint32_t key1,
                             int64_t horizon, void* host_out, void* time_out,
                             void* stats_out, void* stream) {
-  if (h < 2 || m < 1) return (int)cudaErrorInvalidValue;
+  if (h < 2 || m < 1 || m >= ((int64_t)1 << 31))
+    return (int)cudaErrorInvalidValue;
   const int64_t need = m * (int64_t)(sizeof(int64_t) + sizeof(int32_t));
   const bool in_smem = need <= SMEM_LIMIT;
   const int smem = in_smem ? (int)need : 0;

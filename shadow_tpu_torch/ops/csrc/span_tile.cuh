@@ -42,6 +42,24 @@
 // is in [1, L), so the row a tick writes is never one a flow reads in that
 // tick (a column with no predecessor, al == 0, is read and then zeroed by
 // its own thread).
+//
+// The mesh (csrc/mesh_span.cu) runs the same body with MESH = true over the
+// padded global layout of D shards (tiles cut shard by shard, so a tile
+// never crosses one), where a successor may be a third kind of destination:
+// a slot of the exchange buffer.  Its meta successor reads -1 a chain's
+// last stage, -2 a cross-shard successor on a leg the variant does not
+// exchange (no send), [0, F) a ring column of the same shard, F + k slot k
+// of this tick's half of the double-buffered exchange buffer.  A flow whose
+// cells arrive through a slot (xin[j] = k >= 0) takes tick t - 1's cell
+// from the other half at the start of tick t, writes it into its own ring
+// cell of row t - 1 and adds it to `cross`, before it reads its arrival (and
+// uses it directly when that read is row t - 1); a flow whose predecessor's
+// leg is not exchanged (xin[j] = -2) has its column set to 0 each tick.
+// One grid sync a tick keeps the exchange right: the half a tick reads was
+// written before the last sync, and the next write to it comes after the
+// next one.  Nodes that pace no flow are left to the mesh kernel (no flow
+// reads their tokens, so their refills can wait for the end of the
+// launch).  With MESH = false the body is the single-table one, unchanged.
 
 #pragma once
 
@@ -81,6 +99,14 @@ struct Table {
   const int64_t* __restrict__ capacity;  // [W, H] static
   int64_t f, h, n_tiles;               // a lane's F, H and T
   int ring_len;                        // L (L * F < 2^31)
+};
+
+// The mesh's exchange, for one tick (MESH = true only).
+struct Exchange {
+  const int32_t* __restrict__ xin;  // [F] static: receive slot, -1, -2
+  int64_t* xbuf;                    // [2, X]: a half a tick parity
+  int64_t send_half, recv_half;     // (t & 1) * X, ((t - 1) & 1) * X
+  int prev_row;                     // (t - 1) mod L, -1: nothing to receive
 };
 
 struct Shared {
@@ -135,10 +161,15 @@ __device__ __forceinline__ int64_t seg_scan(int64_t v, bool f, int64_t carry,
 // stage reached its target.  Every thread of the block calls it.  Each
 // flow's loads are issued together once its meta word is in, so a chunk
 // costs two dependent memory round trips before its scans, not a chain.
+// With MESH, `ex` is the tick's exchange and *cross sums the cells
+// received (neither is read otherwise).
+template <bool MESH = false>
 __device__ __forceinline__ void span_tile(const Table& tb, int64_t w, int ti,
                                           int64_t t, int row_t,
                                           int64_t* forwards, bool* any_new,
-                                          Shared& sh) {
+                                          Shared& sh,
+                                          const Exchange* ex = nullptr,
+                                          int64_t* cross = nullptr) {
   const int L = tb.ring_len;
   const int f = (int)tb.f;
   // lane w's rows
@@ -158,8 +189,10 @@ __device__ __forceinline__ void span_tile(const Table& tb, int64_t w, int ti,
   const int4 lo = __ldg(&tiles[ti]);
   const int4 hi = __ldg(&tiles[ti + 1]);
   const int n0 = lo.x, n1 = hi.x, f0 = lo.y, f1 = hi.y;
-  // nodes that pace no flow: only the refill
-  if (lo.z > 0)
+  // nodes that pace no flow: only the refill (the mesh's are its padding
+  // node slots, thousands in a shard's last tile: its kernel refills them
+  // once, after the loop, for every tick run)
+  if (!MESH && lo.z > 0)
     for (int n = n0 + threadIdx.x; n < n1; n += THREADS)
       if (__ldg(&node_off[n]) == __ldg(&node_off[n + 1])) {
         const int64_t tk = tokens[n] + __ldg(&refill[n]);
@@ -171,24 +204,36 @@ __device__ __forceinline__ void span_tile(const Table& tb, int64_t w, int ti,
   for (int cb = f0; cb < f1; cb += CHUNK) {
     const int p0 = threadIdx.x * FPT;
     int4 m[FPT];
+    int xi[FPT];
 #pragma unroll
-    for (int k = 0; k < FPT; ++k)
+    for (int k = 0; k < FPT; ++k) {
       m[k] = cb + p0 + k < f1 ? __ldg(&meta[cb + p0 + k])
                               : make_int4(0, -1, 0, 0);
+      if constexpr (MESH)
+        xi[k] = cb + p0 + k < f1 ? __ldg(&ex->xin[cb + p0 + k]) : -1;
+    }
     // every load this chunk needs, issued together
     int64_t q[FPT], nd[FPT], ntg[FPT], ndt[FPT], ntk[FPT], nrf[FPT],
-        ncp[FPT], nsent[FPT];
+        ncp[FPT], nsent[FPT], xv[FPT];
     int32_t arr[FPT];
 #pragma unroll
     for (int k = 0; k < FPT; ++k) {
       const int j = cb + p0 + k;
       const bool act = j < f1;
       const bool first = act && (m[k].w >> 2) == 0;
-      const bool last = act && m[k].y < 0;
+      const bool last = act && (MESH ? m[k].y == -1 : m[k].y < 0);
       int rr = row_t - m[k].z;
       if (rr < 0) rr += L;
       q[k] = act ? queued[j] : 0;
       arr[k] = act ? __ldcg(&ring[rr * f + j]) : 0;
+      if constexpr (MESH) {
+        // tick t - 1's cell through the exchange, due in row t - 1
+        const bool recv = xi[k] >= 0 && ex->prev_row >= 0;
+        xv[k] = recv ? (int64_t)__ldcg((const long long*)&ex->xbuf[
+                           ex->recv_half + xi[k]])
+                     : 0;
+        if (recv && rr == ex->prev_row) arr[k] = (int32_t)xv[k];
+      }
       ntk[k] = first ? tokens[m[k].x] : 0;
       nrf[k] = first ? __ldg(&refill[m[k].x]) : 0;
       ncp[k] = first ? __ldg(&capacity[m[k].x]) : 0;
@@ -205,6 +250,13 @@ __device__ __forceinline__ void span_tile(const Table& tb, int64_t w, int ti,
       q[k] += arr[k];
       // a column no flow feeds: its own thread sets it (after its read)
       if (j < f1 && m[k].z == 0) wrow[j] = 0;
+      if constexpr (MESH) {
+        if (j < f1 && xi[k] == -2) wrow[j] = 0;  // its leg not exchanged
+        if (j < f1 && xi[k] >= 0 && ex->prev_row >= 0) {
+          ring[ex->prev_row * f + j] = (int32_t)xv[k];
+          *cross += xv[k];
+        }
+      }
       if (j < f1 && (m[k].w >> 2) == 0) {       // the node's first flow
         const int64_t tok = ntk[k] + nrf[k] < ncp[k] ? ntk[k] + nrf[k]
                                                      : ncp[k];
@@ -244,13 +296,18 @@ __device__ __forceinline__ void span_tile(const Table& tb, int64_t w, int ti,
         s[k] = v;
         queued[j] = q[k] - v;
         *forwards += v;
-        if (m[k].y < 0) {
+        if (MESH ? m[k].y == -1 : m[k].y < 0) {
           const int64_t d = nd[k] + v;
           delivered[j] = d;
           if (ntg[k] > 0 && ndt[k] < 0 && d >= ntg[k]) {
             done_tick[j] = t;
             *any_new = true;
           }
+        } else if constexpr (MESH) {
+          if (m[k].y >= f)                      // a cross-shard successor
+            ex->xbuf[ex->send_half + m[k].y - f] = v;
+          else if (m[k].y >= 0)                 // one on the same shard
+            wrow[m[k].y] = (int32_t)v;
         } else {
           wrow[m[k].y] = (int32_t)v;
         }

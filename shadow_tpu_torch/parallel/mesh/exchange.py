@@ -18,8 +18,9 @@ statics (:class:`ExchangeSchedule`, :func:`shard_edge_matrix`,
   the ``psum`` of ``[served, newly]`` as a sum over the shard axis;
 * :func:`mesh_span` + :func:`mesh_pack_flush` — the wrappers that launch
   the hand-written kernels csrc/mesh_span.cu (all D shards in one
-  cooperative launch; the exchange a real buffer in the card's memory,
-  two grid syncs a tick) and the mesh entry of csrc/pack_flush.cu.
+  cooperative launch, a thread per flow over tiles of whole nodes; the
+  exchange a real buffer in the card's memory, double-buffered by tick
+  parity, one grid sync a tick) and the mesh entry of csrc/pack_flush.cu.
 
 :func:`make_mesh_span_flush` returns the engine-facing step: on CPU tensors
 the plain version, on CUDA tensors the two kernels and nothing else.
@@ -47,8 +48,8 @@ import torch
 from ...ops._build import check_tensor as _check
 from ...ops._build import entry as _bound
 from ...ops.torcells_device import (CELL_WIRE_BYTES, MAX_TARGETS,
-                                    RING_TORCH_DTYPE, flush_len,
-                                    pack_flush_torch)
+                                    RING_TORCH_DTYPE, TILE_FLOWS, flush_len,
+                                    pack_flush_torch, span_tile_tables)
 
 
 class ExchangeSchedule:
@@ -436,42 +437,107 @@ def mesh_span_flush_torch(t0, queued, ring, tokens, delivered, target,
 # The mesh superwindow step: kernel wrappers
 # ---------------------------------------------------------------------------
 
+def exchange_routes(layout: dict, mode: str, active: List[int]):
+    """Where each padded row's served cells go, and where each column's
+    arrive from, for an exchange ``mode`` and its ``active`` legs
+    (:func:`resolve_mode`).  Returns (``send_to`` int64 [D*pad]: -1 a last
+    stage, ``0 <= x < D*pad`` the global ring column of an intra-shard
+    successor, ``D*pad + k`` slot k of the exchange buffer, -2 a
+    cross-shard successor on a leg not exchanged; ``xin`` int32 [D*pad]: the
+    slot column j receives through, -2 where j's predecessor is on another
+    shard and not exchanged, else -1; the buffer's slot count).  The slot
+    numbering follows the JAX schedule: in fused mode sender s's chunk d
+    (``a2a_src``) lands in receiver d's chunk s (``a2a_dst``); in ppermute
+    mode leg k's sender s slot i lands in receiver (s + r_k) % D's slot i
+    (``send_src`` / ``recv_dst``)."""
+    sched = layout["exchange"]
+    d, pad = int(layout["n_shards"]), int(layout["pad"])
+    fp = d * pad
+    succ = np.asarray(layout["succ_global"], dtype=np.int64)
+    rows = np.arange(fp)
+    intra = (succ >= 0) & (succ // pad == rows // pad)
+    send_to = np.where(succ < 0, -1, np.where(intra, succ, -2))
+    xin = np.full(fp, -1, dtype=np.int32)
+    xin[succ[(succ >= 0) & ~intra]] = -2
+    xlen = 0
+    if mode == "fused":
+        pw = sched.pair_width
+        chunk = d * pw
+        src = np.asarray(sched.a2a_src).reshape(d, chunk)
+        dst = np.asarray(sched.a2a_dst).reshape(d, chunk)
+        s, k = np.nonzero(src >= 0)
+        send_to[s * pad + src[s, k]] = fp + s * chunk + k
+        m, k = np.nonzero(dst >= 0)
+        sender, i = np.divmod(k, pw)
+        xin[m * pad + dst[m, k]] = sender * chunk + m * pw + i
+        xlen = d * chunk
+    elif mode == "ppermute":
+        for leg in active:
+            r, w = sched.offsets[leg], sched.widths[leg]
+            snd = np.asarray(sched.send_src[leg]).reshape(d, w)
+            rcv = np.asarray(sched.recv_dst[leg]).reshape(d, w)
+            s, i = np.nonzero(snd >= 0)
+            send_to[s * pad + snd[s, i]] = fp + xlen + s * w + i
+            m, i = np.nonzero(rcv >= 0)
+            xin[m * pad + rcv[m, i]] = xlen + (m - r) % d * w + i
+            xlen += d * w
+    return send_to, xin, xlen
+
+
+def mesh_tile_tables(layout: dict, send_to: np.ndarray, ring_len: int,
+                     tile_flows: int = TILE_FLOWS):
+    """The tile tables of csrc/span_tile.cuh for the padded global layout:
+    each shard's rows cut on their own by :func:`span_tile_tables` (so a
+    tile never crosses a shard) and the results made global.  Returns
+    ``node_off`` int64 [D*h_pad + 1] (global node slot g paces global rows
+    ``node_off[g]:node_off[g+1]``; a padding row runs with its shard's last
+    node slot), ``meta`` int32 [D*pad, 4] (global node
+    slot, ``send_to``, arrival latency, flags) and ``tiles`` int32 [T+1, 4]
+    with T = D * ceil(pad / tile_flows)."""
+    d, pad, hp = (int(layout[k]) for k in ("n_shards", "pad", "h_pad"))
+    node = np.asarray(layout["flow_node_local"], dtype=np.int64)
+    seg = np.asarray(layout["seg_start_local"], dtype=np.int64)
+    al = np.asarray(layout["arr_lat"], dtype=np.int64)
+    offs, metas, tiles = [], [], []
+    for s in range(d):
+        rows = slice(s * pad, (s + 1) * pad)
+        off, meta, tl = span_tile_tables(node[rows], al[rows], send_to[rows],
+                                         seg[rows], hp, ring_len, tile_flows)
+        meta[:, 0] += s * hp
+        tl[:-1, 0] += s * hp
+        tl[:-1, 1] += s * pad
+        offs.append(off[:-1] + s * pad)
+        metas.append(meta)
+        tiles.append(tl[:-1])
+    tiles.append(np.array([[d * hp, d * pad, 0, 0]], dtype=np.int32))
+    return (np.concatenate(offs + [np.array([d * pad])]).astype(np.int64),
+            np.concatenate(metas), np.concatenate(tiles))
+
+
 class MeshTables:
     """What the mesh kernels derive from a padded layout and an exchange
     mode, computed and checked once per (layout, mode, leg mask), on the
     kernels' device.
 
-    * ``node_off`` [D*(h_pad+1)]: shard s's local node n paces its local
-      rows ``node_off[s*(h_pad+1)+n] : ...+n+1`` (a padding row walks with
-      the shard's last node slot; it holds no cells, so it serves none);
-    * ``send_to`` [D*pad]: where row j's served cells go — -1 a last stage
-      (delivered), ``0 <= x < D*pad`` the global ring column of an
-      intra-shard successor, ``D*pad + k`` slot k of the exchange buffer,
-      -2 a cross-shard successor on a leg this variant does not exchange;
-    * ``zero_col`` [D*pad] uint8: 1 where no row of the same shard feeds
-      column j, so j's own walker sets it to 0 before the receivers write
-      the exchanged cells;
-    * ``recv_off`` [D+1], ``recv_slot`` / ``recv_col`` [R]: shard m
-      receives slots ``recv_slot[recv_off[m]:recv_off[m+1]]`` into global
-      ring columns ``recv_col`` (its own);
+    * ``node_off`` [D*h_pad+1], ``meta`` [D*pad, 4] int32 and ``tiles``
+      [T+1, 4] int32: csrc/span_tile.cuh's tables over the global layout
+      (:func:`mesh_tile_tables`), each row's destination in ``meta`` as
+      :func:`exchange_routes` gives it;
+    * ``xin`` [D*pad] int32: the slot each column receives through
+      (:func:`exchange_routes`);
     * ``xbuf_len``: the exchange buffer's slots (fused: D*D*pair_width;
-      ppermute: the active legs' D*width_k each);
+      ppermute: the active legs' D*width_k each), ``n_recv`` the slots
+      received; the kernel holds two buffers, one a tick parity;
     * ``last_flow_pad`` [C] and ``node_slot`` [H] (global node -> its
-      padded slot, -1 for a node on no shard) for the flush;
-    * ``arr_lat`` [D*pad], ``succ_global`` [D*pad] from the layout.
+      padded slot, -1 for a node on no shard) for the flush.
 
-    The slot numbering follows the JAX schedule exactly: in fused mode
-    sender s's chunk d (``a2a_src``) lands in receiver d's chunk s
-    (``a2a_dst``); in ppermute mode leg k's sender s slot i lands in
-    receiver (s + r_k) % D's slot i (``send_src`` / ``recv_dst``).  A row
-    has at most one successor, so each slot has one writer and each
+    A row has at most one successor, so each slot has one writer and each
     receiving column one source: no atomics, and any mode gives the same
     bits."""
 
     __slots__ = ("n_shards", "pad", "h_pad", "ring_len", "mode",
-                 "node_off", "send_to", "zero_col", "recv_off", "recv_slot",
-                 "recv_col", "xbuf_len", "last_flow_pad", "node_slot",
-                 "arr_lat", "succ_global", "n_nodes", "n_chains")
+                 "node_off", "meta", "tiles", "xin", "xbuf_len", "n_recv",
+                 "last_flow_pad", "node_slot", "n_nodes", "n_chains")
 
     def __init__(self, layout: dict, ring_len: int, last_flow_pad,
                  node_src, n_nodes: int, mode: Optional[str] = None,
@@ -488,14 +554,12 @@ class MeshTables:
         succ = np.asarray(layout["succ_global"], dtype=np.int64)
         al = np.asarray(layout["arr_lat"], dtype=np.int64)
         keep = np.asarray(layout["keep"], dtype=bool)
-        node_off = np.zeros((d, hp + 1), dtype=np.int64)
         for s in range(d):
             nd = node[s * pad:(s + 1) * pad]
             if np.any(np.diff(nd) < 0) or nd.min() < 0 or nd.max() >= hp:
                 raise ValueError(f"mesh_span: shard {s}'s flow_node_local "
                                  "must be sorted and in [0, h_pad)")
             off = np.searchsorted(nd, np.arange(hp + 1), side="left")
-            node_off[s] = off
             real = keep[s * pad:(s + 1) * pad]
             if not np.array_equal(seg[s * pad:(s + 1) * pad][real],
                                   off[nd[real]]):
@@ -510,48 +574,12 @@ class MeshTables:
         if np.any(~keep & ((succ >= 0) | has_pred)):
             raise ValueError("mesh_span: padding rows must be outside "
                              "every chain")
-        rows = np.arange(fp)
-        s_src = rows // pad
-        s_dst = np.where(succ >= 0, succ // pad, -1)
-        intra = (succ >= 0) & (s_dst == s_src)
-        send_to = np.where(succ < 0, -1, np.where(intra, succ, -2))
-        zero_col = np.ones(fp, dtype=np.uint8)
-        zero_col[succ[intra]] = 0
-        recv = [[] for _ in range(d)]          # (slot, global column)
-        xlen = 0
-        if mode == "fused":
-            pw = sched.pair_width
-            chunk = d * pw
-            src = np.asarray(sched.a2a_src).reshape(d, chunk)
-            dst = np.asarray(sched.a2a_dst).reshape(d, chunk)
-            for s in range(d):
-                for k in np.flatnonzero(src[s] >= 0).tolist():
-                    send_to[s * pad + src[s, k]] = fp + s * chunk + k
-            for m in range(d):
-                for k in np.flatnonzero(dst[m] >= 0).tolist():
-                    sender, i = divmod(k, pw)
-                    recv[m].append((sender * chunk + m * pw + i,
-                                    m * pad + dst[m, k]))
-            xlen = d * chunk
-        elif mode == "ppermute":
-            for k in active:
-                r, w = sched.offsets[k], sched.widths[k]
-                snd = np.asarray(sched.send_src[k]).reshape(d, w)
-                rcv = np.asarray(sched.recv_dst[k]).reshape(d, w)
-                for s in range(d):
-                    for i in np.flatnonzero(snd[s] >= 0).tolist():
-                        send_to[s * pad + snd[s, i]] = fp + xlen + s * w + i
-                for m in range(d):
-                    sender = (m - r) % d
-                    for i in np.flatnonzero(rcv[m] >= 0).tolist():
-                        recv[m].append((xlen + sender * w + i,
-                                        m * pad + rcv[m, i]))
-                xlen += d * w
-        recv_off = np.zeros(d + 1, dtype=np.int64)
-        recv_off[1:] = np.cumsum([len(x) for x in recv])
-        flat = [p for x in recv for p in x]
-        recv_slot = np.asarray([p[0] for p in flat], dtype=np.int64)
-        recv_col = np.asarray([p[1] for p in flat], dtype=np.int64)
+        send_to, xin, xlen = exchange_routes(layout, mode, active)
+        if ring_len * fp >= 2 ** 31 or fp + xlen >= 2 ** 31:
+            raise ValueError(f"mesh_span: F = {fp}, L = {ring_len} and "
+                             f"{xlen} slots overflow the kernel's 32-bit "
+                             "offsets")
+        node_off, meta, tiles = mesh_tile_tables(layout, send_to, ring_len)
         nsrc = np.asarray(node_src, dtype=np.int64)
         node_slot = np.full(n_nodes, -1, dtype=np.int64)
         ok = np.flatnonzero(nsrc >= 0)
@@ -565,24 +593,21 @@ class MeshTables:
         self.n_shards, self.pad, self.h_pad = d, pad, hp
         self.ring_len = int(ring_len)
         self.mode = mode
-        self.node_off = up(node_off.reshape(-1))
-        self.send_to = up(send_to.astype(np.int64))
-        self.zero_col = up(zero_col)
-        self.recv_off = up(recv_off)
-        self.recv_slot = up(recv_slot)
-        self.recv_col = up(recv_col)
+        self.node_off = up(node_off)
+        self.meta = up(meta)
+        self.tiles = up(tiles)
+        self.xin = up(xin)
         self.xbuf_len = max(int(xlen), 1)
+        self.n_recv = int((xin >= 0).sum())
         self.last_flow_pad = up(np.asarray(last_flow_pad, dtype=np.int64))
         self.node_slot = up(node_slot)
-        self.arr_lat = up(al)
-        self.succ_global = up(succ)
         self.n_nodes = int(n_nodes)
         self.n_chains = int(len(np.asarray(last_flow_pad)))
 
 
 _VP = ctypes.c_void_p
 _I64 = ctypes.c_int64
-_MESH_ARGTYPES = ([_VP] * 24 + [_I64] * 8 + [ctypes.c_int, _VP, _VP])
+_MESH_ARGTYPES = ([_VP] * 20 + [_I64] * 8 + [ctypes.c_int, _VP, _VP])
 _MESH_PACK_ARGTYPES = [_VP] * 11 + [_I64] * 2 + [_VP]
 
 
@@ -614,8 +639,8 @@ def mesh_span(t0, queued, ring, tokens, delivered, target, done_tick,
         _check(f"mesh_span: {name}", t, i64, shape, dev)
     _check("mesh_span: ring", ring, RING_TORCH_DTYPE,
            (tables.ring_len, fp), dev)
-    if tables.node_off.device != dev:
-        raise ValueError(f"mesh_span: tables on {tables.node_off.device}, "
+    if tables.meta.device != dev:
+        raise ValueError(f"mesh_span: tables on {tables.meta.device}, "
                          f"state on {dev}")
     tv = np.asarray(targets.cpu() if torch.is_tensor(targets) else targets,
                     dtype=np.int64).reshape(-1)
@@ -627,21 +652,20 @@ def mesh_span(t0, queued, ring, tokens, delivered, target, done_tick,
     scalars = torch.empty(6, dtype=i64, device=dev)
     done_in = torch.empty(c, dtype=i64, device=dev)
     sent_in = torch.empty(hh, dtype=i64, device=dev)
-    xbuf = torch.empty(tables.xbuf_len, dtype=i64, device=dev)
+    xbuf = torch.empty(2 * tables.xbuf_len, dtype=i64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     tv = np.ascontiguousarray(tv)
     rc = _bound("mesh_span", "mesh_span_launch", _MESH_ARGTYPES)(
         queued.data_ptr(), ring.data_ptr(), tokens.data_ptr(),
         delivered.data_ptr(), target.data_ptr(), done_tick.data_ptr(),
         node_sent.data_ptr(), inject.data_ptr(), inject_target.data_ptr(),
-        tables.node_off.data_ptr(), tables.arr_lat.data_ptr(),
-        tables.succ_global.data_ptr(), tables.send_to.data_ptr(),
-        tables.zero_col.data_ptr(), refill.data_ptr(), capacity.data_ptr(),
-        tables.recv_off.data_ptr(), tables.recv_slot.data_ptr(),
-        tables.recv_col.data_ptr(), tables.last_flow_pad.data_ptr(),
-        scalars.data_ptr(), done_in.data_ptr(), sent_in.data_ptr(),
-        xbuf.data_ptr(), d, pad, hp, c, tables.ring_len, int(t0),
-        int(idle_ticks), tables.xbuf_len, len(tv), tv.ctypes.data, stream)
+        tables.meta.data_ptr(), tables.tiles.data_ptr(),
+        tables.node_off.data_ptr(), tables.xin.data_ptr(),
+        refill.data_ptr(), capacity.data_ptr(),
+        tables.last_flow_pad.data_ptr(), scalars.data_ptr(),
+        done_in.data_ptr(), sent_in.data_ptr(), xbuf.data_ptr(), fp, hh, c,
+        len(tables.tiles) - 1, tables.ring_len, int(t0), int(idle_ticks),
+        tables.xbuf_len, len(tv), tv.ctypes.data, stream)
     if rc != 0:
         raise RuntimeError(f"mesh_span kernel launch failed: CUDA error {rc} "
                            f"(D={d}, pad={pad}, h_pad={hp}, "
@@ -742,7 +766,7 @@ def make_mesh_span_flush(mesh, axis: str, ring_len: int, layout: dict,
                 last_flow_pad=torch.as_tensor(lf),
                 node_src=torch.as_tensor(nsrc), n_nodes=n_nodes, mode=mode,
                 leg_mask=leg_mask)
-        if not tables or tables[0].node_off.device != dev:
+        if not tables or tables[0].meta.device != dev:
             tables[:] = [MeshTables(layout, ring_len, lf, nsrc, n_nodes,
                                     mode, leg_mask, dev)]
         state, (cross, done_in, sent_in) = mesh_span(

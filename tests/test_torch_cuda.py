@@ -269,10 +269,12 @@ def test_a_failed_launch_ends_the_run(dev, monkeypatch):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("n_hosts,n_msgs,horizon", [(32, 64, 2 * 10 ** 9),
-                                                    (64, 20000, 10 ** 9)])
+                                                    (64, 20000, 10 ** 9),
+                                                    (1024, 65536, 10 ** 9)])
 def test_phold_kernel_bit_exact_vs_plain_version(dev, n_hosts, n_msgs,
                                                  horizon):
-    """In shared memory (64 messages) and in device memory (20,000)."""
+    """In shared memory (64 messages) and in device memory (20,000, and
+    65,536 at the bench's 1,024 hosts: two passes of the ripe test)."""
     from shadow_tpu_torch.ops import phold_device as pd
     p = pd.DevicePhold(n_hosts, n_msgs, seed=n_hosts, device="cuda")
     args = (p.latency, torch.as_tensor(p.msg_host, device=dev),
@@ -458,6 +460,75 @@ def test_mesh_kernels_bit_exact_vs_plain_version(dev, n_dev, mode, masked):
             last_flow_pad=torch.as_tensor(lay["inv"][last_flow], device=dev),
             node_src=torch.as_tensor(lay["node_src"], device=dev),
             n_nodes=h, mode=mode, leg_mask=lm)
+    want = windows(plain)
+    torch.cuda.synchronize()
+    for w, (g, p) in enumerate(zip(got, want)):
+        for i, (a, b) in enumerate(zip(g, p)):
+            assert torch.equal(a, b), (w, i)
+
+
+@pytest.mark.parametrize("mode", ("fused", "ppermute", "none"))
+def test_mesh_kernels_on_nodes_longer_than_a_chunk(dev, mode):
+    """Two shards of a table whose relays pace ~600 flows each (longer
+    than a tile and the kernel's 512-flow chunk): the mesh kernels equal
+    the plain mesh version over three windows (injections, a halt, an
+    idle fold)."""
+    from shadow_tpu_torch.ops.torcells_device import (CHUNK_FLOWS,
+                                                      DeviceTorCells)
+    from shadow_tpu_torch.parallel.mesh import device_mesh
+    from shadow_tpu_torch.parallel.mesh import exchange as ex
+    from shadow_tpu_torch.parallel.mesh.partition import (build_mesh_layout,
+                                                          pad_state)
+    inst = DeviceTorCells(n_relays=4, n_circuits=800, seed=41, device="cpu")
+    fl = inst.flows
+    h = len(inst.refill)
+    last_flow = np.flatnonzero(fl["flow_succ"] < 0)
+    lay = build_mesh_layout(fl["flow_node"], fl["flow_lat"], fl["flow_succ"],
+                            fl["seg_start"], inst.refill, inst.capacity, 2)
+    tables = ex.MeshTables(lay, inst.ring_len, lay["inv"][last_flow],
+                           lay["node_src"], h, mode)
+    assert np.diff(tables.node_off.numpy()).max() > CHUNK_FLOWS
+    fp, hp = len(lay["src"]), len(lay["refill"])
+    statics = tuple(torch.as_tensor(lay[k], device=dev) for k in (
+        "flow_node_local", "succ_global", "seg_start_local", "refill",
+        "capacity", "arr_lat", "shard_base"))
+    q0 = pad_state(lay, np.where(fl["flow_stage"] == 0, 40, 0))
+    t0 = pad_state(lay, np.where(fl["flow_succ"] < 0, 40, 0))
+    zp = np.zeros(fp, np.int64)
+
+    def windows(step):
+        st = [torch.zeros(fp, dtype=torch.int64, device=dev),
+              torch.zeros((inst.ring_len, fp), dtype=torch.int32,
+                          device=dev),
+              torch.as_tensor(lay["capacity"], device=dev),
+              torch.zeros(fp, dtype=torch.int64, device=dev),
+              torch.zeros(fp, dtype=torch.int64, device=dev),
+              torch.full((fp,), -1, dtype=torch.int64, device=dev),
+              torch.zeros(hp, dtype=torch.int64, device=dev)]
+        out, t = [], 0
+        for inj, inj_t, tv, idle in ((q0, t0, [200], 0),
+                                     (zp, zp, [400, 800, 4000], 0),
+                                     (q0, t0, [420, 600], 7)):
+            o = step(t, *st, torch.as_tensor(inj, device=dev),
+                     torch.as_tensor(inj_t, device=dev), np.array(tv), idle,
+                     *statics)
+            out.append([x.clone() for x in o])
+            t, st = int(o[0]), list(o[1:8])
+        return out
+
+    step = ex.make_mesh_span_flush(
+        device_mesh(2, device=dev), "flows", inst.ring_len, lay,
+        lay["inv"][last_flow], lay["node_src"], h, mode=mode)
+    s0 = ex.mesh_span.launches
+    got = windows(step)
+    assert ex.mesh_span.launches - s0 == 3
+
+    def plain(*a):
+        return ex.mesh_span_flush_torch(
+            *a, ring_len=inst.ring_len, schedule=lay["exchange"],
+            last_flow_pad=torch.as_tensor(lay["inv"][last_flow], device=dev),
+            node_src=torch.as_tensor(lay["node_src"], device=dev),
+            n_nodes=h, mode=mode)
     want = windows(plain)
     torch.cuda.synchronize()
     for w, (g, p) in enumerate(zip(got, want)):

@@ -10,12 +10,15 @@ the CPU, against the JAX package's on its 8 virtual XLA devices.
    with a leg mask, across split windows, packed flush and trailing
    cross-shard slot included; and against the single-table step on the
    unpadded layout (the exactness argument of exchange.py).
-3. The kernel's tables: a sequential numpy model of csrc/mesh_span.cu and
-   of the mesh entry of csrc/pack_flush.cu, walking the ``MeshTables``
-   exactly as the kernels do (nodes' flows in order, sends into the ring or
-   the exchange slots, receives after the tick's sync), reproduces the
-   plain version bit for bit: a mid-span halt, an idle fold, an injection
-   on a boundary.  The kernels themselves run in tests/test_torch_cuda.py.
+3. The kernel's tables: a numpy model of csrc/mesh_span.cu and of the
+   mesh entry of csrc/pack_flush.cu, walking the ``MeshTables`` as the
+   kernels do (tiles of whole nodes, a thread per flow and two block scans
+   a chunk, sends into the ring or this tick's half of the exchange
+   buffer, each receive by its own column's flow a tick later, the last
+   tick's after the loop), reproduces the plain version bit for bit: a
+   mid-span halt, an idle fold, an injection on a boundary.  The kernels
+   themselves run in tests/test_torch_cuda.py; tests/test_torch_mesh_tiles.py
+   holds the same model, at small chunks, to the JAX package.
 """
 
 import ast
@@ -38,6 +41,7 @@ from shadow_tpu_torch.ops.torcells_device import (
 from shadow_tpu_torch.parallel.mesh import device_mesh
 from shadow_tpu_torch.parallel.mesh import exchange as tex
 from shadow_tpu_torch.parallel.mesh import partition as tpart
+from test_torch_torcells_cases import tile_kernel_span
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHARDS = (8, 3, 2)
@@ -318,67 +322,20 @@ def test_mesh_step_equals_single_table_step(toy, n_dev):
 def model_mesh_kernels(tables, t0, queued, ring, tokens, delivered, target,
                        done_tick, node_sent, inject, inject_target, targets,
                        idle, refill, capacity):
-    """A sequential numpy model of csrc/mesh_span.cu followed by the mesh
-    entry of csrc/pack_flush.cu, over ``tables`` (MeshTables on the CPU):
-    the same phases, the same table reads, the same writes."""
+    """A numpy model of csrc/mesh_span.cu followed by the mesh entry of
+    csrc/pack_flush.cu, over ``tables`` (MeshTables on the CPU): the tile
+    body's restatement (``test_torch_torcells_cases.tile_kernel_span`` with
+    the mesh's receive slots) at the kernel's own chunk over the tables'
+    own tiles, then the flush from the entry snapshots."""
     tb = {k: getattr(tables, k).numpy() for k in (
-        "node_off", "arr_lat", "succ_global", "send_to", "zero_col",
-        "recv_off", "recv_slot", "recv_col", "last_flow_pad", "node_slot")}
-    d, pad, hp, lr = tables.n_shards, tables.pad, tables.h_pad, \
-        tables.ring_len
-    fp = d * pad
-    q = queued + inject
-    tg = target + inject_target
-    tok = np.minimum(capacity, tokens + refill * idle)
-    ring = np.zeros_like(ring) if idle > 0 else ring.copy()
-    dl, dt, ns = delivered.copy(), done_tick.copy(), node_sent.copy()
-    sent_in = ns.copy()
-    done_in = dt[tb["last_flow_pad"]].copy()
-    xbuf = np.zeros(tables.xbuf_len, np.int64)
-    t, idx, span_done, halt, fwd, cross = t0, 0, False, False, 0, 0
-    while t < targets[-1] and not halt:
-        row = t % lr
-        any_new = False
-        for s in range(d):                      # phase A: every node
-            off = tb["node_off"][s * (hp + 1):(s + 1) * (hp + 1)]
-            for n in range(hp):
-                g = s * hp + n
-                tk = min(tok[g] + refill[g], capacity[g])
-                cap_cells = tk // CELL_WIRE_BYTES
-                before = spent = 0
-                for j in range(s * pad + off[n], s * pad + off[n + 1]):
-                    qq = q[j] + int(ring[(t - tb["arr_lat"][j]) % lr, j])
-                    sv = min(max(cap_cells - before, 0), qq)
-                    before += qq
-                    q[j] = qq - sv
-                    spent += sv
-                    if tb["zero_col"][j]:
-                        ring[row, j] = 0
-                    to = tb["send_to"][j]
-                    if tb["succ_global"][j] < 0:
-                        dl[j] += sv
-                        if tg[j] > 0 and dt[j] < 0 and dl[j] >= tg[j]:
-                            dt[j] = t
-                            any_new = True
-                    elif to >= fp:
-                        xbuf[to - fp] = sv
-                    elif to >= 0:
-                        ring[row, to] = sv
-                tok[g] = tk - spent * CELL_WIRE_BYTES
-                ns[g] += spent * CELL_WIRE_BYTES
-                fwd += spent
-        for m in range(d):                      # phase B: every receive
-            for k in range(tb["recv_off"][m], tb["recv_off"][m + 1]):
-                v = xbuf[tb["recv_slot"][k]]
-                ring[row, tb["recv_col"][k]] = v
-                cross += v
-        span_done = span_done or any_new
-        boundary = (t + 1) == targets[min(idx, len(targets) - 1)]
-        halt = boundary and span_done
-        if boundary:
-            idx += 1
-            span_done = False
-        t += 1
+        "node_off", "meta", "tiles", "xin", "last_flow_pad", "node_slot")}
+    sent_in = node_sent.copy()
+    done_in = done_tick[tb["last_flow_pad"]].copy()
+    t, q, ring, tok, dl, tg, dt, ns, fwd, cross = tile_kernel_span(
+        (t0, queued, ring, tokens, delivered, target, done_tick, node_sent),
+        inject, inject_target, targets, idle, refill, capacity,
+        tb["node_off"], tb["meta"], tb["tiles"], tables.ring_len,
+        xin=tb["xin"], xbuf_len=tables.xbuf_len)
     lf = tb["last_flow_pad"]
     c, h = len(lf), tables.n_nodes
     buf = np.zeros(flush_len(c, h) + 1, np.int64)

@@ -140,28 +140,31 @@ def _block_seg_scan(vals, heads, carry, threads, fpt):
     """The tile body's block-wide segmented inclusive scan, as the kernel
     takes it: each thread's aggregate over its ``fpt`` flows, the threads'
     exclusive prefixes in order from ``carry``, then each thread's flows
-    from its prefix.  Returns (inclusive sums, the running sum after the
-    chunk)."""
-    pre = np.empty(threads, dtype=np.int64)
-    run = int(carry)
-    for th in range(threads):
-        pre[th] = run
-        for k in range(fpt):
-            p = th * fpt + k
-            run = int(vals[p]) if heads[p] else run + int(vals[p])
-    incl = np.empty(threads * fpt, dtype=np.int64)
-    for th in range(threads):
-        r = int(pre[th])
-        for k in range(fpt):
-            p = th * fpt + k
-            r = int(vals[p]) if heads[p] else r + int(vals[p])
-            incl[p] = r
-    return incl, run
+    from its prefix (numpy across the threads).  Returns (inclusive sums,
+    the running sum after the chunk)."""
+    v = np.asarray(vals, dtype=np.int64).reshape(threads, fpt)
+    hd = np.asarray(heads, dtype=bool).reshape(threads, fpt)
+    agg = np.zeros(threads, dtype=np.int64)
+    flag = np.zeros(threads, dtype=bool)
+    for k in range(fpt):
+        agg = np.where(hd[:, k], v[:, k], agg + v[:, k])
+        flag |= hd[:, k]
+    # the running sum after each thread, restarting at a thread with a head
+    c = np.cumsum(agg)
+    last = np.maximum.accumulate(np.where(flag, np.arange(threads), -1))
+    run = np.where(last >= 0, c - (c - agg)[np.maximum(last, 0)],
+                   int(carry) + c)
+    r = np.r_[np.int64(carry), run[:-1]]
+    incl = np.empty_like(v)
+    for k in range(fpt):
+        r = np.where(hd[:, k], v[:, k], r + v[:, k])
+        incl[:, k] = r
+    return incl.reshape(-1), int(run[-1])
 
 
 def tile_kernel_span(state, inject, inject_target, targets, idle, refill,
                      capacity, node_off, meta, tiles, ring_len, threads=256,
-                     fpt=2):
+                     fpt=2, xin=None, xbuf_len=0):
     """The span kernels' algorithm re-stated in numpy for one table (one
     lane): csrc/torcells_span.cu's loop around csrc/span_tile.cuh's tick
     body over the tile tables of ``ops.torcells_device.span_tile_tables``,
@@ -172,7 +175,19 @@ def tile_kernel_span(state, inject, inject_target, targets, idle, refill,
     at seg_start heads, served, the sends, and the segmented scan of
     served restarting at node heads, whose value at a node's last flow is
     its spent.  Returns the 9-tuple of ``torcells_step_span_torch`` as
-    numpy (t_stop and forwards ints)."""
+    numpy (t_stop and forwards ints).
+
+    With ``xin`` (the mesh's receive slots, parallel/mesh/exchange.py
+    ``exchange_routes``) it is csrc/mesh_span.cu's loop around the body's
+    mesh cases over ``mesh_tile_tables``: a successor of -1 is a last
+    stage, -2 sends nowhere, F + k sends into slot k of the tick's half of
+    a double-buffered exchange buffer of ``xbuf_len`` slots a half; a
+    receiving flow takes tick t - 1's cell from the other half at the
+    start of tick t (into its ring cell of row t - 1, and into its arrival
+    when that is the row it reads), a column marked -2 is set to 0 each
+    tick, and after the loop one pass lands the last tick's receives and
+    the refills of the nodes that pace no flow, one for every tick run.
+    The cells received are returned as a tenth element."""
     size = 512 + 66
     t0, queued, ring, tokens, delivered, target, done_tick, node_sent = \
         [np.array(a) for a in state]
@@ -186,16 +201,22 @@ def tile_kernel_span(state, inject, inject_target, targets, idle, refill,
     node, succ, al, word = (np.asarray(meta, dtype=np.int64)[:, i]
                             for i in range(4))
     noff, seg_head, tail = word >> 2, (word & 1) != 0, (word & 2) != 0
+    mesh = xin is not None
+    f_all = len(word)
+    xbuf = np.zeros(2 * xbuf_len, dtype=np.int64)
+    prev_row, cross = -1, 0
     chunk = threads * fpt
     bounds = [int(x) for x in np.asarray(targets)]
     t, idx, span_done, forwards = int(t0), 0, False, 0
     while t < bounds[-1]:
         row_t = t % ring_len
+        send_half = (t & 1) * xbuf_len
+        recv_half = xbuf_len - send_half
         any_new = False
         for ti in range(len(tiles) - 1):
             n0, f0, n_empty = (int(x) for x in tiles[ti][:3])
             n1, f1 = (int(x) for x in tiles[ti + 1][:2])
-            if n_empty:
+            if n_empty and not mesh:
                 for n in range(n0, n1):
                     if node_off[n] == node_off[n + 1]:
                         tokens[n] = min(capacity[n], tokens[n] + refill[n])
@@ -211,9 +232,18 @@ def tile_kernel_span(state, inject, inject_target, targets, idle, refill,
                     jj = j[p]
                     rr = row_t - al[jj]
                     rr = rr + ring_len if rr < 0 else rr
-                    q[p] = queued[jj] + int(ring[rr, jj])
-                    if al[jj] == 0:
+                    arr = int(ring[rr, jj])
+                    recv = mesh and xin[jj] >= 0 and prev_row >= 0
+                    if recv:
+                        xv = int(xbuf[recv_half + xin[jj]])
+                        if rr == prev_row:
+                            arr = xv
+                    q[p] = queued[jj] + arr
+                    if al[jj] == 0 or (mesh and xin[jj] == -2):
                         ring[row_t, jj] = 0
+                    if recv:
+                        ring[prev_row, jj] = xv
+                        cross += xv
                     if noff[jj] == 0:
                         n = node[jj]
                         s_tok[p] = min(capacity[n], tokens[n] + refill[n])
@@ -235,13 +265,15 @@ def tile_kernel_span(state, inject, inject_target, targets, idle, refill,
                     served[p] = v
                     queued[jj] = q[p] - v
                     forwards += v
-                    if succ[jj] < 0:
+                    if succ[jj] == -1 or (succ[jj] < 0 and not mesh):
                         delivered[jj] += v
                         if target[jj] > 0 and done_tick[jj] < 0 \
                                 and delivered[jj] >= target[jj]:
                             done_tick[jj] = t
                             any_new = True
-                    else:
+                    elif mesh and succ[jj] >= f_all:
+                        xbuf[send_half + succ[jj] - f_all] = v
+                    elif succ[jj] >= 0:
                         ring[row_t, succ[jj]] = v
                 nheads = act & (noff[np.minimum(j, len(word) - 1)] == 0)
                 spent, carry_s = _block_seg_scan(served, nheads, carry_s,
@@ -253,11 +285,24 @@ def tile_kernel_span(state, inject, inject_target, targets, idle, refill,
                     node_sent[n] += spent[p] * size
                 carry_cap, carry_tok = cap[-1], tok[-1]
         span_done = span_done or any_new
+        prev_row = row_t
         t += 1
         if t == bounds[min(idx, len(bounds) - 1)]:
             idx += 1
             if span_done:
                 break
             span_done = False
-    return (t, queued, ring, tokens, delivered, target, done_tick,
-            node_sent, forwards)
+    out = (t, queued, ring, tokens, delivered, target, done_tick, node_sent,
+           forwards)
+    if not mesh:
+        return out
+    if t > int(t0):
+        # the last tick's receives; the flowless nodes' refills, one a tick
+        rx = np.flatnonzero(np.asarray(xin) >= 0)
+        got = xbuf[((t - 1) & 1) * xbuf_len + np.asarray(xin)[rx]]
+        ring[prev_row, rx] = got
+        cross += int(got.sum())
+        for n in np.flatnonzero(np.diff(node_off) == 0):
+            for _ in range(t - int(t0)):
+                tokens[n] = min(capacity[n], tokens[n] + refill[n])
+    return out + (cross,)
