@@ -21,7 +21,9 @@ result line:
    overflow; the same five cases on a table whose nodes run longer than a
    tile and the kernel's 512-flow chunk (``DeviceTorCells``, 800 circuits
    over 4 relays: ~600 flows a relay); and ``pack_flush`` alone,
-   all-empty, all-full and random;
+   all-empty, all-full, random and capped (inside a later tile too), at
+   the tor10k width and at C and H on the kernel's tile boundaries (1,
+   tile - 1, tile, tile + 1, 7 tiles + 3);
 4. times (CUDA events; graph replay for the kernels that are launch-bound)
    beside the least time the card could take for the same work;
 5. the tor1k slice: ``tor_network(1000)`` (2,050 hosts) on a seeded
@@ -95,7 +97,8 @@ M1. mesh kernels vs plain versions: ``mesh_span`` + the mesh entry of
     unpadded table; the same on the long-node table at D = 2 (fused,
     ppermute, none: nodes of up to 614 flows, longer than a tile and the
     512-flow chunk); the sharded hop in both layouts at B in {256, 4096,
-    65536} and D in {8, 3} against its plain versions and ``packet_hop``;
+    65536} and D in {8, 3, 1, 5} against its plain versions and
+    ``packet_hop``, one launch a batch;
 M2. mesh times: one 256-tick mesh dispatch at D = 8 in turns with the
     single-table span on the same state (CUDA events), the mesh flush and
     the sharded hop (D = 8 batch-sharded, D = 4 matrix-sharded) beside
@@ -105,9 +108,9 @@ M3. the tor1k matrix slice: tor1k under ``tpu`` with ``--tpu-devices 4
     ``packet_hop_sharded``, no other kernel;
 M4. the tor10k mesh slice: tor10k with ``--tpu-devices 8``: EXPECTED10K,
     ``mesh.host_bounces == 0``, the cross-shard counts EXPECTED_MESH10K,
-    one ``mesh_span`` and one mesh flush launch per dispatch, the hop as 8
-    slice launches of ``packet_hop_sharded`` per batch (the matrices
-    whole), no single-table kernel;
+    one ``mesh_span`` and one mesh flush launch per dispatch, the hop one
+    launch of ``packet_hop_sharded`` per batch (its 8 slices on the grid's
+    y axis, the matrices whole), no single-table kernel;
 M5. the tor10k mesh slice under ``torch.profiler``: one mesh span and one
     mesh flush kernel per counted dispatch, the card's busy time and idle
     share.
@@ -623,9 +626,31 @@ def pack_cases(c: int, h: int):
            (int(newly.sum()) // 2, int((delta != 0).sum()) // 2))
     yield ("random, capped (fits)", newly, done, delta,
            (int(newly.sum()) + 1, int((delta != 0).sum()) + 1))
+    # caps that fall inside a tile other than the first (tiles of
+    # FLUSH_TILE lanes)
+    from shadow_tpu_torch.ops.torcells_device import FLUSH_TILE
+    yield ("random, capped inside a later tile", newly, done, delta,
+           (FLUSH_TILE + FLUSH_TILE // 2 + 7, 2 * FLUSH_TILE + 11))
+
+
+def pack_tile_sizes():
+    """(C, H) pairs at the pack kernel's tile boundaries: C and H each one
+    of 1, tile - 1, tile, tile + 1 and 7 tiles + 3."""
+    from shadow_tpu_torch.ops.torcells_device import FLUSH_TILE as t
+    sizes = (1, t - 1, t, t + 1, 7 * t + 3)
+    return list(zip(sizes, reversed(sizes)))
 
 
 def check_pack(c: int, h: int) -> int:
+    """pack_flush against its plain version (and the numpy twin) at the
+    tor10k width and at every pack_tile_sizes pair, every case of
+    pack_cases at each."""
+    for cs, hs in [(c, h)] + pack_tile_sizes():
+        _check_pack_at(cs, hs)
+    return 0
+
+
+def _check_pack_at(c: int, h: int) -> None:
     import numpy as np
     import torch
     from shadow_tpu_torch.ops import torcells_device as td
@@ -648,10 +673,9 @@ def check_pack(c: int, h: int) -> int:
         if caps is None and not np.array_equal(got, td.pack_flush_np(
                 123456789, 987654321, 4242, newly, done, delta)):
             fail(f"pack_flush {name}: kernel differs from the numpy twin")
-        print(f"pack_flush {name}: kernel == plain version bit-exact, "
-              f"n_done {got[2]}, n_touched {got[3]}, caps {caps}",
-              flush=True)
-    return 0
+        print(f"pack_flush C={c} H={h} {name}: kernel == plain version "
+              f"bit-exact, n_done {got[2]}, n_touched {got[3]}, caps "
+              f"{caps}", flush=True)
 
 
 def span_bound(plane, ticks: int, caps=None) -> dict:
@@ -2327,7 +2351,7 @@ MESH_CHECK = ((8, ("fused", "ppermute", "ppermute-masked", "none")),
               (3, ("fused", "ppermute", "none")),
               (2, ("fused", "ppermute", "none")))
 MESH_LONG_NODE_CHECK = ((2, ("fused", "ppermute", "none")),)
-HOP_SHARDS = (8, 3)
+HOP_SHARDS = (8, 3, 1, 5)    # 8 and 5 do not divide A = 183
 HOP_SHARD_SIZES = (256, 4096, 65536)
 MESH_TIME_TICKS = (16, 256)
 MESH_KERNELS = ("mesh_span", "mesh_pack", "hop_s")
@@ -2522,12 +2546,12 @@ def _sharded_cols(kern, cols, barrier):
 
 
 def check_sharded_hop() -> int:
-    """The sharded hop in both layouts (D launches of packet_hop_sharded on
-    the batch's slices with the matrices whole; one launch on the whole
-    batch with the matrices in D row slices) against its
-    plain version on the card over the whole padded bucket, and against
-    packet_hop on the valid lanes, at B in HOP_SHARD_SIZES (n = B - B/8
-    packets) and D in HOP_SHARDS.  Returns the largest |difference| (0)."""
+    """The sharded hop in both layouts (one launch of packet_hop_sharded a
+    batch: the batch's D slices with the matrices whole, or the whole batch
+    with the matrices in D row slices) against its plain version on the
+    card over the whole padded bucket, and against packet_hop on the valid
+    lanes, at B in HOP_SHARD_SIZES (n = B - B/8 packets) and D in
+    HOP_SHARDS.  Returns the largest |difference| (0)."""
     import numpy as np
     from shadow_tpu_torch.ops import round_step as rs
     max_err = 0
@@ -2547,9 +2571,9 @@ def check_sharded_hop() -> int:
                 s0 = rs.packet_hop_sharded.launches
                 got = kern._run(dcols, barrier)
                 launched = rs.packet_hop_sharded.launches - s0
-                if launched != (1 if matrix else d):
-                    fail(f"sharded hop D={d} matrix={matrix}: launches "
-                         f"{launched}")
+                if launched != 1:
+                    fail(f"sharded hop D={d} matrix={matrix}: {launched} "
+                         "launches for one batch")
                 keys = (kern.key_lo, kern.key_hi, BOOTSTRAP_END, barrier)
                 if matrix:
                     want = rs.matrix_sharded_hop_reference(
@@ -2755,7 +2779,7 @@ def time_mesh(plane) -> dict:
         hops[key] = row
         print(f"sharded hop ({key}, D={d}, n={n} in a bucket of {bk}): "
               f"{ms * 1e3:.2f} us a batch (graph replay; "
-              f"{'1 launch' if matrix else f'{d} launches'}), beside "
+              f"1 launch), beside "
               f"packet_hop {single_hop_ms * 1e3:.2f} us at B={MAIN_B}; plain "
               f"{p_ms * 1e3:.1f} us; bound {row['bound_ms'] * 1e6:.2f} ns "
               f"({row['bound_by']})", flush=True)
@@ -2828,10 +2852,9 @@ def check_tor10k_mesh(run: dict) -> None:
     if not c["mesh_span"] == c["mesh_pack"] == run["dispatches"]:
         fail(f"tor10k mesh: {c['mesh_span']} mesh span and {c['mesh_pack']} "
              f"mesh flush launches for {run['dispatches']} dispatches")
-    if c["hop_s"] != MESH10K_SHARDS * run["hop_calls"] \
-            or run["host_calls"] != 0:
+    if c["hop_s"] != run["hop_calls"] or run["host_calls"] != 0:
         fail(f"tor10k mesh: {c['hop_s']} sharded hop launches for "
-             f"{run['hop_calls']} batches of {MESH10K_SHARDS} slices")
+             f"{run['hop_calls']} batches")
     others = {k: v for k, v in c.items()
               if k not in ("mesh_span", "mesh_pack", "hop_s") and v}
     if others:
@@ -2843,8 +2866,8 @@ def check_tor10k_mesh(run: dict) -> None:
           f"{run['mesh.exchange_legs']}, cross edges "
           f"{run['mesh.cross_edges']} == JAX's D = 8; host bounces 0; "
           f"{run['dispatches']} dispatches = {c['mesh_span']} mesh span + "
-          f"{c['mesh_pack']} mesh flush launches, {c['hop_s']} hop slice "
-          "launches", flush=True)
+          f"{c['mesh_pack']} mesh flush launches, {c['hop_s']} sharded hop "
+          f"launches (one a batch of {MESH10K_SHARDS} slices)", flush=True)
 
 
 def run_tor1k_matrix() -> dict:
@@ -3058,7 +3081,7 @@ def main(argv=None) -> int:
               f"{tr['mesh_span_kernel_mean_us']:.1f} us = "
               f"{tr['mesh_span_kernel_s']:.6f} s; mesh flush "
               f"{tr['mesh_pack_kernels']} x "
-              f"{tr['mesh_pack_kernel_mean_us']:.2f} us; hop slices "
+              f"{tr['mesh_pack_kernel_mean_us']:.2f} us; sharded hop "
               f"{tr['hop_s_kernels']} x {tr['hop_s_kernel_mean_us']:.3f} us",
               flush=True)
     fp = lanes = None
@@ -3244,9 +3267,9 @@ def main(argv=None) -> int:
             "ms": row.get("ms"), "plain_ms": row.get("plain_ms"),
             "bound_ms": row.get("bound_ms"), "bound_by": row.get("bound_by"),
             "library_ms": None})
-    # the batch layout's ms is one batch's D launches (the tor10k mesh
-    # slice's D = 8), as the main path runs it
-    kernels[-2]["ms_is_per"] = "batch of D launches"
+    # the batch layout's ms is one batch (the tor10k mesh slice's D = 8
+    # slices in one launch), as the main path runs it
+    kernels[-2]["ms_is_per"] = "batch of D slices, one launch"
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     if args.out:

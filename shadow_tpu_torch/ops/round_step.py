@@ -384,12 +384,16 @@ class PacketHopKernel:
 # (parallel/mesh.device_mesh).  Two layouts, as there:
 #
 # * batch-sharded (default): the padded batch is split into N slices, the
-#   matrices whole; each slice goes through csrc/packet_hop_sharded.cu with
-#   the whole matrices as its one row slice (one launch per slice);
+#   matrices whole; one launch of csrc/packet_hop_sharded.cu covers the N
+#   slices (the grid's y axis), the whole matrices its one row slice;
 # * matrix-sharded (``--tpu-shard-matrix``): the matrices are split into N
 #   row slices (each its own allocation, the rows padded to a multiple of
 #   N), the batch whole; csrc/packet_hop_sharded.cu gathers from the shard
-#   that owns the packet's src row and sums over the shards (the psum).
+#   that owns the packet's src row, which is the psum's sum over the shards
+#   (every other shard's term is an exact zero).
+#
+# The row slices' pointers sit in a device table (:class:`ShardRows`)
+# built once per kernel object, so a launch carries no pointer block.
 #
 # Both take the six padded columns of :meth:`ShardedPacketHopKernel.
 # padded_batch` (the JAX package's ``_padded_batch``): src, dst int32;
@@ -473,71 +477,92 @@ def _check_cols(name: str, cols, b: int, dev) -> None:
         check_tensor(f"{name}: {col}", c, dtype, (b,), dev)
 
 
-_SHARDED_ARGTYPES = ([_VP, _VP] + [ctypes.c_int] * 3 + [_VP] * 6
-                     + [ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32,
-                        ctypes.c_int64, ctypes.c_int64, _VP, _VP, _VP])
+_SHARDED_ARGTYPES = ([_VP] + [ctypes.c_int] * 3 + [_VP] * 6
+                     + [ctypes.c_int] * 2
+                     + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int64,
+                        ctypes.c_int64, _VP, _VP, _VP])
 MAX_SHARDS = 64       # csrc/packet_hop_sharded.cu MAX_SHARDS
 
 
-def packet_hop_sharded(lat_rows, rel_rows, a: int, cols, key_lo: int,
-                       key_hi: int, bootstrap_end: int, barrier: int,
-                       out=None):
-    """The hop on the six columns ``cols`` over the row slices ``lat_rows``
-    / ``rel_rows`` (shard s's [rows_per, A] int64 / f32; one slice of all
-    A rows is the whole matrix, as the batch-sharded layout gives it).  CPU
-    tensors run :func:`matrix_sharded_hop_reference`; CUDA tensors launch
-    csrc/packet_hop_sharded.cu on the current stream (no synchronisation),
-    and a refused launch raises.  Counts ``packet_hop_sharded.launches``.
-    Returns (deliver int64, keep bool), written into ``out`` (two
-    contiguous tensors, e.g. a slice of the whole batch's outputs) when
-    given."""
+class ShardRows:
+    """The D row slices of the [A_pad, A] path matrices (shard s's
+    [rows_per, A] int64 latency and f32 reliability rows; one slice of all
+    A rows is the whole matrix, as the batch-sharded layout gives it) and,
+    on the card, the device table of their pointers that
+    csrc/packet_hop_sharded.cu reads (int64 [2D]: the latency rows'
+    addresses, then the reliability rows'): built once, so no launch
+    carries a pointer block."""
+
+    def __init__(self, lat_rows, rel_rows, a: int):
+        d = len(lat_rows)
+        if not 1 <= d <= MAX_SHARDS or len(rel_rows) != d:
+            raise ValueError(f"packet_hop_sharded: 1 to {MAX_SHARDS} "
+                             f"shards, got {d} latency and {len(rel_rows)} "
+                             "reliability slices")
+        rows_per = lat_rows[0].shape[0]
+        if d * rows_per < a:
+            raise ValueError(f"packet_hop_sharded: {d} x {rows_per} rows do "
+                             f"not cover A = {a}")
+        dev = lat_rows[0].device
+        if dev.type == "cuda":
+            from ._build import check_tensor
+            for s in range(d):
+                check_tensor(f"packet_hop_sharded: latency rows {s}",
+                             lat_rows[s], torch.int64, (rows_per, a), dev)
+                check_tensor(f"packet_hop_sharded: reliability rows {s}",
+                             rel_rows[s], torch.float32, (rows_per, a), dev)
+        self.lat = list(lat_rows)
+        self.rel = list(rel_rows)
+        self.a = int(a)
+        self.d = d
+        self.rows_per = int(rows_per)
+        self.table = None if dev.type != "cuda" else torch.tensor(
+            [t.data_ptr() for t in self.lat + self.rel], dtype=torch.int64,
+            device=dev)
+
+
+def packet_hop_sharded(rows: ShardRows, cols, key_lo: int, key_hi: int,
+                       bootstrap_end: int, barrier: int, slices: int = 1):
+    """The hop on the six columns ``cols`` over the row slices ``rows``,
+    the batch cut into ``slices`` equal slices (the batch-sharded layout:
+    ``slices`` = D over the whole matrices; the matrix-sharded layout: one
+    slice over D row slices).  CPU tensors run
+    :func:`batch_sharded_hop_reference` (``slices`` > 1) or
+    :func:`matrix_sharded_hop_reference`; CUDA tensors launch
+    csrc/packet_hop_sharded.cu once on the current stream (no
+    synchronisation), and a refused launch raises.  Counts
+    ``packet_hop_sharded.launches``.  Returns (deliver int64, keep bool)."""
     dev = cols[0].device
+    b = cols[0].shape[0]
+    if slices < 1 or b % slices or (slices > 1 and rows.d != 1):
+        raise ValueError(f"packet_hop_sharded: {slices} batch slices of "
+                         f"B = {b} over {rows.d} row slices")
+    keys = (key_lo, key_hi, bootstrap_end, barrier)
     if dev.type == "cpu":
-        res = matrix_sharded_hop_reference(lat_rows, rel_rows, a, cols,
-                                           key_lo, key_hi, bootstrap_end,
-                                           barrier)
-        if out is None:
-            return res
-        out[0].copy_(res[0])
-        out[1].copy_(res[1])
-        return out
+        if slices > 1:
+            return batch_sharded_hop_reference(rows.lat[0], rows.rel[0],
+                                               cols, slices, *keys)
+        return matrix_sharded_hop_reference(rows.lat, rows.rel, rows.a,
+                                            cols, *keys)
     if dev.type != "cuda":
         raise ValueError(f"packet_hop_sharded: unsupported device {dev}")
-    d = len(lat_rows)
-    if not 1 <= d <= MAX_SHARDS or len(rel_rows) != d:
-        raise ValueError(f"packet_hop_sharded: 1 to {MAX_SHARDS} shards, "
-                         f"got {d} latency and {len(rel_rows)} reliability "
-                         "slices")
-    rows_per = lat_rows[0].shape[0]
-    if d * rows_per < a:
-        raise ValueError(f"packet_hop_sharded: {d} x {rows_per} rows do not "
-                         f"cover A = {a}")
-    from ._build import check_tensor, entry
-    for s in range(d):
-        check_tensor(f"packet_hop_sharded: latency rows {s}", lat_rows[s],
-                     torch.int64, (rows_per, a), dev)
-        check_tensor(f"packet_hop_sharded: reliability rows {s}",
-                     rel_rows[s], torch.float32, (rows_per, a), dev)
-    b = cols[0].shape[0]
+    if rows.table is None or rows.table.device != dev:
+        raise ValueError(f"packet_hop_sharded: row slices not on {dev}")
+    from ._build import entry
     _check_cols("packet_hop_sharded", cols, b, dev)
-    if out is None:
-        out = (torch.empty(b, dtype=torch.int64, device=dev),
-               torch.empty(b, dtype=torch.bool, device=dev))
-    check_tensor("packet_hop_sharded: deliver", out[0], torch.int64, (b,),
-                 dev)
-    check_tensor("packet_hop_sharded: keep", out[1], torch.bool, (b,), dev)
-    deliver, keep = out
-    lat_p = (_VP * d)(*(t.data_ptr() for t in lat_rows))
-    rel_p = (_VP * d)(*(t.data_ptr() for t in rel_rows))
+    deliver = torch.empty(b, dtype=torch.int64, device=dev)
+    keep = torch.empty(b, dtype=torch.bool, device=dev)
     rc = entry("packet_hop_sharded", "packet_hop_sharded_launch",
                _SHARDED_ARGTYPES)(
-        lat_p, rel_p, d, rows_per, a, *(c.data_ptr() for c in cols), b,
+        rows.table.data_ptr(), rows.d, rows.rows_per, rows.a,
+        *(c.data_ptr() for c in cols), slices, b // slices,
         int(key_lo) & _M32, int(key_hi) & _M32, int(bootstrap_end),
         int(barrier), deliver.data_ptr(), keep.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"packet_hop_sharded kernel launch failed: CUDA "
-                           f"error {rc} (B={b}, A={a}, D={d})")
+                           f"error {rc} (B={b}, A={rows.a}, D={rows.d}, "
+                           f"slices={slices})")
     packet_hop_sharded.launches += 1
     return deliver, keep
 
@@ -579,7 +604,8 @@ class ShardedPacketHopKernel(PacketHopKernel):
 
     * default — the padded batch is split into N slices (the bucket is at
       least N*MIN_BUCKET and a multiple of N), the matrices whole; one
-      launch of the sharded hop per slice, the matrices its one row slice;
+      launch of the sharded hop per batch covers the N slices, the
+      matrices its one row slice;
     * ``shard_matrix=True`` (``--tpu-shard-matrix``) — the matrices are
       split into N row slices, each its own allocation (rows padded up to
       a multiple of N with zero rows, never indexed: src rows always
@@ -630,6 +656,9 @@ class ShardedPacketHopKernel(PacketHopKernel):
             self.rel_rows = [rel[s * per:(s + 1) * per].clone()
                              for s in range(self.n_devices)]
             del lat, rel
+            self.rows = ShardRows(self.lat_rows, self.rel_rows, self.a)
+        else:
+            self.rows = ShardRows([self.latency], [self.reliability], self.a)
         if self.stream is not None:
             self.stream.wait_stream(torch.cuda.current_stream(self.device))
             self._cols = _ColumnPool()
@@ -666,24 +695,11 @@ class ShardedPacketHopKernel(PacketHopKernel):
         return out
 
     def _run(self, cols, barrier_ns: int):
-        """One batch's launches on ``cols`` (tensors on the kernel's
+        """One batch's launch on ``cols`` (tensors on the kernel's
         device): deliver, keep."""
-        if self.shard_matrix:
-            return packet_hop_sharded(
-                self.lat_rows, self.rel_rows, self.a, cols, self.key_lo,
-                self.key_hi, self.bootstrap_end_ns, barrier_ns)
-        b = cols[0].shape[0]
-        w = b // self.n_devices
-        dev = cols[0].device
-        deliver = torch.empty(b, dtype=torch.int64, device=dev)
-        keep = torch.empty(b, dtype=torch.bool, device=dev)
-        for s in range(self.n_devices):
-            sl = slice(s * w, (s + 1) * w)
-            packet_hop_sharded(
-                [self.latency], [self.reliability], self.a,
-                tuple(c[sl] for c in cols), self.key_lo, self.key_hi,
-                self.bootstrap_end_ns, barrier_ns, out=(deliver[sl], keep[sl]))
-        return deliver, keep
+        return packet_hop_sharded(
+            self.rows, cols, self.key_lo, self.key_hi, self.bootstrap_end_ns,
+            barrier_ns, slices=1 if self.shard_matrix else self.n_devices)
 
     def launch(self, src_rows: np.ndarray, dst_rows: np.ndarray,
                uids: np.ndarray, send_times: np.ndarray,

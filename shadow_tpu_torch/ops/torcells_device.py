@@ -601,7 +601,22 @@ class SpanTables:
 _VP = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _SPAN_ARGTYPES = ([_VP] * 19 + [_I64] * 7 + [ctypes.c_int, _VP, _VP])
-_PACK_ARGTYPES = [_VP] * 7 + [_I64] * 4 + [_VP]
+_PACK_ARGTYPES = [_VP] * 7 + [_I64] * 4 + [_VP, _I64, _VP]
+FLUSH_TILE = 1024     # csrc/pack_flush.cu TILE: lanes a tile
+
+
+def flush_tiles(w: int, c: int, h: int) -> int:
+    """Tiles of csrc/pack_flush.cu's compaction for W flushes of C chain
+    and H node lanes (at least one a flush, which writes the header)."""
+    t = -(-c // FLUSH_TILE) + -(-h // FLUSH_TILE)
+    return w * max(t, 1)
+
+
+def flush_scratch(w: int, c: int, h: int, dev) -> Tuple[torch.Tensor, int]:
+    """The pack kernels' per-tile counts and sums (int64 [2 * tiles], every
+    word written by the kernel before it is read) and the tile count."""
+    n = flush_tiles(w, c, h)
+    return torch.empty(2 * n, dtype=torch.int64, device=dev), n
 
 
 def torcells_span(t0, queued, ring, tokens, delivered, target, done_tick,
@@ -710,11 +725,12 @@ def pack_flush(forwards, delivered_sum, t_stop, newly: torch.Tensor,
     hh = h if cap_nodes is None else min(int(cap_nodes), h)
     buf = torch.empty(flush_len(c, h, cap_chains, cap_nodes),
                       dtype=torch.int64, device=dev)
+    scratch, tiles = flush_scratch(1, c, h, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _bound("pack_flush", "pack_flush_launch", _PACK_ARGTYPES)(
         heads[0].data_ptr(), heads[1].data_ptr(), heads[2].data_ptr(),
         newly.data_ptr(), done_last.data_ptr(), sent_delta.data_ptr(),
-        buf.data_ptr(), c, h, cc, hh, stream)
+        buf.data_ptr(), c, h, cc, hh, scratch.data_ptr(), tiles, stream)
     if rc != 0:
         raise RuntimeError(f"pack_flush kernel launch failed: CUDA error "
                            f"{rc} (C={c}, H={h})")
@@ -846,7 +862,7 @@ class BatchedSpanTables:
 
 
 _SPAN_B_ARGTYPES = [_VP] * 20 + [_I64] * 7 + [_VP]
-_PACK_B_ARGTYPES = [_VP] * 9 + [_I64] * 4 + [_VP]
+_PACK_B_ARGTYPES = [_VP] * 9 + [_I64] * 4 + [_VP, _I64, _VP]
 
 
 def lane_args(t0, idle_ticks, targets, device) -> torch.Tensor:
@@ -958,8 +974,8 @@ def pack_flush_batched_torch(t_stop, done_in, done_tick, last_flow,
 def pack_flush_batched(t_stop, done_in, done_tick, last_flow, delivered,
                        sent_in, node_sent):
     """The batched pack on CUDA tensors: one launch of the batched entry of
-    csrc/pack_flush.cu (one block per lane) on the current stream, no
-    synchronisation.  Returns (flush [W, 5 + 2C + 2H], forwards [W]), as
+    csrc/pack_flush.cu (every lane's tiles in one cooperative launch) on
+    the current stream, no synchronisation.  Returns (flush [W, 5 + 2C + 2H], forwards [W]), as
     :func:`pack_flush_batched_torch` does; CPU tensors run that.  Counts
     ``pack_flush_batched.launches``."""
     dev = node_sent.device
@@ -983,12 +999,13 @@ def pack_flush_batched(t_stop, done_in, done_tick, last_flow, delivered,
         _check(f"pack_flush_batched: {name}", t, i64, shape, dev)
     buf = torch.empty((w, flush_len(c, h)), dtype=i64, device=dev)
     forwards = torch.empty(w, dtype=i64, device=dev)
+    scratch, tiles = flush_scratch(w, c, h, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _bound("pack_flush", "pack_flush_batched_launch", _PACK_B_ARGTYPES)(
         t_stop.data_ptr(), done_in.data_ptr(), done_tick.data_ptr(),
         last_flow.data_ptr(), delivered.data_ptr(), sent_in.data_ptr(),
         node_sent.data_ptr(), buf.data_ptr(), forwards.data_ptr(), w, f, c,
-        h, stream)
+        h, scratch.data_ptr(), tiles, stream)
     if rc != 0:
         raise RuntimeError(f"pack_flush_batched kernel launch failed: CUDA "
                            f"error {rc} (W={w}, C={c}, H={h})")

@@ -49,7 +49,8 @@ from ...ops._build import check_tensor as _check
 from ...ops._build import entry as _bound
 from ...ops.torcells_device import (CELL_WIRE_BYTES, MAX_TARGETS,
                                     RING_TORCH_DTYPE, TILE_FLOWS, flush_len,
-                                    pack_flush_torch, span_tile_tables)
+                                    flush_scratch, pack_flush_torch,
+                                    span_tile_tables)
 
 
 class ExchangeSchedule:
@@ -608,7 +609,7 @@ class MeshTables:
 _VP = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _MESH_ARGTYPES = ([_VP] * 20 + [_I64] * 8 + [ctypes.c_int, _VP, _VP])
-_MESH_PACK_ARGTYPES = [_VP] * 11 + [_I64] * 2 + [_VP]
+_MESH_PACK_ARGTYPES = [_VP] * 11 + [_I64] * 2 + [_VP, _I64, _VP]
 
 
 def mesh_span(t0, queued, ring, tokens, delivered, target, done_tick,
@@ -683,9 +684,9 @@ def mesh_pack_flush(t_stop, forwards, cross, done_tick, delivered,
                     node_sent, done_in, sent_in,
                     tables: MeshTables) -> torch.Tensor:
     """Launch the mesh entry of csrc/pack_flush.cu on CUDA tensors (one
-    block, current stream, no synchronisation): the packed flush of the
-    global view — chains through ``last_flow_pad``, nodes through
-    ``node_slot`` — with no caps and the trailing cross-shard slot.
+    cooperative launch, current stream, no synchronisation): the packed
+    flush of the global view — chains through ``last_flow_pad``, nodes
+    through ``node_slot`` — with no caps and the trailing cross-shard slot.
     ``t_stop``, ``forwards`` and ``cross`` are 0-d int64 tensors on the
     card (the span kernel's outputs).  Counts ``mesh_pack_flush.launches``."""
     dev = done_tick.device
@@ -703,13 +704,14 @@ def mesh_pack_flush(t_stop, forwards, cross, done_tick, delivered,
                            ("sent_in", sent_in, (d * hp,))):
         _check(f"mesh_pack_flush: {name}", t, i64, shape, dev)
     buf = torch.empty(flush_len(c, h) + 1, dtype=i64, device=dev)
+    scratch, tiles = flush_scratch(1, c, h, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _bound("pack_flush", "pack_flush_mesh_launch", _MESH_PACK_ARGTYPES)(
         t_stop.data_ptr(), forwards.data_ptr(), cross.data_ptr(),
         done_tick.data_ptr(), delivered.data_ptr(), node_sent.data_ptr(),
         done_in.data_ptr(), sent_in.data_ptr(), buf.data_ptr(),
         tables.last_flow_pad.data_ptr(), tables.node_slot.data_ptr(), c, h,
-        stream)
+        scratch.data_ptr(), tiles, stream)
     if rc != 0:
         raise RuntimeError(f"pack_flush mesh kernel launch failed: CUDA "
                            f"error {rc} (C={c}, H={h})")
