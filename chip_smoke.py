@@ -13,7 +13,9 @@ result line:
 3. kernels vs plain versions: ``packet_hop`` against
    ``packet_hop_packed_reference`` on the card, bit-exact on every lane
    (padding included), and against the numpy cipher on the valid lanes, at
-   B in {256, 512, 4096, 65536} with A = 183; then ``torcells_span`` +
+   B in {256, 512, 4096, 65536} with A = 183, on device operands and
+   through ``PacketHopKernel`` (the round in mapped host memory); then
+   ``torcells_span`` +
    ``pack_flush`` against their plain torch versions (and the numpy twin)
    on the tor10k plane's own flow table (F = 100,000, C = 20,000,
    H = 30,494), bit-exact on all ten outputs: a mid-span halt, an idle
@@ -25,7 +27,11 @@ result line:
    the tor10k width and at C and H on the kernel's tile boundaries (1,
    tile - 1, tile, tile + 1, 7 tiles + 3);
 4. times (CUDA events; graph replay for the kernels that are launch-bound)
-   beside the least time the card could take for the same work;
+   beside the least time the card could take for the same work; the hop
+   first held bit-exact on all lanes on a host-resident round
+   (``packet_hop_mapped``) at each timed B, in fresh and reused buffers,
+   then timed alone on device and on host-resident operands, and a round
+   as the main path makes it (launch + wait, host clock);
 5. the tor1k slice: ``tor_network(1000)`` (2,050 hosts) on a seeded
    183-vertex complete lossy GraphML, stoptime 20, under the ``tpu`` policy
    on cuda, then under ``global``; state digest, events, rounds and drops
@@ -33,7 +39,8 @@ result line:
 6. the tor1k trace: the ``tpu`` run once more under ``torch.profiler``: the
    card's busy time (the union of its kernel and copy intervals), its idle
    share and the hop kernel's time inside real rounds.  The trace must hold
-   one ``packet_hop`` kernel per counted launch;
+   one ``packet_hop`` kernel per counted launch, and no copy but the
+   topology's upload: a round is one kernel on its host-resident buffers;
 7. the tor10k slice: ``tor_network(10000, device_data=True)`` (20,500
    hosts, 10,000 device-mode clients) under ``tpu`` on cuda, stoptime 64:
    every plane dispatch through one ``torcells_span`` and one
@@ -70,12 +77,19 @@ result line:
     messages, to 3 s; and 65,536 messages, the device-memory path, to
     1 s), ``saturate`` (4,096 interfaces x 30,000 ticks),
     ``torcells_run`` (200 relays, 2,000 circuits, 200 cells each, to
-    completion) and ``torcells_step_window`` (split windows and an idle
-    fold, through ``torcells_span``), ``admit_sorted`` (N in {256, 8,192,
+    completion, in the grid form its size gives; cut at 700 ticks; one
+    flow queued below zero, the int64 path; 20,000 circuits to
+    completion; ``modelbench --small``'s table, a grid of two blocks; the
+    long-node table cut at 1,000 ticks over 8 blocks with chunks of 64
+    flows and in the global form; each printing the form and path that
+    ran) and
+    ``torcells_step_window`` (split windows and an idle fold, through
+    ``torcells_span``), ``admit_sorted`` (N in {256, 8,192,
     65,536} over 2,050 hosts, and a batch with invalid lanes inside it):
     each bit-exact against its plain torch version on the card;
 15. model times: each of those kernels at the main path's inputs (CUDA
     events; graph replay for ``admit_sorted``) beside its bound;
+    ``torcells_run`` also at 20,000 circuits;
 16. the model workloads: ``tools/modelbench.py`` on cuda at bench.py's
     sizes, every count equal to the JAX package's (EXPECTED_MODELS), one
     launch of its kernel per device call;
@@ -161,6 +175,9 @@ BOOTSTRAP_END = 5_000_000_000
 CHECK_SIZES = (256, 512, 4096, 65536)
 TIME_SIZES = (256, 512, 8192)
 MAIN_B = 512          # the tor1k run's larger bucket (buckets 256 and 512)
+# the copies a tor1k run makes: the latency and reliability matrices,
+# uploaded when the first round builds the hop kernel (a round makes none)
+TOR1K_SETUP_COPIES = 2
 
 # H100 SXM peaks (NVIDIA's data sheet, at the full 700 W): HBM bytes/s,
 # and 32-bit scalar ALU operations/s (the fp32 non-tensor rate: the hop's
@@ -272,7 +289,7 @@ def check_kernel() -> int:
             fail(f"packet_hop disagrees with the numpy cipher at B={b}")
         if k_np[n:].any():
             fail(f"packet_hop kept a padding lane at B={b}")
-        # the full launch path: pinned upload, own stream, pinned readback
+        # the full launch path: the round in mapped host memory, own stream
         sd, sk = kern.step(*cols)
         if not (np.array_equal(sd, nd) and np.array_equal(sk, nk)):
             fail(f"PacketHopKernel.step disagrees at B={b}")
@@ -297,7 +314,39 @@ def bound(b: int, packed_cpu) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def check_mapped(kern, packed, bufs, label: str) -> int:
+    """``packet_hop_mapped`` on ``bufs`` (a MappedRound), the batch
+    ``packed`` written into it first, against the plain version on every
+    lane, padding included; the largest |difference|."""
+    import torch
+    from shadow_tpu_torch.ops import round_step as rs
+    bufs.packed.copy_(packed.cpu())
+    before = rs.packet_hop_mapped.launches
+    rs.packet_hop_mapped(kern.latency, kern.reliability, bufs, kern.key_lo,
+                         kern.key_hi, kern.bootstrap_end_ns)
+    if rs.packet_hop_mapped.launches != before + 1:
+        fail("packet_hop_mapped did not count its launch")
+    torch.cuda.synchronize()
+    rd, rk = rs.packet_hop_packed_reference(
+        kern.latency, kern.reliability, packed, kern.key_lo, kern.key_hi,
+        kern.bootstrap_end_ns)
+    rd, rk = rd.cpu(), rk.cpu()
+    err = max(int((bufs.deliver - rd).abs().max()),
+              int(bool((bufs.keep != rk).any())))
+    if err or not (torch.equal(bufs.deliver, rd)
+                   and torch.equal(bufs.keep, rk)):
+        fail(f"packet_hop on a host-resident round disagrees with its plain "
+             f"version at B={bufs.b} ({label}: max |deliver diff| {err}, "
+             f"keep mismatches {int((bufs.keep != rk).sum())})")
+    return err
+
+
 def time_kernel() -> dict:
+    """Phase 4 at each of TIME_SIZES: the host-resident hop held to the
+    plain version on every lane (a fresh round, then the same buffers with
+    another batch), then the kernel alone by graph replay on device and on
+    host-resident operands, the wrapper back to back, the plain version,
+    and a round as the main path makes it (host clock, median of 200)."""
     import torch
     from shadow_tpu_torch.ops import round_step as rs
     dev = torch.device("cuda", 0)
@@ -306,30 +355,23 @@ def time_kernel() -> dict:
         kern, packed, cols = make_inputs(b, seed=1000 + b, device=dev)
         args = (kern.latency, kern.reliability, packed, kern.key_lo,
                 kern.key_hi, kern.bootstrap_end_ns)
-        # kernel alone: 20 launches captured in a CUDA graph, replayed, so
-        # the host's per-call cost does not hide the device time
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for _ in range(3):
-                rs.packet_hop_packed(*args)
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        per_graph = 20
-        with torch.cuda.graph(graph):
-            for _ in range(per_graph):
-                rs.packet_hop_packed(*args)
-        graph.replay()
-        torch.cuda.synchronize()
-        reps = 50
+        bufs = rs.MappedRound.allocate(b, dev)
+        err = check_mapped(kern, packed, bufs, "fresh buffers")
+        _k2, other, _c2 = make_inputs(b, seed=2000 + b, device=dev)
+        err = max(err, check_mapped(kern, other, bufs, "reused buffers"))
+        check_mapped(kern, packed, bufs, "reused again")
+        print(f"B={b:5d}: packet_hop on a host-resident round == plain "
+              f"version bit-exact on all {b} lanes (max_abs_err {err}), "
+              "fresh and reused buffers", flush=True)
+        # kernel alone, by graph replay (so the host's per-call cost does
+        # not hide the device time): on device operands, and on the main
+        # path's, the round in host memory
+        kernel_ms = graph_ms(lambda: rs.packet_hop_packed(*args), reps=50)
+        mapped_ms = graph_ms(lambda: rs.packet_hop_mapped(
+            kern.latency, kern.reliability, bufs, kern.key_lo, kern.key_hi,
+            kern.bootstrap_end_ns), reps=50)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(reps):
-            graph.replay()
-        e1.record()
-        torch.cuda.synchronize()
-        kernel_ms = e0.elapsed_time(e1) / (reps * per_graph)
         # the wrapper launched back to back from Python (host-bound)
         e0.record()
         for _ in range(200):
@@ -346,8 +388,9 @@ def time_kernel() -> dict:
         e1.record()
         torch.cuda.synchronize()
         plain_ms = e0.elapsed_time(e1) / 50
-        # what a round pays on the main path: pack into pinned memory,
-        # upload, kernel, read back, wait (host clock, median of 200)
+        # what a round pays on the main path: pack into the round's host
+        # buffers, one launch, wait on its event, copy the results out
+        # (host clock, median of 200)
         for _ in range(10):
             kern.launch(*cols).wait()
         trips = []
@@ -355,17 +398,19 @@ def time_kernel() -> dict:
             t0 = time.perf_counter()
             kern.launch(*cols).wait()
             trips.append((time.perf_counter() - t0) * 1e3)
-        row = {"B": b, "kernel_ms": kernel_ms, "wrapper_ms": wrapper_ms,
+        row = {"B": b, "kernel_ms": mapped_ms, "device_operands_ms": kernel_ms,
+               "wrapper_ms": wrapper_ms, "err": err,
                "roundtrip_ms": statistics.median(trips),
                "plain_ms": plain_ms}
         row.update(bound(b, packed.cpu()))
         rows[b] = row
-        print(f"B={b:5d}: kernel {kernel_ms * 1e3:.2f} us (graph replay), "
-              f"wrapper {wrapper_ms * 1e3:.2f} us, launch+H2D+D2H "
-              f"{row['roundtrip_ms'] * 1e3:.2f} us, plain {plain_ms * 1e3:.2f}"
-              f" us, bound {row['bound_ms'] * 1e6:.2f} ns "
-              f"({row['bound_by']}, {row['bytes']} B, {row['ops']} ops)",
-              flush=True)
+        print(f"B={b:5d}: kernel {mapped_ms * 1e3:.2f} us on a host-resident "
+              f"round, {kernel_ms * 1e3:.2f} us on device operands (graph "
+              f"replay), wrapper {wrapper_ms * 1e3:.2f} us, round trip "
+              f"(launch + wait, no copy) {row['roundtrip_ms'] * 1e3:.2f} us, "
+              f"plain {plain_ms * 1e3:.2f} us, bound "
+              f"{row['bound_ms'] * 1e6:.2f} ns ({row['bound_by']}, "
+              f"{row['bytes']} B, {row['ops']} ops)", flush=True)
     return rows
 
 
@@ -925,7 +970,7 @@ def busy_intervals(prof) -> dict:
             f"{first} s")
     spans = []
     per = {k: [] for k in TRACED_KERNELS}
-    copy_us = 0.0
+    copy_us, copies = 0.0, 0
     for a, b, name in events:
         if MARKER in name or not markers[0] < a < markers[1]:
             continue
@@ -935,6 +980,7 @@ def busy_intervals(prof) -> dict:
                 per[key].append(b - a)
         if "Memcpy" in name or "memcpy" in name:
             copy_us += b - a
+            copies += 1
     spans.sort()
     busy_us, end = 0.0, float("-inf")
     for a, b in spans:
@@ -942,7 +988,8 @@ def busy_intervals(prof) -> dict:
             busy_us += b - max(a, end)
             end = b
     out = {"device_events": len(spans), "busy_s": busy_us * 1e-6,
-           "copy_s": copy_us * 1e-6, "markers_host_s": prof.marker_host_s,
+           "copy_s": copy_us * 1e-6, "copies": copies,
+           "markers_host_s": prof.marker_host_s,
            "markers_trace_s": [t * 1e-6 for t in markers]}
     for key, us in per.items():
         out[f"{key}_kernels"] = len(us)
@@ -964,13 +1011,17 @@ def run_slice(policy: str, trace: bool = False) -> dict:
     opts = Options(scheduler_policy=policy, device="cuda", seed=TOR1K["seed"],
                    stop_time_sec=int(cfg.stop_time_sec), log_level="warning")
     ctl = Controller(opts, cfg)
-    rs.packet_hop_packed.launches = 0
+    rs.packet_hop_mapped.launches = rs.packet_hop_packed.launches = 0
     with card_trace(trace) as prof:
         t0 = time.perf_counter()
         rc = ctl.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    launches = rs.packet_hop_packed.launches
+    launches = rs.packet_hop_mapped.launches
+    if rs.packet_hop_packed.launches:
+        fail(f"tor1k {policy}: {rs.packet_hop_packed.launches} hops on "
+             "device operands: every round must run on its host-resident "
+             "buffers")
     eng = ctl.engine
     pol = eng.scheduler.policy
     kern = getattr(pol, "_kernel", None)
@@ -1030,14 +1081,17 @@ def run_tor10k(trace: bool = False) -> dict:
     ctl = Controller(tor10k_options(), tor10k_config())
     td.torcells_span.launches = 0
     td.pack_flush.launches = 0
-    rs.packet_hop_packed.launches = 0
+    rs.packet_hop_mapped.launches = rs.packet_hop_packed.launches = 0
     with card_trace(trace) as prof:
         t0 = time.perf_counter()
         rc = ctl.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     span_l, pack_l = td.torcells_span.launches, td.pack_flush.launches
-    hop_l = rs.packet_hop_packed.launches
+    hop_l = rs.packet_hop_mapped.launches
+    if rs.packet_hop_packed.launches:
+        fail(f"tor10k: {rs.packet_hop_packed.launches} hops on device "
+             "operands: every round must run on its host-resident buffers")
     eng = ctl.engine
     plane = eng.device_plane
     st = plane.stats()
@@ -1617,7 +1671,8 @@ def _wrappers() -> dict:
     from shadow_tpu_torch.parallel.mesh import exchange as ex
     return {"span": td.torcells_span, "pack": td.pack_flush,
             "span_b": td.torcells_span_batched,
-            "pack_b": td.pack_flush_batched, "hop": rs.packet_hop_packed,
+            "pack_b": td.pack_flush_batched, "hop": rs.packet_hop_mapped,
+            "hop_dev": rs.packet_hop_packed,
             "phold": pd.phold_run, "saturate": sd.saturate_run,
             "torcells_run": td.torcells_run,
             "admit_sorted": bw.admit_sorted, "mesh_span": ex.mesh_span,
@@ -1757,7 +1812,8 @@ def run_sweep(serial: dict, trace: bool = False) -> dict:
         fail(f"sweep: {stats['fleet.launches']} fleet launches but "
              f"{counts['span_b']} batched span and {counts['pack_b']} "
              "batched pack launches")
-    if counts["span"] or counts["pack"] or counts["hop"]:
+    if counts["span"] or counts["pack"] or counts["hop"] \
+            or counts["hop_dev"]:
         fail(f"sweep: serial kernels launched on the fleet path: {counts}")
     if trace:
         for key in ("span_b", "pack_b"):
@@ -2089,9 +2145,11 @@ def check_models() -> dict:
                            relay_bw_kibps=sizes["tc_bw"])
     q0 = torch.as_tensor(tc._args(sizes["tc_cells"])[0], device=dev)
     inputs["torcells_run"] = (tc, q0)
-    kern, ms = _events_ms(lambda: td.torcells_run(
-        q0, *tc.tensors, tc.ring_len, sizes["tc_max_ticks"],
-        tables=tc.tables), 1)
+    (run_delivered, scalars, plan), ms = _events_ms(
+        lambda: td._torcells_run_launch(q0, *tc.tensors, tc.ring_len,
+                                        sizes["tc_max_ticks"],
+                                        tables=tc.tables), 1)
+    kern = (run_delivered, scalars[0], scalars[1])
     plain, plain_ms = _host_ms(lambda: td.torcells_run_torch(
         q0, *tc.tensors, tc.ring_len, sizes["tc_max_ticks"],
         arr_lat=tc.tables.arr_lat))
@@ -2110,7 +2168,12 @@ def check_models() -> dict:
           f"plain version bit-exact (max_abs_err {err}), ticks "
           f"{int(kern[1])}, forwards {int(kern[2])}; kernel {ms:.3f} ms, "
           f"plain {plain_ms:.1f} ms", flush=True)
-    run_delivered, run_ticks, run_fwd = kern
+    out["torcells_run"]["plan"] = plan_summary(plan)
+    print(f"torcells_run at the bench shape ran the "
+          f"{out['torcells_run']['plan']}, {run_path(scalars)} path",
+          flush=True)
+    _d, run_ticks, run_fwd = kern
+    out["torcells_run"]["err"] = max(err, check_run_forms(tc, q0, inputs))
     out["window_err"] = check_windows(tc, q0, sizes["tc_cells"],
                                       run_delivered, run_ticks, run_fwd)
 
@@ -2138,6 +2201,113 @@ def check_models() -> dict:
               "delayed", flush=True)
     out["admit"] = rows
     return out, inputs
+
+
+# torcells_run's other cases: ten times the bench's circuits (20 cells
+# each, to completion: more blocks than the card has SMs), modelbench
+# --small's table (300 flows: two blocks), the long-node table (LONG_NODE,
+# nodes of ~600 flows) and max_ticks cuts
+RUN_WIDE = {"n_relays": 200, "n_circuits": 20000, "cells": 20}
+RUN_CUT_TICKS = 700
+# cells a circuit that end the bench instance's run after an odd number of
+# ticks (1,559)
+RUN_ODD_CELLS = 199
+LONG_NODE_RUN = {"cells": 20, "max_ticks": 1000}
+
+
+def plan_summary(plan) -> str:
+    return (f"{plan.form} form: {len(plan.blocks) - 1} blocks of "
+            f"{plan.threads} threads, {plan.smem} B of shared memory a "
+            f"block, {plan.chunks} chunk(s) a tick, {plan.per_sync} "
+            "tick(s) a barrier")
+
+
+def run_path(scalars) -> str:
+    """The path a torcells_run launch took, from its scalars (syncs)."""
+    from shadow_tpu_torch.ops import torcells_device as td
+    return "int32" if int(scalars[td.RUN_PATH_WORD]) else "int64"
+
+
+def check_run_forms(tc, q0, inputs) -> int:
+    """torcells_run in each of its forms and on both paths against its plain
+    version on the card, bit-exact on delivered, ticks and forwards: the
+    bench shape cut at RUN_CUT_TICKS, with RUN_ODD_CELLS cells a circuit
+    (an odd tick count, so two-tick windows end in a taken-back tick), and
+    with one flow queued below zero (the int64 path); RUN_WIDE to
+    completion over one block an SM; modelbench's SMALL table to
+    completion (a grid of two blocks); the long-node table over 8 blocks
+    with chunks of 64 flows (a node's scans carried over ten chunks) and
+    in the global form (plans forced), cut at its max_ticks. Returns the
+    largest error; keeps RUN_WIDE's instance for the times."""
+    import torch
+    from shadow_tpu_torch.ops import torcells_device as td
+    from shadow_tpu_torch.tools import modelbench as mb
+    sizes = mb.FULL
+    dev = q0.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    wide = td.DeviceTorCells(RUN_WIDE["n_relays"], RUN_WIDE["n_circuits"],
+                             seed=sizes["tc_seed"],
+                             relay_bw_kibps=sizes["tc_bw"])
+    wq0 = torch.as_tensor(wide._args(RUN_WIDE["cells"])[0], device=dev)
+    inputs["torcells_run_wide"] = (wide, wq0)
+    long = td.DeviceTorCells(LONG_NODE["n_relays"], LONG_NODE["n_circuits"],
+                             seed=LONG_NODE["seed"])
+    lq0 = torch.as_tensor(long._args(LONG_NODE_RUN["cells"])[0], device=dev)
+    small_sizes = mb.SMALL
+    small = td.DeviceTorCells(small_sizes["tc_relays"],
+                              small_sizes["tc_circuits"],
+                              seed=small_sizes["tc_seed"],
+                              relay_bw_kibps=small_sizes["tc_bw"])
+    sq0 = torch.as_tensor(small._args(small_sizes["tc_cells"])[0],
+                          device=dev)
+    neg = q0.clone()
+    neg[5] = -1
+    odd = torch.as_tensor(tc._args(RUN_ODD_CELLS)[0], device=dev)
+    lno, lwin = long.tables.node_off_host, long.tables.window
+    full = sizes["tc_max_ticks"]
+    cases = (
+        (f"bench shape cut at {RUN_CUT_TICKS} ticks", tc, q0, RUN_CUT_TICKS,
+         None, "grid", "int32"),
+        (f"bench shape, {RUN_ODD_CELLS} cells a circuit (an odd tick "
+         "count: the last window's second tick taken back)", tc, odd, full,
+         None, "grid", "int32"),
+        ("bench shape, one flow queued at -1", tc, neg, full, None, "grid",
+         "int64"),
+        (f"{RUN_WIDE['n_circuits']} circuits", wide, wq0, full, None, "grid",
+         "int32"),
+        (f"modelbench --small's {small_sizes['tc_circuits']} circuits",
+         small, sq0, full, None, "grid", "int32"),
+        ("long-node table, 8 blocks, chunks of 64 flows", long, lq0,
+         LONG_NODE_RUN["max_ticks"],
+         td._plan_over(lno, 8, lwin, max_threads=64), "grid", "int32"),
+        ("long-node table, global form", long, lq0,
+         LONG_NODE_RUN["max_ticks"],
+         td._plan_over(lno, sms, lwin, smem_max=0), "global", "int32"))
+    err = 0
+    for label, inst, q, max_ticks, plan, form, path in cases:
+        args = (q, *inst.tensors, inst.ring_len, max_ticks)
+        delivered, scalars, ran = td._torcells_run_launch(
+            *args, tables=inst.tables, plan=plan)
+        kern = (delivered, scalars[0], scalars[1])
+        plain, plain_ms = _host_ms(lambda: td.torcells_run_torch(
+            *args, arr_lat=inst.tables.arr_lat))
+        e = _max_err(zip(kern, plain))
+        ticks = int(kern[1])
+        if e or ran.form != form or run_path(scalars) != path:
+            fail(f"torcells_run, {label}: kernel vs plain version "
+                 f"max_abs_err {e} in the {ran.form} form on the "
+                 f"{run_path(scalars)} path (want {form}, {path})")
+        if (ticks == max_ticks) != (max_ticks < full) \
+                or (q is odd and ticks % 2 == 0):
+            fail(f"torcells_run, {label}: {ticks} ticks of at most "
+                 f"{max_ticks}")
+        err = max(err, e)
+        print(f"torcells_run {label} (F {inst.n_flows}, H "
+              f"{len(inst.refill)}): kernel == plain version bit-exact "
+              f"(max_abs_err {e}), ticks {ticks}, forwards {int(kern[2])}, "
+              f"delivered {int(kern[0].sum())}; the {plan_summary(ran)}, "
+              f"{run_path(scalars)} path; plain {plain_ms:.1f} ms", flush=True)
+    return err
 
 
 def check_windows(tc, q0, cells: int, run_delivered, run_ticks,
@@ -2214,6 +2384,7 @@ def time_models(checked: dict, inputs: dict) -> dict:
     torcells_run at bench.py's sizes (CUDA events, one launch per
     interval), admit_sorted at each N by graph replay (launch-bound); the
     plain versions' times from the check."""
+    import torch
     from shadow_tpu_torch.ops import bandwidth as bw
     from shadow_tpu_torch.ops import phold_device as pd
     from shadow_tpu_torch.ops import saturate_device as sd
@@ -2250,18 +2421,30 @@ def time_models(checked: dict, inputs: dict) -> dict:
           f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']})", flush=True)
 
     tc, q0 = inputs["torcells_run"]
-    res, ms = _events_ms(lambda: td.torcells_run(
+    (_d, scalars, plan), ms = _events_ms(lambda: td._torcells_run_launch(
         q0, *tc.tensors, tc.ring_len, sizes["tc_max_ticks"],
         tables=tc.tables))
-    ticks = int(res[1])
+    ticks = int(scalars[0])
     row = {"ms": ms, "plain_ms": checked["torcells_run"]["plain_ms"],
-           "ticks": ticks, "us_per_tick": ms * 1e3 / ticks}
+           "ticks": ticks, "us_per_tick": ms * 1e3 / ticks,
+           "plan": plan_summary(plan)}
     row.update(torcells_run_bound(tc.n_flows, len(tc.refill), ticks))
+    # ten times the circuits (one block an SM)
+    wide, wq0 = inputs["torcells_run_wide"]
+    (_d, wscalars, wplan), row["wide_ms"] = _events_ms(
+        lambda: td._torcells_run_launch(wq0, *wide.tensors, wide.ring_len,
+                                        sizes["tc_max_ticks"],
+                                        tables=wide.tables))
+    row["wide_ticks"] = int(wscalars[0])
+    row["wide_plan"] = plan_summary(wplan)
     out["torcells_run"] = row
     print(f"torcells_run to completion: {ms:.3f} ms ({ticks} ticks, "
-          f"{row['us_per_tick']:.3f} us a tick), plain {row['plain_ms']:.1f}"
-          f" ms; bound {row['bound_ms'] * 1e3:.3f} us ({row['bound_by']})",
-          flush=True)
+          f"{row['us_per_tick']:.3f} us a tick; {row['plan']}); plain "
+          f"{row['plain_ms']:.1f} ms; bound {row['bound_ms'] * 1e3:.3f} us "
+          f"({row['bound_by']}); {RUN_WIDE['n_circuits']} circuits "
+          f"{row['wide_ms']:.3f} ms ({row['wide_ticks']} ticks, "
+          f"{row['wide_ms'] * 1e3 / row['wide_ticks']:.3f} us a tick; "
+          f"{row['wide_plan']})", flush=True)
 
     admit = {}
     for n in ADMIT_SIZES:
@@ -3016,12 +3199,22 @@ def main(argv=None) -> int:
         if traced["hop_kernels"] != traced["launches"]:
             fail(f"the trace holds {traced['hop_kernels']} packet_hop "
                  f"kernels for {traced['launches']} counted launches")
+        # a round is one kernel on its host-resident buffers: the only
+        # copies are the topology's two matrices, uploaded once
+        if traced["copies"] > TOR1K_SETUP_COPIES:
+            fail(f"the tor1k trace holds {traced['copies']} copies for "
+                 f"{traced['launches']} rounds (at most "
+                 f"{TOR1K_SETUP_COPIES}, the matrices' upload)")
+        traced["card_us_per_round"] = \
+            traced["busy_s"] * 1e6 / traced["launches"]
         print(f"tor1k tpu traced: wall {traced['wall_s']:.3f} s, card busy "
               f"{traced['busy_s']:.6f} s over {traced['device_events']} "
               f"device intervals, idle share {traced['idle_share']:.6f}; "
               f"packet_hop {traced['hop_kernels']} kernels, "
               f"{traced['hop_kernel_s']:.6f} s, mean "
-              f"{traced['hop_kernel_mean_us']:.3f} us", flush=True)
+              f"{traced['hop_kernel_mean_us']:.3f} us; copies "
+              f"{traced['copies']} ({traced['copy_s']:.6f} s); card time a "
+              f"round {traced['card_us_per_round']:.3f} us", flush=True)
     if "tor1k-matrix" in want:
         phase("slice: tor1k under tpu with --tpu-devices 4 "
               "--tpu-shard-matrix on cuda")
@@ -3048,7 +3241,9 @@ def main(argv=None) -> int:
                  f"for {tr['hop_launches']} counted launches")
         print(f"tor10k traced: wall {tr['wall_s']:.3f} s, card busy "
               f"{tr['busy_s']:.6f} s, idle share {tr['idle_share']:.6f}, "
-              f"copies {tr['copy_s']:.6f} s; span {tr['span_kernels']} x "
+              f"copies {tr['copies']}, {tr['copy_s']:.6f} s "
+              f"({tr['copy_s'] / tr['busy_s']:.4f} of busy); span "
+              f"{tr['span_kernels']} x "
               f"{tr['span_kernel_mean_us']:.1f} us = "
               f"{tr['span_kernel_s']:.6f} s; pack {tr['pack_kernels']} x "
               f"{tr['pack_kernel_mean_us']:.2f} us; hop {tr['hop_kernels']}"
@@ -3165,6 +3360,9 @@ def main(argv=None) -> int:
     sweep_span = (sum(r["counts"]["span"] for r in ser) or None,
                   sum(r["span_ms"] for r in ser) or None)
     hop = get("hop_times", MAIN_B) or {}
+    hop_err = max((e for e in [res.get("hop_err")]
+                   + [r["err"] for r in (res.get("hop_times") or {}).values()]
+                   if e is not None), default=None)
     span = get("torcells_times", "span") or {}
     pack = get("torcells_times", "pack") or {}
     fleet = get("fleet_times", max(FLEET_WIDTHS)) or {}
@@ -3173,9 +3371,13 @@ def main(argv=None) -> int:
          "source": "shadow_tpu_torch/ops/csrc/packet_hop.cu",
          "replaces": "shadow_tpu/ops/round_step.py:97",
          "launches": get("tor1k_tpu", "launches"),
-         "max_abs_err": res.get("hop_err"), "ms": hop.get("kernel_ms"),
-         "plain_ms": hop.get("plain_ms"), "bound_ms": hop.get("bound_ms"),
-         "bound_by": hop.get("bound_by"), "library_ms": None},
+         "max_abs_err": hop_err,
+         "ms": hop.get("kernel_ms"), "plain_ms": hop.get("plain_ms"),
+         "bound_ms": hop.get("bound_ms"), "bound_by": hop.get("bound_by"),
+         "library_ms": None,
+         "ms_device_operands": hop.get("device_operands_ms"),
+         "roundtrip_ms": hop.get("roundtrip_ms"),
+         "card_us_per_round": get("tor1k_traced", "card_us_per_round")},
         {"name": "torcells_span", "route": "cuda",
          "source": "shadow_tpu_torch/ops/csrc/torcells_span.cu",
          "replaces": "shadow_tpu/ops/torcells_device.py:428",
@@ -3235,6 +3437,10 @@ def main(argv=None) -> int:
             "max_abs_err": err, "ms": row.get("ms"),
             "plain_ms": row.get("plain_ms"), "bound_ms": row.get("bound_ms"),
             "bound_by": row.get("bound_by"), "library_ms": None})
+    run_row = mt.get("torcells_run") or {}
+    kernels[-2].update(plan=run_row.get("plan"),
+                       wide_ms=run_row.get("wide_ms"),
+                       wide_plan=run_row.get("wide_plan"))
     # phold's plain version runs to 3 s (the kernel's ms is to 30 s, the
     # main path's horizon; its time to 3 s is model_times' ms_3s)
     kernels[-4]["plain_horizon_s"] = (mt.get("phold") or {}).get(

@@ -291,8 +291,10 @@ __device__ __forceinline__ void span_tile(const Table& tb, int64_t w, int ti,
           cap_last = cap;
           tok_last = tok[k];
         }
+        // clip as JAX takes it: max(x, 0), then min(., q), q < 0 too
         int64_t v = cap - (run - q[k]);
-        v = v < 0 ? 0 : (v > q[k] ? q[k] : v);
+        v = v < 0 ? 0 : v;
+        v = v > q[k] ? q[k] : v;
         s[k] = v;
         queued[j] = q[k] - v;
         *forwards += v;

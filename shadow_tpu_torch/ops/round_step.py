@@ -23,18 +23,26 @@ Three layers, each testable on its own:
 * :func:`packet_hop_packed` — the wrapper: on CPU tensors it runs the plain
   version; on CUDA tensors it launches the hand-written kernel
   (csrc/packet_hop.cu) or raises.  It counts its launches.
+* :func:`packet_hop_mapped` — the main path's entry: the same kernel on a
+  round's own page-locked host buffers (:class:`MappedRound`), which the
+  card reads and writes over the host link, so a round is one launch and
+  one event with no copy.  It takes nothing else: a buffer that is not
+  page-locked host memory mapped into the card is refused by name, and
+  nothing falls back to copies or to the plain version.
 * :class:`PacketHopKernel` — owns the device-resident topology tensors, the
-  drop key, a CUDA stream and pinned host buffers; turns a round's numpy
-  columns into a launched, not yet materialized :class:`HopHandle`.
+  drop key, a CUDA stream and a pool of mapped round buffers; turns a
+  round's numpy columns into a launched, not yet materialized
+  :class:`HopHandle`.
 
 Batches are padded to power-of-two buckets (as in the JAX package, where
 each bucket is one compiled shape); the CUDA kernel compiles once for every
-size, so buckets here only bound the pinned-buffer pool.
+size, so buckets here only bound the buffer pool.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from typing import Dict, List, Optional, Tuple
 
@@ -107,11 +115,10 @@ def _launch_fn():
     return fn
 
 
-def _check_cuda_args(latency, reliability, packed) -> None:
-    dev = packed.device
+def _check_matrices(latency, reliability, dev) -> None:
     if latency.device != dev or reliability.device != dev:
-        raise ValueError("packet_hop: latency, reliability and packed must "
-                         f"be on one device, got {latency.device}, "
+        raise ValueError("packet_hop: latency, reliability and the batch "
+                         f"must be on one device, got {latency.device}, "
                          f"{reliability.device}, {dev}")
     if latency.dtype != torch.int64 or latency.dim() != 2 \
             or latency.shape[0] != latency.shape[1] or latency.shape[0] < 1:
@@ -122,16 +129,26 @@ def _check_cuda_args(latency, reliability, packed) -> None:
         raise ValueError("packet_hop: reliability must be float32 "
                          f"{tuple(latency.shape)}, got {reliability.dtype} "
                          f"{tuple(reliability.shape)}")
+    if latency.shape[0] >= 2 ** 31:
+        raise ValueError("packet_hop: A must fit in int32")
+    for name, t in (("latency", latency), ("reliability", reliability)):
+        if not t.is_contiguous():
+            raise ValueError(f"packet_hop: {name} must be contiguous")
+
+
+def _check_cuda_args(latency, reliability, packed) -> None:
+    _check_matrices(latency, reliability, packed.device)
     if packed.dtype != torch.int64 or packed.dim() != 2 \
             or packed.shape[1] != 3 or packed.shape[0] < 2:
         raise ValueError("packet_hop: packed must be int64 [1+B, 3], got "
                          f"{packed.dtype} {tuple(packed.shape)}")
-    if packed.shape[0] - 1 >= 2 ** 31 or latency.shape[0] >= 2 ** 31:
-        raise ValueError("packet_hop: B and A must fit in int32")
-    for name, t in (("latency", latency), ("reliability", reliability),
-                    ("packed", packed)):
-        if not t.is_contiguous():
-            raise ValueError(f"packet_hop: {name} must be contiguous")
+    if packed.shape[0] - 1 >= 2 ** 31:
+        raise ValueError("packet_hop: B must fit in int32")
+    if not packed.is_contiguous():
+        raise ValueError("packet_hop: packed must be contiguous")
+    if packed.data_ptr() % 16:
+        raise ValueError("packet_hop: packed must be 16-byte aligned (the "
+                         "kernel reads it in 16-byte words)")
 
 
 def packet_hop_packed(latency: torch.Tensor, reliability: torch.Tensor,
@@ -166,55 +183,161 @@ def packet_hop_packed(latency: torch.Tensor, reliability: torch.Tensor,
 
 packet_hop_packed.launches = 0
 
+_HOST_MEMORY = 1      # cudaMemoryTypeHost
+
+
+class MappedRound:
+    """One round's buffers in page-locked host memory that the card reads
+    and writes in place: ``packed`` int64 [1+b, 3] (the batch, see
+    :func:`packet_hop_packed_reference`), ``deliver`` int64 [b] and
+    ``keep`` bool [b], CPU tensors.  Checked once, here: each must be a
+    contiguous page-locked tensor (``packed`` 16-byte aligned) that ``cudaPointerGetAttributes`` reports
+    as host memory with a device pointer on ``device``; ``ptrs`` holds those
+    device pointers (not the host addresses) for the launches.  Anything
+    else is refused with a ValueError naming the buffer."""
+
+    __slots__ = ("packed", "deliver", "keep", "b", "device", "ptrs")
+
+    def __init__(self, packed: torch.Tensor, deliver: torch.Tensor,
+                 keep: torch.Tensor, device):
+        b = packed.shape[0] - 1 if packed.dim() == 2 else -1
+        named = (("packed", packed), ("deliver", deliver), ("keep", keep))
+        for (name, t), dtype, shape in zip(
+                named, (torch.int64, torch.int64, torch.bool),
+                ((1 + b, 3), (b,), (b,))):
+            if t.device.type != "cpu" or t.dtype != dtype \
+                    or tuple(t.shape) != shape or not t.is_contiguous():
+                raise ValueError(
+                    f"packet_hop_mapped: {name} must be a contiguous {dtype} "
+                    f"{shape} host tensor, got {t.dtype} {tuple(t.shape)} on "
+                    f"{t.device}")
+        for name, t in named:
+            if not t.is_pinned():
+                raise ValueError(f"packet_hop_mapped: {name} is not "
+                                 "page-locked host memory")
+        if packed.data_ptr() % 16:
+            raise ValueError("packet_hop_mapped: packed must be 16-byte "
+                             "aligned (the kernel reads it in 16-byte "
+                             "words)")
+        if not 1 <= b < 2 ** 31:
+            raise ValueError(f"packet_hop_mapped: B = {b} must be in "
+                             "[1, 2**31)")
+        self.device = torch.device(device)
+        if self.device.type != "cuda":
+            raise ValueError(f"packet_hop_mapped: buffers map into a CUDA "
+                             f"device, not {self.device}")
+        from ._build import entry
+        query = entry("packet_hop", "packet_hop_map_host",
+                      [_VP, ctypes.POINTER(ctypes.c_int),
+                       ctypes.POINTER(_VP)])
+        ptrs = []
+        with torch.cuda.device(self.device):
+            for name, t in named:
+                kind, ptr = ctypes.c_int(0), _VP(None)
+                rc = query(t.data_ptr(), ctypes.byref(kind),
+                           ctypes.byref(ptr))
+                if rc != 0:
+                    raise RuntimeError(f"packet_hop_mapped: "
+                                       f"cudaPointerGetAttributes failed on "
+                                       f"{name}: CUDA error {rc}")
+                if kind.value != _HOST_MEMORY or not ptr.value:
+                    raise ValueError(
+                        f"packet_hop_mapped: {name} is not page-locked host "
+                        f"memory mapped into {self.device} (memory type "
+                        f"{kind.value}, device pointer {ptr.value})")
+                ptrs.append(ptr.value)
+        self.packed, self.deliver, self.keep = packed, deliver, keep
+        self.b = b
+        self.ptrs = tuple(ptrs)
+
+    @classmethod
+    def allocate(cls, b: int, device) -> "MappedRound":
+        """Fresh page-locked buffers for a bucket of ``b`` lanes."""
+        return cls(torch.empty((1 + b, 3), dtype=torch.int64,
+                               pin_memory=True),
+                   torch.empty(b, dtype=torch.int64, pin_memory=True),
+                   torch.empty(b, dtype=torch.bool, pin_memory=True), device)
+
+
+def packet_hop_mapped(latency: torch.Tensor, reliability: torch.Tensor,
+                      bufs: MappedRound, key_lo: int, key_hi: int,
+                      bootstrap_end: int) -> None:
+    """The packet-hop step on a round held in host memory: csrc/packet_hop.cu
+    launched once on the current stream, reading ``bufs.packed`` and writing
+    ``bufs.deliver`` and ``bufs.keep`` in place over the host link (no
+    synchronisation; the caller waits on an event before it reads them).
+    The matrices are CUDA tensors on the device ``bufs`` is mapped into.
+    A refused launch raises.  Counts ``packet_hop_mapped.launches``."""
+    if not isinstance(bufs, MappedRound):
+        raise TypeError("packet_hop_mapped: the round's buffers must be a "
+                        f"MappedRound, got {type(bufs).__name__}")
+    if latency.device != bufs.device:
+        raise ValueError(f"packet_hop_mapped: the matrices are on "
+                         f"{latency.device}, the buffers mapped into "
+                         f"{bufs.device}")
+    _check_matrices(latency, reliability, latency.device)
+    packed, deliver, keep = bufs.ptrs
+    rc = _launch_fn()(
+        latency.data_ptr(), reliability.data_ptr(), latency.shape[0],
+        packed, bufs.b, int(key_lo) & _M32, int(key_hi) & _M32,
+        int(bootstrap_end), deliver, keep,
+        torch.cuda.current_stream(latency.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"packet_hop kernel launch failed: CUDA error "
+                           f"{rc} (B={bufs.b}, A={latency.shape[0]}, "
+                           "host-resident round)")
+    packet_hop_mapped.launches += 1
+
+
+packet_hop_mapped.launches = 0
+
 
 class HopHandle:
     """One launched chunk.  :meth:`wait` blocks until its results are on
     the host and returns exact-length numpy (deliver int64, keep bool)."""
 
-    __slots__ = ("_n", "_result", "_event", "_bufs", "_pool")
+    __slots__ = ("_n", "_result", "_event", "_outs", "_release")
 
-    def __init__(self, n: int, result=None, event=None, bufs=None,
-                 pool=None):
+    def __init__(self, n: int, result=None, event=None, outs=None,
+                 release=None):
         self._n = n
         self._result = result
         self._event = event
-        self._bufs = bufs
-        self._pool = pool
+        self._outs = outs
+        self._release = release
 
     def wait(self) -> Tuple[np.ndarray, np.ndarray]:
         if self._result is None:
             self._event.synchronize()
-            _packed, deliver, keep = self._bufs
+            deliver, keep = self._outs
             n = self._n
             self._result = (deliver.numpy()[:n].copy(),
                             keep.numpy()[:n].copy())
-            # only now may the next launch overwrite these pinned buffers
-            self._pool.release(self._bufs)
-            self._bufs = self._event = None
+            # only now may the next launch overwrite these buffers
+            self._release()
+            self._outs = self._event = self._release = None
         return self._result
 
 
 class _PinnedPool:
-    """Free lists of pinned host buffers (packed [1+b, 3], deliver [b],
-    keep [b]) per bucket size b.  A set is held by its HopHandle from launch
-    until its event has completed, so no chunk's input or output is
-    overwritten by a later chunk while the card may still use it."""
+    """Free lists of host buffer sets per bucket size b, each made by
+    ``make(b)``.  A set is held by its HopHandle from launch until its event
+    has completed, so no chunk's input or output is overwritten by a later
+    chunk while the card may still use it."""
 
-    def __init__(self):
+    def __init__(self, make):
+        self._make = make
         self._lock = threading.Lock()
-        self._free: Dict[int, List[tuple]] = {}
+        self._free: Dict[int, List] = {}
 
-    def acquire(self, b: int) -> tuple:
+    def acquire(self, b: int):
         with self._lock:
             free = self._free.get(b)
             if free:
                 return free.pop()
-        return (torch.empty((1 + b, 3), dtype=torch.int64, pin_memory=True),
-                torch.empty(b, dtype=torch.int64, pin_memory=True),
-                torch.empty(b, dtype=torch.bool, pin_memory=True))
+        return self._make(b)
 
-    def release(self, bufs: tuple) -> None:
-        b = bufs[1].shape[0]
+    def release(self, b: int, bufs) -> None:
         with self._lock:
             self._free.setdefault(b, []).append(bufs)
 
@@ -281,12 +404,17 @@ class PacketHopKernel:
         # distinct padded batch shapes seen (the engine heartbeat reports
         # it; here it sizes the pinned pool, the kernel compiles once)
         self.buckets_seen: set = set()
-        self.stream = None
+        self.stream = self._pool = None
         if self.device.type == "cuda":
             self.stream = torch.cuda.Stream(self.device)
             # the matrices were uploaded on the current stream
             self.stream.wait_stream(torch.cuda.current_stream(self.device))
-            self._pool = _PinnedPool()
+            self._pool = self._new_pool()
+
+    def _new_pool(self) -> _PinnedPool:
+        """The card's round buffers: :class:`MappedRound` sets."""
+        return _PinnedPool(
+            functools.partial(MappedRound.allocate, device=self.device))
 
     def _step_numpy(self, src_rows, dst_rows, uids, send_times,
                     barrier_ns: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -326,26 +454,28 @@ class PacketHopKernel:
     def launch(self, src_rows: np.ndarray, dst_rows: np.ndarray,
                uids: np.ndarray, send_times: np.ndarray,
                barrier_ns: int) -> HopHandle:
-        """Dispatch one chunk WITHOUT waiting for it: the packed batch goes
-        up from pinned memory on the kernel's own stream, the kernel runs,
-        deliver/keep come back into pinned memory, and an event marks the
-        end — all asynchronous.  The caller calls ``.wait()`` on the handle
+        """Dispatch one chunk WITHOUT waiting for it: the host writes the
+        packed batch into a pooled :class:`MappedRound`, the kernel reads
+        it and writes deliver/keep back in place over the host link on the
+        kernel's own stream, and an event marks the end — one launch and
+        one event, no copy.  The caller calls ``.wait()`` on the handle
         when it needs the values (the engine does so at the next round
-        boundary), so device work overlaps host-side work.  On the CPU
-        device, the plain version and the numpy bypass (DEVICE_THRESHOLD)
-        return finished handles with the same interface."""
+        boundary), so device work overlaps host-side work; the buffers go
+        back to the pool only then.  On the CPU device, the plain version
+        and the numpy bypass (DEVICE_THRESHOLD) return finished handles
+        with the same interface."""
         n = len(src_rows)
         if n == 0:
             return HopHandle(0, result=(np.empty(0, dtype=np.int64),
                                         np.empty(0, dtype=bool)))
-        if self.stream is None and n < self.DEVICE_THRESHOLD:
+        if self._pool is None and n < self.DEVICE_THRESHOLD:
             return HopHandle(n, result=self._step_numpy(
                 np.asarray(src_rows), np.asarray(dst_rows),
                 np.asarray(uids), np.asarray(send_times), barrier_ns))
         b = bucket_size(n)
         self.buckets_seen.add(b)
         self.device_calls += 1
-        if self.stream is None:
+        if self._pool is None:
             packed = torch.from_numpy(self._pack(src_rows, dst_rows, uids,
                                                  send_times, b, barrier_ns))
             deliver, keep = packet_hop_packed(
@@ -354,21 +484,27 @@ class PacketHopKernel:
             return HopHandle(n, result=(deliver.numpy()[:n],
                                         keep.numpy()[:n]))
         bufs = self._pool.acquire(b)
-        packed_pin, deliver_pin, keep_pin = bufs
+        # the pool hands out a set only after its last reader's event, and
+        # the batch is written before the launch that reads it
         self._pack(src_rows, dst_rows, uids, send_times, b, barrier_ns,
-                   out=packed_pin.numpy())
+                   out=bufs.packed.numpy())
+        return HopHandle(n, event=self._launch_round(bufs),
+                         outs=(bufs.deliver, bufs.keep),
+                         release=functools.partial(self._pool.release, b,
+                                                   bufs))
+
+    def _launch_round(self, bufs: MappedRound):
+        """The kernel on ``bufs`` on the kernel's stream, and the event
+        that marks its end."""
         # the launching thread names its device: worker threads launch
         # mid-round chunks (--tpu-chunk) under the policy's launch lock
         with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
-            packed_dev = packed_pin.to(self.device, non_blocking=True)
-            deliver, keep = packet_hop_packed(
-                self.latency, self.reliability, packed_dev, self.key_lo,
-                self.key_hi, self.bootstrap_end_ns)
-            deliver_pin.copy_(deliver, non_blocking=True)
-            keep_pin.copy_(keep, non_blocking=True)
+            packet_hop_mapped(self.latency, self.reliability, bufs,
+                              self.key_lo, self.key_hi,
+                              self.bootstrap_end_ns)
             event = torch.cuda.Event()
             event.record(self.stream)
-        return HopHandle(n, event=event, bufs=bufs, pool=self._pool)
+        return event
 
     def step(self, src_rows: np.ndarray, dst_rows: np.ndarray,
              uids: np.ndarray, send_times: np.ndarray,
@@ -577,15 +713,12 @@ class _ColumnPool(_PinnedPool):
 
     COL_BYTES = 8 + 4 * 4 + 1
 
-    def acquire(self, b: int) -> tuple:
-        with self._lock:
-            free = self._free.get(b)
-            if free:
-                return free.pop()
-        return (torch.empty(b * self.COL_BYTES, dtype=torch.uint8,
-                            pin_memory=True),
-                torch.empty(b, dtype=torch.int64, pin_memory=True),
-                torch.empty(b, dtype=torch.bool, pin_memory=True))
+    def __init__(self):
+        super().__init__(lambda b: (
+            torch.empty(b * self.COL_BYTES, dtype=torch.uint8,
+                        pin_memory=True),
+            torch.empty(b, dtype=torch.int64, pin_memory=True),
+            torch.empty(b, dtype=torch.bool, pin_memory=True)))
 
 
 def column_views(buf: torch.Tensor, b: int) -> tuple:
@@ -661,7 +794,10 @@ class ShardedPacketHopKernel(PacketHopKernel):
             self.rows = ShardRows([self.latency], [self.reliability], self.a)
         if self.stream is not None:
             self.stream.wait_stream(torch.cuda.current_stream(self.device))
-            self._cols = _ColumnPool()
+
+    def _new_pool(self) -> _PinnedPool:
+        """The columns' page-locked staging buffers, copied up and back."""
+        return _ColumnPool()
 
     def bucket(self, n: int) -> int:
         """The padded batch length: the power-of-two bucket, at least
@@ -708,7 +844,7 @@ class ShardedPacketHopKernel(PacketHopKernel):
         if n == 0:
             return HopHandle(0, result=(np.empty(0, dtype=np.int64),
                                         np.empty(0, dtype=bool)))
-        if self.stream is None and n < self.DEVICE_THRESHOLD:
+        if self._pool is None and n < self.DEVICE_THRESHOLD:
             # the same numpy bypass as the single-device kernel
             return HopHandle(n, result=self._step_numpy(
                 np.asarray(src_rows), np.asarray(dst_rows),
@@ -716,13 +852,13 @@ class ShardedPacketHopKernel(PacketHopKernel):
         b = self.bucket(n)
         self.buckets_seen.add(b)
         self.device_calls += 1
-        if self.stream is None:
+        if self._pool is None:
             cols = tuple(torch.from_numpy(c) for c in self.padded_batch(
                 src_rows, dst_rows, uids, send_times, b))
             deliver, keep = self._run(cols, barrier_ns)
             return HopHandle(n, result=(deliver.numpy()[:n],
                                         keep.numpy()[:n]))
-        bufs = self._cols.acquire(b)
+        bufs = self._pool.acquire(b)
         cols_pin, deliver_pin, keep_pin = bufs
         self.padded_batch(src_rows, dst_rows, uids, send_times, b,
                           out=column_views(cols_pin, b))
@@ -734,4 +870,6 @@ class ShardedPacketHopKernel(PacketHopKernel):
             keep_pin.copy_(keep, non_blocking=True)
             event = torch.cuda.Event()
             event.record(self.stream)
-        return HopHandle(n, event=event, bufs=bufs, pool=self._cols)
+        return HopHandle(n, event=event, outs=(deliver_pin, keep_pin),
+                         release=functools.partial(self._pool.release, b,
+                                                   bufs))

@@ -43,7 +43,7 @@ execution mode, and the plane's recovery drill replays on them.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -568,8 +568,8 @@ class SpanTables:
     flows; it reads a flow's arrival from a ring row other than the one the
     tick writes, which needs every arrival latency in [1, ring_len).  A
     table breaking either, or too large for the kernels' 32-bit offsets,
-    is refused here.  (``csrc/torcells_run.cu`` reads ``node_off`` and
-    ``arr_lat``.)"""
+    is refused here.  (``csrc/torcells_run.cu`` reads ``meta`` through
+    :class:`RunTables`.)"""
 
     __slots__ = ("arr_lat", "node_off", "meta", "tiles")
 
@@ -1203,26 +1203,158 @@ def torcells_run_torch(queued0, flow_node, flow_lat, flow_succ, seg_start,
     return delivered, torch.tensor(t, dtype=i64, device=dev), forwards
 
 
-_RUN_ARGTYPES = [_VP] * 11 + [_I64] * 4 + [_VP]
+# torcells_run.cu's launch forms (the state resident in shared memory, or
+# in device memory); a block's share of flows the size rule aims at (a
+# thread a flow: on an H100 the bench's 10,000 flows run 1.8 us a tick as
+# 63 blocks of ~160, against 3.5 as one block cluster of 16 and 5.3 of 8,
+# whose SMs each issue for 625 or 1,250 flows a tick); and what a block's
+# resident run costs in shared memory (a flow: its int4 table word, queued
+# and delivered; a node: tokens, cap_cells, refill and capacity) against
+# what a block may take (227 KB less a margin for the static scan slots)
+RUN_FORMS = ("grid", "global")
+RUN_MAX_THREADS = 1024
+RUN_BLOCK_FLOWS = 160
+RUN_FLOW_BYTES = 16 + 8 + 8
+RUN_NODE_BYTES = 4 * 8
+RUN_SMEM_MAX = 227 * 1024 - 1024
+# the word of the launch's scalars that reads 1 when the run took the
+# int32 path
+RUN_PATH_WORD = 10
+
+
+class RunPlan(NamedTuple):
+    """How csrc/torcells_run.cu runs one table: its ``form`` (RUN_FORMS),
+    ``blocks`` int32 [G+1, 4] (row g: block g's first node and first flow;
+    row G: H and F), ``threads`` a block (a thread a flow), ``smem`` bytes
+    of dynamic shared memory a block, ``chunks``, the most chunks of
+    ``threads`` flows a block walks a tick, and ``per_sync``, the ticks
+    between two barriers (2 only with one chunk a block, on a table whose
+    :attr:`RunTables.window` is 2)."""
+    form: str
+    blocks: np.ndarray
+    threads: int
+    smem: int
+    chunks: int
+    per_sync: int
+
+
+def _cut_nodes(node_off: np.ndarray, g: int) -> np.ndarray:
+    """[g+1, 2] (first node, first flow) of ``g`` contiguous runs of whole
+    nodes of about F / g flows each (a run may be empty): run k starts at
+    the first node whose first flow is at or past k * F / g."""
+    h = len(node_off) - 1
+    f = int(node_off[-1])
+    first = np.searchsorted(node_off[:h], np.arange(g + 1) * f / g,
+                            side="left")
+    first[0], first[-1] = 0, h
+    first = np.maximum.accumulate(np.minimum(first, h))
+    return np.stack([first, node_off[first]], axis=1)
+
+
+def torcells_run_plan(node_off, n_sms: int, window: int = 1) -> RunPlan:
+    """The launch of csrc/torcells_run.cu for a table whose node n paces
+    flows ``node_off[n]:node_off[n+1]``, from its size alone: G =
+    min(ceil(F / RUN_BLOCK_FLOWS), n_sms) blocks (at most one a card's SM,
+    so all are resident), each a run of whole nodes.  ``window`` is the
+    table's :attr:`RunTables.window`.  See :func:`_plan_over`."""
+    f = int(np.asarray(node_off)[-1])
+    return _plan_over(node_off, min(max(1, -(-f // RUN_BLOCK_FLOWS)), n_sms),
+                      window)
+
+
+def _plan_over(node_off, g: int, window: int = 1,
+               max_threads: int = RUN_MAX_THREADS,
+               smem_max: int = RUN_SMEM_MAX) -> RunPlan:
+    """The launch over ``g`` runs of whole nodes, a thread for every flow
+    of the largest run (at most ``max_threads``, the run walked in chunks
+    beyond): the grid form, each block's run in its shared memory; where
+    the largest needs more than ``smem_max`` bytes, the global form, whose
+    blocks of ``max_threads`` keep the state in device memory.  ``window``
+    ticks run between two barriers when every block's run is one chunk.
+    (The tests force block counts, chunks and the global form through
+    ``g``, ``max_threads`` and ``smem_max``.)"""
+    node_off = np.asarray(node_off, dtype=np.int64)
+    rows = _cut_nodes(node_off, g)
+    nf = int(np.diff(rows[:, 1]).max())
+    nn = int(np.diff(rows[:, 0]).max())
+    smem = nf * RUN_FLOW_BYTES + nn * RUN_NODE_BYTES
+    threads = min(max_threads, max(32, -(-nf // 32) * 32))
+    form = "grid"
+    if smem > smem_max:
+        form, smem, threads = "global", 0, max_threads
+    blocks = np.zeros((len(rows), 4), dtype=np.int32)
+    blocks[:, :2] = rows
+    chunks = -(-nf // threads)
+    return RunPlan(form, blocks, threads, smem, chunks,
+                   window if chunks == 1 else 1)
+
+
+class RunTables(SpanTables):
+    """:class:`SpanTables` and what csrc/torcells_run.cu adds to them:
+    ``node_off_host`` (numpy), ``window``, the ticks the kernel may run
+    between two barriers (2 when every flow with a predecessor has its
+    arrival latency in [2, ring_len - 2]: a tick then reads no row the two
+    ticks write, nor one the other blocks write in them; else 1), and the
+    launch plan, made once a card (:meth:`plan`)."""
+
+    __slots__ = ("node_off_host", "window", "_plan")
+
+    def __init__(self, flow_node, flow_lat, flow_succ, seg_start,
+                 n_nodes: int, ring_len: int):
+        super().__init__(flow_node, flow_lat, flow_succ, seg_start, n_nodes,
+                         ring_len)
+        self.node_off_host = self.node_off.cpu().numpy()
+        succ = flow_succ.cpu().numpy()
+        fed = self.arr_lat.cpu().numpy()[succ[succ >= 0]]
+        self.window = 2 if fed.size == 0 or (
+            fed.min() >= 2 and fed.max() <= ring_len - 2) else 1
+        self._plan = None
+
+    def plan(self, n_sms: int) -> Tuple[RunPlan, torch.Tensor]:
+        """:func:`torcells_run_plan` of this table for a card of ``n_sms``
+        SMs, and its block table on the table's device."""
+        if self._plan is None or self._plan[0] != n_sms:
+            plan = torcells_run_plan(self.node_off_host, n_sms, self.window)
+            self._plan = (n_sms, plan, torch.as_tensor(
+                plan.blocks, device=self.meta.device))
+        return self._plan[1], self._plan[2]
+
+
+_RUN_ARGTYPES = ([_VP] * 11 + [_I64] * 2 + [ctypes.c_int] * 6 + [_VP])
 
 
 def torcells_run(queued0, flow_node, flow_lat, flow_succ, seg_start, refill,
                  capacity, ring_len: int, max_ticks,
-                 tables: Optional[SpanTables] = None):
+                 tables: Optional[RunTables] = None):
     """Run the cell model until every cell is delivered or ``max_ticks``
     (the JAX package's ``torcells_run`` argument list, every operand int64).
-    On CPU tensors the plain version; on CUDA tensors one cooperative launch
-    of csrc/torcells_run.cu on the current stream, no synchronisation,
-    counted in ``torcells_run.launches``; ``tables`` (a :class:`SpanTables`
-    of this flow table) saves re-deriving and re-checking it.  Returns
-    (delivered int64 [F], ticks, forwards), the last two 0-d int64 tensors
-    on the operands' device."""
-    dev = queued0.device
-    if dev.type == "cpu":
+    On CPU tensors the plain version; on CUDA tensors one persistent launch
+    of csrc/torcells_run.cu on the current stream, no synchronisation, in
+    the form the table's size gives (:meth:`RunTables.plan`).  ``tables``
+    (a :class:`RunTables` of this flow table) saves re-deriving and
+    re-checking it.  Returns (delivered int64 [F], ticks, forwards), the
+    last two 0-d int64 tensors on the operands' device."""
+    if queued0.device.type == "cpu":
         return torcells_run_torch(
             queued0, flow_node, flow_lat, flow_succ, seg_start, refill,
             capacity, ring_len, max_ticks,
             arr_lat=None if tables is None else tables.arr_lat)
+    delivered, scalars, _plan = _torcells_run_launch(
+        queued0, flow_node, flow_lat, flow_succ, seg_start, refill, capacity,
+        ring_len, max_ticks, tables)
+    return delivered, scalars[0], scalars[1]
+
+
+def _torcells_run_launch(queued0, flow_node, flow_lat, flow_succ, seg_start,
+                         refill, capacity, ring_len: int, max_ticks,
+                         tables: Optional[RunTables] = None,
+                         plan: Optional[RunPlan] = None):
+    """The launch behind :func:`torcells_run` on CUDA tensors, counted in
+    ``torcells_run.launches``, in the form of ``plan`` (by default the
+    table's own; the tests and the smoke pass others).  Returns (delivered,
+    the launch's int64 scalars: [0] ticks, [1] forwards,
+    [RUN_PATH_WORD] 1 on the int32 path; the plan launched)."""
+    dev = queued0.device
     if dev.type != "cuda":
         raise ValueError(f"torcells_run: unsupported device {dev}")
     f = queued0.shape[0]
@@ -1240,27 +1372,45 @@ def torcells_run(queued0, flow_node, flow_lat, flow_succ, seg_start, refill,
         raise ValueError(f"torcells_run: needs F >= 1 and H >= 1, got F={f}, "
                          f"H={h}")
     if tables is None:
-        tables = SpanTables(flow_node, flow_lat, flow_succ, seg_start, h,
-                            ring_len)
-    queued = torch.empty(f, dtype=i64, device=dev)
+        tables = RunTables(flow_node, flow_lat, flow_succ, seg_start, h,
+                           ring_len)
+    if plan is None:
+        plan, blocks = tables.plan(
+            torch.cuda.get_device_properties(dev).multi_processor_count)
+    else:
+        if plan.form not in RUN_FORMS or plan.blocks[-1, 0] != h \
+                or plan.blocks[-1, 1] != f or plan.per_sync > tables.window \
+                or (plan.per_sync > 1 and plan.chunks > 1):
+            raise ValueError(f"torcells_run: a {plan.form!r} plan over "
+                             f"{tuple(plan.blocks[-1, :2])} of "
+                             f"{plan.per_sync} ticks a barrier and "
+                             f"{plan.chunks} chunks for H={h}, F={f} "
+                             f"(window {tables.window})")
+        blocks = torch.as_tensor(plan.blocks, device=dev)
     ring = torch.empty((ring_len, f), dtype=i64, device=dev)
-    tokens = torch.empty(h, dtype=i64, device=dev)
     delivered = torch.empty(f, dtype=i64, device=dev)
-    # [0] ticks, [1] forwards, [2] the cells queued, [3:6] the per-tick
-    # delivered sums; the kernel adds into them
-    scalars = torch.zeros(6, dtype=i64, device=dev)
+    state = [torch.empty(n, dtype=i64, device=dev) for n in (f, h, h)] \
+        if plan.form == "global" else [None] * 3
+    # [0] ticks, [1] forwards, [2] the cells queued, [3] the flows queued
+    # below zero, [4:10] the per-tick delivered sums, [10] 1 on the int32
+    # path; the kernel adds into them
+    scalars = torch.zeros(11, dtype=i64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _bound("torcells_run", "torcells_run_launch", _RUN_ARGTYPES)(
-        queued0.data_ptr(), tables.node_off.data_ptr(),
-        tables.arr_lat.data_ptr(), flow_succ.data_ptr(), refill.data_ptr(),
-        capacity.data_ptr(), queued.data_ptr(), ring.data_ptr(),
-        tokens.data_ptr(), delivered.data_ptr(), scalars.data_ptr(), f, h,
-        int(ring_len), int(max_ticks), stream)
+        queued0.data_ptr(), tables.meta.data_ptr(), blocks.data_ptr(),
+        refill.data_ptr(), capacity.data_ptr(), ring.data_ptr(),
+        delivered.data_ptr(),
+        *(None if x is None else x.data_ptr() for x in state),
+        scalars.data_ptr(), f, int(max_ticks), int(ring_len),
+        RUN_FORMS.index(plan.form), len(plan.blocks) - 1, plan.threads,
+        plan.smem, plan.per_sync, stream)
     if rc != 0:
         raise RuntimeError(f"torcells_run kernel launch failed: CUDA error "
-                           f"{rc} (F={f}, H={h}, L={ring_len})")
+                           f"{rc} (F={f}, H={h}, L={ring_len}, form "
+                           f"{plan.form}, {len(plan.blocks) - 1} blocks of "
+                           f"{plan.threads} threads, {plan.smem} B shared)")
     torcells_run.launches += 1
-    return delivered, scalars[0], scalars[1]
+    return delivered, scalars, plan
 
 
 torcells_run.launches = 0
@@ -1365,7 +1515,7 @@ class DeviceTorCells:
         self.tensors = tuple(torch.as_tensor(a, device=self.device) for a in (
             fl["flow_node"], fl["flow_lat"], fl["flow_succ"], fl["seg_start"],
             self.refill, self.capacity))
-        self.tables = SpanTables(*self.tensors[:4], h, self.ring_len)
+        self.tables = RunTables(*self.tensors[:4], h, self.ring_len)
 
     def _args(self, cells_per_circuit: int):
         fl = self.flows

@@ -98,6 +98,51 @@ def test_many_pending_launches_keep_their_buffers(dev):
         np.testing.assert_array_equal(k, nk)
 
 
+@pytest.mark.parametrize("b,n", [(1, 1), (256, 200), (257, 257),
+                                 (512, 448), (8192, 8000)])
+def test_kernel_on_a_host_resident_round_bit_exact(dev, b, n):
+    kern, packed, _cols = _case(b, n, seed=3 * b + n, device=dev)
+    bufs = rs.MappedRound.allocate(b, dev)
+    for round_ in range(2):               # fresh, then reused buffers
+        if round_:
+            _k, packed, _c = _case(b, n, seed=b + 7, device=dev)
+        bufs.packed.copy_(packed.cpu())
+        before = rs.packet_hop_mapped.launches
+        rs.packet_hop_mapped(kern.latency, kern.reliability, bufs,
+                             kern.key_lo, kern.key_hi, kern.bootstrap_end_ns)
+        assert rs.packet_hop_mapped.launches == before + 1
+        torch.cuda.synchronize()
+        rd, rk = rs.packet_hop_packed_reference(
+            kern.latency, kern.reliability, packed, kern.key_lo,
+            kern.key_hi, kern.bootstrap_end_ns)
+        assert torch.equal(bufs.deliver, rd.cpu())
+        assert torch.equal(bufs.keep, rk.cpu())
+
+
+def test_mapped_round_refuses_unmapped_buffers_by_name(dev):
+    b = 256
+    pinned = dict(packed=torch.empty((1 + b, 3), dtype=torch.int64,
+                                     pin_memory=True),
+                  deliver=torch.empty(b, dtype=torch.int64, pin_memory=True),
+                  keep=torch.empty(b, dtype=torch.bool, pin_memory=True))
+    rs.MappedRound(**pinned, device=dev)
+    for name in ("deliver", "keep"):
+        t = pinned[name]
+        args = dict(pinned, **{name: torch.empty(t.shape, dtype=t.dtype)})
+        with pytest.raises(ValueError, match=f"{name} is not page-locked"):
+            rs.MappedRound(**args, device=dev)
+    # page-locked, but 8 bytes off the kernel's 16-byte reads
+    flat = torch.empty(3 * (1 + b) + 1, dtype=torch.int64, pin_memory=True)
+    args = dict(pinned, packed=flat[1:].view(1 + b, 3))
+    with pytest.raises(ValueError, match="packed must be 16-byte aligned"):
+        rs.MappedRound(**args, device=dev)
+    kern, _packed, _cols = _case(256, 10, seed=1, device=dev)
+    with pytest.raises(TypeError, match="MappedRound"):
+        rs.packet_hop_mapped(kern.latency, kern.reliability,
+                             tuple(pinned.values()), kern.key_lo,
+                             kern.key_hi, kern.bootstrap_end_ns)
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
     kern, packed, _cols = _case(256, 10, seed=1, device=dev)
     good = (kern.latency, kern.reliability, packed)
@@ -109,6 +154,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
         (kern.latency, kern.reliability, packed[:, :2]),
         (kern.latency.t(), kern.reliability, packed),
         (kern.latency.cpu(), kern.reliability, packed),
+        # contiguous, but 8 bytes off the kernel's 16-byte reads
+        (kern.latency, kern.reliability, torch.cat(
+            [packed.new_zeros(1), packed.flatten()])[1:].view(packed.shape)),
     ]
     for args in bad:
         with pytest.raises(ValueError):
@@ -139,12 +187,14 @@ def test_small_tor_on_card_equals_cpu_run(dev, extra):
         return (state_digest(e), e.events_executed, e.rounds_executed,
                 kern.device_calls, kern.host_calls)
 
-    before = rs.packet_hop_packed.launches
+    before = (rs.packet_hop_mapped.launches, rs.packet_hop_packed.launches)
     card = run("cuda")
-    launched = rs.packet_hop_packed.launches - before
+    launched = rs.packet_hop_mapped.launches - before[0]
     cpu = run("cpu")
     assert card == cpu
+    # every round on its host-resident buffers, none on device operands
     assert launched == card[3] > 0 and card[4] == 0
+    assert rs.packet_hop_packed.launches == before[1]
 
 
 @pytest.mark.parametrize("seed,idle,caps", [(0, 0, None), (1, 4, None),
@@ -172,6 +222,37 @@ def test_torcells_kernels_bit_exact_vs_plain_versions(dev, seed, idle, caps):
     for a, b in zip(got, want):
         assert a.device == dev and a.dtype == b.dtype
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("targets", [[501], 500 + 3 * np.arange(1, 9)],
+                         ids=["one tick", "eight boundaries"])
+def test_torcells_span_kernel_with_a_queue_below_zero(dev, targets):
+    """csrc/span_tile.cuh clips served as JAX does, max(., 0) then
+    min(., q): a flow queued at -100 behind 10^6 cells of its node is
+    served -100 (its queue 0 after one tick), as in the plain version."""
+    from shadow_tpu_torch.ops import torcells_device as td
+    from test_torch_torcells_cases import random_state, toy_instance
+    inst = toy_instance()
+    node_off = np.searchsorted(inst["tables"][0], np.arange(inst["h"] + 1))
+    node = int(np.argmax(np.diff(node_off)))
+    a, b = node_off[node], node_off[node] + 1
+    st = list(random_state(inst, 5))
+    st[1] = st[1].copy()
+    st[1][a], st[1][b] = 10 ** 6, -100
+    zero = torch.zeros(inst["f"], dtype=torch.int64, device=dev)
+    targets = np.asarray(targets, dtype=np.int64)
+    kw = dict(ring_len=inst["ring_len"])
+    state, tables = td.from_jax_state(tuple(st), inst["tables"], dev)
+    got = td.torcells_step_window_flush(*state, zero, zero, targets, 0,
+                                        *tables, **kw)
+    state, tables = td.from_jax_state(tuple(st), inst["tables"], dev)
+    want = td.torcells_step_window_flush_reference(
+        *state, zero, zero, targets, 0, *tables, **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    if len(targets) == 1:
+        assert int(got[1][b]) == 0
 
 
 @pytest.mark.parametrize("table", [(800, 4, 2.0), (2000, 150, 1.2)],
@@ -326,6 +407,66 @@ def test_torcells_run_kernel_bit_exact_vs_plain_version(dev):
     d, t, f = tc.run_numpy(40, 40_000)
     np.testing.assert_array_equal(got[0].cpu().numpy(), d)
     assert (int(got[1]), int(got[2])) == (t, f)
+
+
+@pytest.mark.parametrize("opts,form", [
+    (None, "grid"), (dict(g=1), "grid"), (dict(g=8, max_threads=32), "grid"),
+    (dict(g=16, max_threads=64), "grid"),
+    (dict(g=8, smem_max=0, max_threads=64), "global")])
+@pytest.mark.parametrize("below_zero", [False, True])
+def test_torcells_run_kernel_bit_exact_in_each_form(dev, opts, form,
+                                                     below_zero):
+    """The long-node table (~1,000 flows a node) by the size rule, in one
+    block, in chunks of 32 and 64 flows, and in the global form."""
+    from shadow_tpu_torch.ops import torcells_device as td
+    tc = td.DeviceTorCells(n_relays=4, n_circuits=800, seed=41,
+                           device="cuda")
+    plan = None if opts is None else td._plan_over(
+        tc.tables.node_off_host, window=tc.tables.window, **opts)
+    q0 = torch.as_tensor(tc._args(2)[0], device=dev)
+    if below_zero:                        # the int64 path
+        q0[::9] -= 1
+    for max_ticks in (200, 40_000):       # a cut, then to completion
+        delivered, scalars, ran = td._torcells_run_launch(
+            q0, *tc.tensors, tc.ring_len, max_ticks, tables=tc.tables,
+            plan=plan)
+        assert ran.form == form and (plan is None or ran is plan)
+        assert int(scalars[td.RUN_PATH_WORD]) == (not below_zero)
+        want = td.torcells_run_torch(q0, *tc.tensors, tc.ring_len,
+                                     max_ticks)
+        for a, b in zip((delivered, scalars[0], scalars[1]), want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("window", [1, 2])
+def test_torcells_run_ends_on_an_odd_tick_in_either_window(dev, window):
+    from shadow_tpu_torch.ops import torcells_device as td
+    tc = td.DeviceTorCells(n_relays=20, n_circuits=60, seed=3,
+                           relay_bw_kibps=512, device="cuda")
+    assert tc.tables.window == 2
+    plan = td._plan_over(tc.tables.node_off_host, 13, window)
+    assert plan.per_sync == window
+    q0 = torch.as_tensor(tc._args(41)[0], device=dev)   # 795 ticks
+    delivered, scalars, _plan = td._torcells_run_launch(
+        q0, *tc.tensors, tc.ring_len, 40_000, tables=tc.tables, plan=plan)
+    want = td.torcells_run_torch(q0, *tc.tensors, tc.ring_len, 40_000)
+    assert int(scalars[0]) == 795
+    for a, b in zip((delivered, scalars[0], scalars[1]), want):
+        assert torch.equal(a, b)
+
+
+def test_a_refused_torcells_run_launch_raises(dev):
+    from shadow_tpu_torch.ops import torcells_device as td
+    tc = td.DeviceTorCells(n_relays=20, n_circuits=60, seed=3,
+                           relay_bw_kibps=512, device="cuda")
+    q0 = torch.as_tensor(tc._args(40)[0], device=dev)
+    # 1,000 blocks of 1,024 threads: more than any card holds at once, so
+    # the cooperative launch is refused
+    too_big = td._plan_over(tc.tables.node_off_host, 1000, 1)._replace(
+        threads=1024)
+    with pytest.raises(RuntimeError, match="torcells_run kernel launch"):
+        td._torcells_run_launch(q0, *tc.tensors, tc.ring_len, 100,
+                                tables=tc.tables, plan=too_big)
 
 
 def test_torcells_step_window_kernel_bit_exact_vs_plain_version(dev):
@@ -570,12 +711,13 @@ def test_device_clients_on_the_mesh_on_card_equal_cpu_run(dev):
     from shadow_tpu_torch.parallel.mesh import exchange as ex
     counts = (ex.mesh_span.launches, ex.mesh_pack_flush.launches,
               td.torcells_span.launches, rs.packet_hop_sharded.launches,
-              rs.packet_hop_packed.launches)
+              rs.packet_hop_packed.launches + rs.packet_hop_mapped.launches)
     card = _run_device_tor("cuda", tpu_devices=8)
     launched = [a - b for a, b in zip(
         (ex.mesh_span.launches, ex.mesh_pack_flush.launches,
          td.torcells_span.launches, rs.packet_hop_sharded.launches,
-         rs.packet_hop_packed.launches), counts)]
+         rs.packet_hop_packed.launches + rs.packet_hop_mapped.launches),
+        counts)]
     cpu = _run_device_tor("cpu", tpu_devices=8)
     for key in ("digest", "events", "rounds", "forwards", "completed",
                 "dispatches", "mesh"):

@@ -353,6 +353,42 @@ def test_tile_restatement_matches_plain_and_jax(case, geometry):
     assert got[8] > 0 and got[0] > 500
 
 
+@pytest.mark.parametrize("geometry", TILE_GEOMETRY,
+                         ids=lambda g: "x".join(map(str, g)))
+def test_tile_restatement_with_a_queue_below_zero(inst, geometry):
+    """A flow whose queue is below zero behind more cells than its node's
+    cap: served is min(max(cap - before, 0), q) = q, as JAX clips (the
+    other order, max(min(., q), 0), would serve 0 and leave the queue
+    below zero); the restatement, the plain version and JAX agree over one
+    tick and over eight boundaries."""
+    threads, fpt, tile_flows = geometry
+    fn, fl, fs, ss, refill, cap, _last = inst["tables"]
+    f, h, lr = inst["f"], inst["h"], inst["ring_len"]
+    tab = ttd.SpanTables(*(torch.from_numpy(a) for a in (fn, fl, fs, ss)),
+                         h, lr)
+    node_off, meta, tiles = ttd.span_tile_tables(
+        fn, tab.arr_lat.numpy(), fs, ss, h, lr, tile_flows)
+    node = int(np.argmax(np.diff(node_off)))
+    a, b = node_off[node], node_off[node] + 1
+    assert ss[b] == ss[a]                   # one segment: a is ahead of b
+    st = list(random_state(inst, 5))
+    st[1] = st[1].copy()
+    st[1][a], st[1][b] = 10 ** 6, -100      # no ring cell lifts b to 0
+    st = tuple(st)
+    inj, inj_t = injection(inst, np.array([], dtype=np.int64), 0)
+    for targets in ([501], 500 + 3 * np.arange(1, 9)):
+        targets = np.asarray(targets, dtype=np.int64)
+        got = tile_kernel_span(st, inj, inj_t, targets, 0, refill, cap,
+                               node_off, meta, tiles, lr, threads, fpt)
+        jout = step_all(inst, st, inj, inj_t, targets)
+        for i, name in enumerate(NAMES[:9]):
+            np.testing.assert_array_equal(np.asarray(got[i]),
+                                          np.asarray(jout[i]), err_msg=name)
+        if len(targets) == 1:
+            assert int(got[1][b]) == 0      # served the whole -q
+    assert int(got[1][a]) > 0
+
+
 def test_kernel_cell_size_matches_the_model():
     """The span kernels' tick body (csrc/span_tile.cuh) compiles in the
     wire size of a cell, its chunk and its meta flags; they must be the
