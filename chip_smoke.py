@@ -86,10 +86,22 @@ result line:
     ``torcells_step_window`` (split windows and an idle fold, through
     ``torcells_span``), ``admit_sorted`` (N in {256, 8,192,
     65,536} over 2,050 hosts, and a batch with invalid lanes inside it):
-    each bit-exact against its plain torch version on the card;
+    each bit-exact against its plain torch version on the card; then
+    ``saturate_edge_cases`` (one launch mixing hosts on the kernel's 32-bit
+    and int64 paths, ranges at and past the ends, refill 0, capacity
+    under a packet, qcap 0 and -1, size 1 and past 2^31) and
+    ``admit_edge_cases`` (runs across tiles with invalid lanes at tile
+    edges, a whole tile invalid, packets past 2^31 bytes, arrivals past
+    2^62) and ``admit_carry_case`` (invalid lanes of other dsts inside
+    runs, where the port keeps a run's carry), each printing how many
+    hosts took saturate's 32-bit path and how many admission runs crossed
+    a tile;
 15. model times: each of those kernels at the main path's inputs (CUDA
-    events; graph replay for ``admit_sorted``) beside its bound;
-    ``torcells_run`` also at 20,000 circuits;
+    events; graph replay for ``admit_sorted``) beside its bound and, for
+    ``saturate`` and ``admit_sorted``, the serial chain's floor (the
+    slowest host's stepped ticks, the longest run's packets, times an
+    estimated dependent latency); ``torcells_run`` also at 20,000
+    circuits;
 16. the model workloads: ``tools/modelbench.py`` on cuda at bench.py's
     sizes, every count equal to the JAX package's (EXPECTED_MODELS), one
     launch of its kernel per device call;
@@ -133,8 +145,15 @@ Each trace (6, 8, 13, 17, M5) runs its slice between two marker kernels;
 the profiler at times drops the card's events at the start of its window,
 and a trace that lost a marker is taken again, at most three times in all.
 
-``--phases`` runs a subset (with no arguments it runs them all).  The line
-before the last is the card; the one before it the kernel table as JSON;
+``--phases`` runs a subset (with no arguments it runs them all).
+``--pairs-against DIR`` (DIR a checkout of another commit, such as a
+``git archive`` of the parent) builds DIR's ``csrc/saturate.cu`` and
+``csrc/admit_sorted.cu`` beside this tree's and times the two in turns,
+PAIRS pairs (``saturate`` by CUDA events at the bench shape,
+``admit_sorted`` by graph replay at each ADMIT_SIZES), after the build;
+it binds DIR's entry points with this tree's argument lists, so it first
+checks that both trees' ``extern "C"`` launch signatures are the same.
+The line before the last is the card; the one before it the kernel table as JSON;
 the last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX
 or of the JAX package.
 """
@@ -1952,6 +1971,14 @@ ADMIT_OPS_PER_LANE = 60
 PHOLD_OPS_PER_HOP = 170
 PHOLD_OPS_PER_MSG_WINDOW = 4
 MODEL_KERNELS = ("phold", "saturate", "torcells_run", "admit_sorted")
+# the serial chains' floors, estimated from the code (not measured): a
+# narrow saturate tick is ~12 dependent 32-bit add, compare and select
+# steps (~5 cycles each); an admit_sorted packet ~25 dependent steps (int64
+# compare and select, multiply-add, min, the reciprocal's multiply-high
+# and shifts); at the H100 SXM's top SM clock (NVIDIA's data sheet)
+SAT_TICK_CYCLES = 60
+ADMIT_PACKET_CYCLES = 130
+SM_CLOCK_HZ = 1.98e9
 
 
 def _card():
@@ -1972,6 +1999,12 @@ def phold_bound(h: int, m: int, hops: int, windows: int) -> dict:
     return _bound_row(8 * h * h + 2 * 12 * m + 16,
                       hops * PHOLD_OPS_PER_HOP
                       + windows * m * PHOLD_OPS_PER_MSG_WINDOW)
+
+
+def chain_floor_ms(steps: int, cycles: int) -> float:
+    """A serial chain's least time: ``steps`` dependent steps of
+    ``cycles`` each at the card's top SM clock (an estimate)."""
+    return steps * cycles / SM_CLOCK_HZ * 1e3
 
 
 def saturate_bound(h: int, ticks: int) -> dict:
@@ -2054,6 +2087,251 @@ def admit_case(n: int, seed: int, invalid: float = 0.0):
     return (d, pkt[order], arrive[order], valid, tok0, refill, cap), runs
 
 
+# csrc/saturate.cu: the narrow path's bound and the ticks between two
+# checks of the quiet exit; the edge cases' sizes
+SAT_NARROW = 1 << 31
+SAT_UNROLL = 4
+SAT_EDGE_HOSTS = 64
+ADMIT_EDGE_N = 8192       # past csrc/admit_sorted.cu LANES_MAX: the tiles
+
+
+def saturate_narrow(size: int, refill, cap, qcap: int, ticks: int):
+    """Which hosts csrc/saturate.cu steps on its 32-bit path (bool [H])."""
+    import numpy as np
+    refill = np.asarray(refill, dtype=np.int64)
+    cap = np.asarray(cap, dtype=np.int64)
+    ok = (cap >= 0) & (refill >= 0) & (cap < SAT_NARROW) \
+        & (refill < SAT_NARROW)
+    ok &= np.where(ok, cap + refill, SAT_NARROW) < SAT_NARROW
+    return ok & (size < SAT_NARROW) & (-1 <= qcap < SAT_NARROW - 1) \
+        & (ticks < SAT_NARROW)
+
+
+def saturate_steps(first, n_pkts, size: int, refill, cap, qcap: int,
+                   ticks: int):
+    """The ticks csrc/saturate.cu steps for each host: on the narrow path
+    from the clipped first tick a up to the quiet exit (a tick at or past
+    the clipped end b that starts with an empty queue, looked for every
+    SAT_UNROLL ticks from a, and every tick in the last SAT_UNROLL);
+    ``ticks`` on the int64 path.  Vectorised over the hosts; returns
+    (narrow bool [H], stepped int64 [H])."""
+    import numpy as np
+    first = np.asarray(first, dtype=np.int64)
+    last = (first.astype(np.uint64)
+            + np.asarray(n_pkts, dtype=np.int64).astype(np.uint64)) \
+        .astype(np.int64)
+    refill = np.asarray(refill, dtype=np.int64)
+    cap = np.asarray(cap, dtype=np.int64)
+    narrow = saturate_narrow(size, refill, cap, qcap, ticks)
+    end = max(int(ticks), 0)
+    a = np.clip(first, 0, end)
+    b = np.clip(last, a, end)
+    # the first tick of the last loop, which looks every tick
+    tail = np.where(a <= end - SAT_UNROLL,
+                    a + SAT_UNROLL * ((end - SAT_UNROLL - a) // SAT_UNROLL
+                                      + 1), a)
+    stop = np.full(first.shape, end, dtype=np.int64)
+    live = narrow.copy()
+    w, r = cap // size, cap % size
+    queue = np.zeros_like(first)
+    alive = np.zeros(first.shape, dtype=bool)
+    for t in range(end):
+        if not live.any():
+            break
+        look = live & (t >= a) & (((t - a) % SAT_UNROLL == 0) | (t >= tail))
+        quiet = look & (t >= b) & (queue == 0)
+        stop[quiet] = t
+        live &= ~quiet
+        on = live & (t >= a)
+        arr = on & (t < b)
+        queue += (arr & (queue < qcap + 1)).astype(np.int64)
+        n1 = np.where(on, np.minimum(queue, w), 0)
+        queue -= n1
+        w -= n1
+        tok = np.minimum(cap, w * size + r + refill)
+        ref = on & alive
+        w = np.where(ref, tok // size, w)
+        r = np.where(ref, tok % size, r)
+        n2 = np.where(on, np.minimum(queue, w), 0)
+        queue -= n2
+        w -= n2
+        alive = np.where(on, queue > 0, alive)
+    return narrow, np.where(narrow, stop - a, int(ticks))
+
+
+def saturate_edge_cases():
+    """Inputs at csrc/saturate.cu's edges, SAT_EDGE_HOSTS hosts each:
+    (name, first_tick, n_pkts, size, refill, capacity, qcap, ticks).  The
+    first rows are edge hosts (a range before 0, at or past ticks, empty
+    or wrapping; refill 0; capacity below size; refill at or above size;
+    a refill just under size; five hosts past the narrow bounds), the rest
+    drawn as bench.py draws its interfaces; the cases vary the scalars
+    (qcap 8, 0 and -1, size 1, size past 2^31, 0 ticks, a long run)."""
+    import numpy as np
+    from shadow_tpu_torch.ops.bandwidth import bucket_params
+    big = SAT_NARROW
+    rows = [  # (first, n, refill, capacity); T stands for ticks
+        (-50, 120, 700, 3000), (-500, 100, 700, 3000), ("T", 50, 700, 3000),
+        ("T+", 50, 700, 3000), (10, 0, 700, 3000), (10, -7, 700, 3000),
+        (1 << 62, 1 << 62, 700, 3000),           # first + n wraps
+        (0, 200, 0, 5000), (0, 200, 0, 0), (5, 100, 300, 500),
+        (5, 100, 0, 999), (0, 150, 1000, 3000), (3, 150, 2500, 8000),
+        (0, "2T", 999, 3000), (7, 60, 999, 1000), (0, 10, 700, 0),
+        (0, 300, big, 1000), (0, 300, 700, big), (0, 300, 1000, big - 500),
+        (0, 300, -5, 3000), (0, 300, 700, -1000)]
+    rng = np.random.default_rng(23)
+    cases = []
+    for name, size, qcap, ticks in (
+            ("edges", 1000, 8, 403), ("qcap 0", 1000, 0, 400),
+            ("qcap -1", 1000, -1, 400), ("size 1", 1, 8, 401),
+            ("size past 2^31", big, 8, 201), ("0 ticks", 1000, 8, 0),
+            ("long", 1000, 1024, 2002)):
+        first, npk, ref, cap = [], [], [], []
+        for f, n, rf, c in rows:
+            first.append({"T": ticks, "T+": ticks + 10}.get(f, f))
+            npk.append(2 * ticks if n == "2T" else n)
+            ref.append(rf)
+            cap.append(c)
+        m = SAT_EDGE_HOSTS - len(rows)
+        r_ref, r_cap = bucket_params(rng.integers(200, 4000, size=m))
+        first += list(rng.integers(-20, max(ticks, 1), size=m))
+        npk += list(rng.integers(0, max(ticks, 1), size=m))
+        ref += list(r_ref)
+        cap += list(r_cap)
+        cases.append((name, *(np.asarray(x, dtype=np.int64) for x in
+                              (first, npk)), size,
+                      *(np.asarray(x, dtype=np.int64) for x in (ref, cap)),
+                      qcap, ticks))
+    return cases
+
+
+def admit_edge_cases():
+    """Batches of ADMIT_EDGE_N lanes at csrc/admit_sorted.cu's edges, over
+    64 hosts: (name, (dst int32, sizes, arrive, valid, tokens0, refill,
+    capacity)).  Runs cross tiles (of the kernel's ADMIT_TILE lanes and of
+    smaller ones), with invalid lanes at every eighth lane's edges (every
+    tile's first and last lanes where the tile is a multiple of 8), a whole
+    tile invalid inside a run, one run over three tile
+    boundaries, an unsorted batch whose dsts come back, refill 0, packets
+    past 2^31 bytes, arrivals below 0 and past 2^62, padding at both ends,
+    one host, and no valid lane."""
+    import numpy as np
+    from shadow_tpu_torch.ops import bandwidth as bw
+    from shadow_tpu_torch.ops.bandwidth import REFILL_NS, bucket_params
+    n, h = ADMIT_EDGE_N, 64
+    rng = np.random.default_rng(29)
+    refill, cap = bucket_params(rng.integers(80, 2000, size=h))
+    tok0 = rng.integers(0, cap + 1).astype(np.int64)
+
+    def batch(dst, valid=None, sizes=None, arrive=None, sort=True,
+              ref=refill, capacity=cap):
+        dst = np.asarray(dst, dtype=np.int32)
+        sizes = rng.integers(60, 1501, size=n) if sizes is None else sizes
+        arrive = rng.integers(10 * REFILL_NS, 30 * REFILL_NS, size=n) \
+            if arrive is None else arrive
+        if sort:
+            order = np.lexsort((np.arange(n), arrive, dst))
+            dst, sizes, arrive = dst[order], sizes[order], arrive[order]
+        valid = np.ones(n, dtype=bool) if valid is None else valid
+        return (dst, np.asarray(sizes, dtype=np.int64),
+                np.asarray(arrive, dtype=np.int64), valid, tok0,
+                np.asarray(ref, dtype=np.int64),
+                np.asarray(capacity, dtype=np.int64))
+
+    lane = np.arange(n)
+    edges = (lane % 8 == 0) | (lane % 8 == 7)
+    cases = [("invalid at every tile's first and last lanes",
+              batch(rng.integers(0, 6, size=n),
+                    valid=~edges & (rng.random(n) >= 0.1)))]
+    whole = np.ones(n, dtype=bool)
+    whole[bw.ADMIT_TILE:2 * bw.ADMIT_TILE] = False
+    cases.append(("a whole tile invalid inside a run",
+                  batch(np.sort(rng.integers(0, 3, size=n)), valid=whole)))
+    three = np.where(lane < 1000, 5, np.where(lane < 3100, 9, 40))
+    cases.append(("one run over three tile boundaries", batch(three)))
+    # every lane valid, so that JAX's scan is the reference here: an
+    # invalid lane of another dst inside a run is admit_carry_case's
+    cases.append(("unsorted, dsts that come back",
+                  batch(rng.integers(0, 8, size=n), sort=False)))
+    cases.append(("refill 0", batch(rng.integers(0, 20, size=n),
+                                    ref=np.zeros(h, dtype=np.int64))))
+    sizes = rng.integers(60, 1501, size=n)
+    sizes[::97] = 5_000_000_000
+    sizes[5::89] = 3_000_000_000
+    small = cap.copy()
+    small[:4] = 100
+    cases.append(("packets past 2^31 bytes, caps under a packet",
+                  batch(rng.integers(0, 12, size=n), sizes=sizes,
+                        capacity=small)))
+    arrive = rng.integers(-40 * REFILL_NS, 30 * REFILL_NS, size=n)
+    arrive[rng.random(n) < 0.05] = (1 << 62) + rng.integers(0, 10 ** 9)
+    cases.append(("arrivals below 0 and past 2^62",
+                  batch(rng.integers(0, 16, size=n), arrive=arrive)))
+    pad = (lane >= 50) & (lane < n - 1500)
+    cases.append(("padding at both ends",
+                  batch(rng.integers(0, h, size=n), valid=pad)))
+    cases.append(("one host", batch(np.full(n, 7))))
+    cases.append(("no valid lane", batch(rng.integers(0, h, size=n),
+                                         valid=np.zeros(n, dtype=bool))))
+    return cases
+
+
+def admit_carry_case():
+    """An unsorted batch of ADMIT_EDGE_N lanes over 64 hosts whose runs hold
+    invalid lanes of other dsts (at every tile's first and last lanes and
+    at random inside runs): (name, (dst int32, sizes, arrive, valid,
+    tokens0, refill, capacity)).  The port keeps a run's carry across such
+    a lane, so each run's admits are those of the batch without its invalid
+    lanes; the JAX scan resets its tick, tokens and admit there (ROADMAP
+    C4).  A batch sorted by dst over every lane has no such lane."""
+    import numpy as np
+    from shadow_tpu_torch.ops import bandwidth as bw
+    from shadow_tpu_torch.ops.bandwidth import REFILL_NS, bucket_params
+    n, h = ADMIT_EDGE_N, 64
+    rng = np.random.default_rng(31)
+    refill, cap = bucket_params(rng.integers(80, 2000, size=h))
+    tok0 = rng.integers(0, cap + 1).astype(np.int64)
+    lengths = rng.integers(1, 400, size=n)
+    ends = np.cumsum(lengths)
+    lengths = lengths[:int(np.searchsorted(ends, n)) + 1]
+    # a run's dst differs from the one before it and comes back later
+    run_dst = np.zeros(len(lengths), dtype=np.int32)
+    for r in range(1, len(lengths)):
+        run_dst[r] = (run_dst[r - 1] + rng.integers(1, 8)) % 8
+    dst = np.repeat(run_dst, lengths)[:n]
+    arrive = np.sort(rng.integers(10 * REFILL_NS, 30 * REFILL_NS, size=n))
+    lane = np.arange(n)
+    valid = (rng.random(n) >= 0.1) & (lane % bw.ADMIT_TILE != 0) \
+        & (lane % bw.ADMIT_TILE != bw.ADMIT_TILE - 1)
+    other = (dst + rng.integers(1, h, size=n)) % h
+    dst = np.where(valid, dst, other).astype(np.int32)
+    return ("unsorted, invalid lanes of other dsts inside runs",
+            (dst, rng.integers(60, 1501, size=n).astype(np.int64),
+             arrive.astype(np.int64), valid, tok0,
+             refill.astype(np.int64), cap.astype(np.int64)))
+
+
+def admit_form(n: int) -> str:
+    """Which kernel of csrc/admit_sorted.cu a batch of ``n`` lanes takes."""
+    from shadow_tpu_torch.ops.bandwidth import ADMIT_LANES_MAX
+    return "lane kernel" if n <= ADMIT_LANES_MAX else "tiled kernel"
+
+
+def admit_runs(dst, valid, tile: int):
+    """The scan's host runs of a batch: (runs, runs with a valid lane in a
+    later tile than their opener's, the longest run's packets)."""
+    import numpy as np
+    vi = np.flatnonzero(valid)
+    if not vi.size:
+        return 0, 0, 0
+    d = np.asarray(dst)[vi]
+    opens = np.r_[True, d[1:] != d[:-1]]
+    run = np.cumsum(opens) - 1
+    first_tile = (vi[opens] // tile)[run]
+    crossed = np.unique(run[vi // tile != first_tile]).size
+    return int(opens.sum()), int(crossed), int(np.bincount(run).max())
+
+
 def check_models() -> dict:
     """Each model kernel against its plain torch version on the card, on the
     same inputs, bit-exact on every output, at bench.py's full widths:
@@ -2134,11 +2412,15 @@ def check_models() -> dict:
                        EXPECTED_MODELS["saturate_device_dropped_pkts"]):
         fail(f"saturate kernel vs plain version: max_abs_err {err}, "
              f"delivered/dropped {sums}")
-    out["saturate"] = {"err": err, "ms_check": ms, "plain_ms": plain_ms}
+    narrow = int(saturate_narrow(sat.size, sat.refill, sat.capacity,
+                                 sat.qcap_pkts, sizes["sat_ticks"]).sum())
+    out["saturate"] = {"err": err, "ms_check": ms, "plain_ms": plain_ms,
+                       "narrow_hosts": narrow}
     print(f"saturate 4096 x 30000 ticks: kernel == plain version bit-exact "
           f"on delivered, dropped, queue, tokens (max_abs_err {err}); "
-          f"delivered {sums[0]} dropped {sums[1]} == JAX; kernel {ms:.3f} "
-          f"ms, plain {plain_ms:.1f} ms", flush=True)
+          f"delivered {sums[0]} dropped {sums[1]} == JAX; {narrow} of "
+          f"{len(first)} hosts on the 32-bit path; kernel {ms:.3f} ms, "
+          f"plain {plain_ms:.1f} ms", flush=True)
 
     tc = td.DeviceTorCells(sizes["tc_relays"], sizes["tc_circuits"],
                            seed=sizes["tc_seed"],
@@ -2192,15 +2474,76 @@ def check_models() -> dict:
         if invalid and bool(kern.cpu().numpy()[~valid].any()):
             fail("admit_sorted wrote an invalid lane")
         key = f"{n}_invalid" if invalid else n
-        rows[key] = {"err": err, "runs": runs}
+        _r, crossed, longest = admit_runs(arrays[0], valid, bw.ADMIT_TILE)
+        rows[key] = {"err": err, "runs": runs, "crossed": crossed,
+                     "longest_run": longest}
         inputs["admit"][key] = targs
         print(f"admit_sorted N={n:6d} over {ADMIT_HOSTS} hosts"
-              f"{', a quarter of the lanes invalid' if invalid else ''}: "
+              f"{', a quarter of the lanes invalid' if invalid else ''} "
+              f"({admit_form(n)}): "
               f"kernel == plain version bit-exact (max_abs_err {err}), "
-              f"{runs} host runs, {int((kern > targs[2]).sum())} packets "
-              "delayed", flush=True)
+              f"{runs} host runs ({crossed} cross a tile of "
+              f"{bw.ADMIT_TILE}, the longest {longest} packets), "
+              f"{int((kern > targs[2]).sum())} packets delayed", flush=True)
     out["admit"] = rows
+    sat_err, rows["edges"] = check_model_edges()
+    out["saturate"]["err"] = max(out["saturate"]["err"], sat_err)
     return out, inputs
+
+
+def check_model_edges():
+    """saturate_edge_cases and admit_edge_cases on the card: each one
+    launch of its kernel, held bit-exact to its plain version.  Returns
+    (saturate's max error, admit_sorted's row)."""
+    import torch
+    from shadow_tpu_torch.ops import bandwidth as bw
+    from shadow_tpu_torch.ops import saturate_device as sd
+    dev = _card()
+    sat_err = 0
+    for name, first, npk, size, ref, cap, qcap, ticks in \
+            saturate_edge_cases():
+        args = (torch.as_tensor(first, device=dev),
+                torch.as_tensor(npk, device=dev), size,
+                torch.as_tensor(ref, device=dev),
+                torch.as_tensor(cap, device=dev), qcap, ticks)
+        before = sd.saturate_run.launches
+        kern = sd.saturate_run(*args)
+        if sd.saturate_run.launches != before + 1:
+            fail(f"saturate edge case {name!r}: not one launch")
+        err = _max_err(zip(kern, sd.saturate_run_torch(*args)))
+        if err:
+            fail(f"saturate edge case {name!r}: kernel vs plain version "
+                 f"max_abs_err {err}")
+        sat_err = max(sat_err, err)
+        narrow, stepped = saturate_steps(first, npk, size, ref, cap, qcap,
+                                         ticks)
+        print(f"saturate edge case {name!r} ({len(first)} hosts, size "
+              f"{size}, qcap {qcap}, {ticks} ticks): kernel == plain "
+              f"version bit-exact; {int(narrow.sum())} hosts on the 32-bit "
+              f"path, {int((~narrow).sum())} on int64; the slowest 32-bit "
+              f"host steps {int(stepped[narrow].max(initial=0))} ticks",
+              flush=True)
+    admit_err = crossed_all = 0
+    for name, arrays in [*admit_edge_cases(), admit_carry_case()]:
+        targs = tuple(torch.as_tensor(a, device=dev) for a in arrays)
+        before = bw.admit_sorted.launches
+        kern = bw.admit_sorted(*targs)
+        if bw.admit_sorted.launches != before + 1:
+            fail(f"admit_sorted edge case {name!r}: not one launch")
+        err = _max_err([(kern, bw.admit_sorted_torch(*targs))])
+        if err or bool(kern.cpu().numpy()[~arrays[3]].any()):
+            fail(f"admit_sorted edge case {name!r}: kernel vs plain "
+                 f"version max_abs_err {err}, or an invalid lane not 0")
+        admit_err = max(admit_err, err)
+        runs, crossed, longest = admit_runs(arrays[0], arrays[3],
+                                            bw.ADMIT_TILE)
+        crossed_all += crossed
+        print(f"admit_sorted edge case {name!r} (N {len(arrays[0])}, "
+              f"{admit_form(len(arrays[0]))}): "
+              f"kernel == plain version bit-exact; {runs} host runs, "
+              f"{crossed} cross a tile of {bw.ADMIT_TILE}, the longest "
+              f"{longest} packets", flush=True)
+    return sat_err, {"err": admit_err, "crossed": crossed_all}
 
 
 # torcells_run's other cases: ten times the bench's circuits (20 cells
@@ -2411,14 +2754,27 @@ def time_models(checked: dict, inputs: dict) -> dict:
           f"({row['bound_by']}, {row['bytes']} B, {row['ops']} ops)",
           flush=True)
 
-    _res, ms = _events_ms(lambda: sd.saturate_run(*inputs["saturate"]))
+    args = inputs["saturate"]
+    _res, ms = _events_ms(lambda: sd.saturate_run(*args))
     row = {"ms": ms, "plain_ms": checked["saturate"]["plain_ms"],
            "us_per_tick": ms * 1e3 / sizes["sat_ticks"]}
     row.update(saturate_bound(sizes["sat_ifs"], sizes["sat_ticks"]))
+    _narrow, stepped = saturate_steps(*(
+        a.cpu().numpy() if isinstance(a, torch.Tensor) else a for a in args))
+    row.update(stepped_max=int(stepped.max()),
+               stepped_median=float(statistics.median(stepped)),
+               chain_floor_ms=chain_floor_ms(int(stepped.max()),
+                                             SAT_TICK_CYCLES))
+    row["ns_per_stepped_tick"] = ms * 1e6 / row["stepped_max"]
     out["saturate"] = row
     print(f"saturate 4096 x 30000: {ms:.3f} ms ({row['us_per_tick']:.4f} us "
-          f"a tick), plain {row['plain_ms']:.1f} ms; bound "
-          f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']})", flush=True)
+          f"a tick; the slowest host steps {row['stepped_max']} ticks, the "
+          f"median {row['stepped_median']:g}: "
+          f"{row['ns_per_stepped_tick']:.2f} ns a stepped tick), plain "
+          f"{row['plain_ms']:.1f} ms; bound {row['bound_ms'] * 1e3:.3f} us "
+          f"({row['bound_by']}); chain floor "
+          f"{row['chain_floor_ms'] * 1e3:.1f} us (~{SAT_TICK_CYCLES} "
+          "cycles a tick, estimated)", flush=True)
 
     tc, q0 = inputs["torcells_run"]
     (_d, scalars, plan), ms = _events_ms(lambda: td._torcells_run_launch(
@@ -2452,13 +2808,162 @@ def time_models(checked: dict, inputs: dict) -> dict:
         targs = inputs["admit"][n]
         ms = graph_ms(lambda: bw.admit_sorted(*targs))
         _p, plain_ms = _events_ms(lambda: bw.admit_sorted_torch(*targs))
-        row = {"N": n, "ms": ms, "plain_ms": plain_ms, "runs": case["runs"]}
+        row = {"N": n, "ms": ms, "plain_ms": plain_ms, "runs": case["runs"],
+               "longest_run": case["longest_run"],
+               "chain_floor_ms": chain_floor_ms(case["longest_run"],
+                                                ADMIT_PACKET_CYCLES)}
         row.update(admit_bound(n, case["runs"]))
         admit[n] = row
-        print(f"admit_sorted N={n:6d}: {ms * 1e3:.2f} us (graph replay), "
+        print(f"admit_sorted N={n:6d} ({admit_form(n)}): {ms * 1e3:.2f} us "
+              "(graph replay), "
               f"plain {plain_ms:.2f} ms; bound {row['bound_ms'] * 1e3:.3f} "
-              f"us ({row['bound_by']}, {row['bytes']} B)", flush=True)
+              f"us ({row['bound_by']}, {row['bytes']} B); chain floor "
+              f"{row['chain_floor_ms'] * 1e3:.3f} us (the longest run's "
+              f"{row['longest_run']} packets x ~{ADMIT_PACKET_CYCLES} "
+              "cycles, estimated)", flush=True)
     out["admit"] = admit
+    return out
+
+
+# --pairs-against: the kernels timed against another checkout's, in turns
+PAIRS = 5
+PAIR_KERNELS = ("saturate", "admit_sorted")
+
+
+def launch_signature(src: str, name: str) -> str | None:
+    """The parameter list of ``extern "C" int <name>_launch(...)`` in the
+    CUDA source text ``src``, whitespace collapsed (None if it has none)."""
+    import re
+    m = re.search(r'extern\s+"C"\s+int\s+' + name + r'_launch\s*\(([^)]*)\)',
+                  src)
+    return " ".join(m.group(1).split()) if m else None
+
+
+def _tree_libs(roots: dict) -> dict:
+    """Each PAIR_KERNELS source of each checkout in ``roots`` ({tag: root})
+    built with _build's nvcc flags into build/pairs-<tag>/, all at once,
+    and loaded: {tag: {name: CDLL}}.  The launchers bind every tree's entry
+    points with this tree's argument lists, so each source's launch
+    signature must be this tree's, word for word, or the run fails."""
+    import ctypes
+    from shadow_tpu_torch.ops import _build
+    jobs = {}
+    for tag, root in roots.items():
+        for name in PAIR_KERNELS:
+            src = os.path.join(root, "shadow_tpu_torch", "ops", "csrc",
+                               f"{name}.cu")
+            mine = os.path.join(HERE, "shadow_tpu_torch", "ops", "csrc",
+                                f"{name}.cu")
+            with open(src) as f, open(mine) as g:
+                theirs, ours = (launch_signature(t.read(), name)
+                                for t in (f, g))
+            if theirs is None or theirs != ours:
+                fail(f"pairs: the {tag} tree's {name}_launch signature "
+                     f"({theirs}) is not this tree's ({ours})")
+            lib = os.path.join(_build.BUILD_DIR, f"pairs-{tag}",
+                               f"lib{name}.so")
+            os.makedirs(os.path.dirname(lib), exist_ok=True)
+            jobs[tag, name] = (lib, subprocess.Popen(
+                [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", lib, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {tag: {} for tag in roots}
+    for (tag, name), (lib, proc) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            fail(f"nvcc failed for the {tag} tree's {name}.cu:\n{log}")
+        regs = [ln.strip() for ln in log.splitlines()
+                if "registers" in ln or "spill" in ln]
+        print(f"{tag} {name}.cu: " + "; ".join(regs), flush=True)
+        libs[tag][name] = ctypes.CDLL(lib)
+    return libs
+
+
+def _launchers(libs: dict) -> tuple:
+    """(saturate, admit_sorted) callables on a checkout's libraries, with
+    the wrappers' argument lists and outputs."""
+    import ctypes
+    import torch
+    from shadow_tpu_torch.ops import bandwidth as bw
+    from shadow_tpu_torch.ops import saturate_device as sd
+    sat = libs["saturate"].saturate_launch
+    sat.argtypes, sat.restype = sd._ARGTYPES, ctypes.c_int
+    adm = libs["admit_sorted"].admit_sorted_launch
+    adm.argtypes, adm.restype = bw._ARGTYPES, ctypes.c_int
+
+    def saturate(first, npk, size, refill, cap, qcap, ticks):
+        outs = [torch.empty_like(first) for _ in range(4)]
+        rc = sat(first.data_ptr(), npk.data_ptr(), refill.data_ptr(),
+                 cap.data_ptr(), first.shape[0], size, qcap, ticks,
+                 *(o.data_ptr() for o in outs),
+                 torch.cuda.current_stream().cuda_stream)
+        if rc:
+            fail(f"saturate launch failed: CUDA error {rc}")
+        return outs
+
+    def admit(dst, sizes, arrive, valid, tok0, refill, cap):
+        out = torch.empty_like(sizes)
+        rc = adm(dst.data_ptr(), sizes.data_ptr(), arrive.data_ptr(),
+                 valid.data_ptr(), tok0.data_ptr(), refill.data_ptr(),
+                 cap.data_ptr(), sizes.shape[0], refill.shape[0],
+                 out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if rc:
+            fail(f"admit_sorted launch failed: CUDA error {rc}")
+        return out
+
+    return saturate, admit
+
+
+def run_pairs(other: str) -> dict:
+    """This tree's saturate.cu and admit_sorted.cu against ``other``'s (a
+    checkout, such as the parent's), in turns: PAIRS pairs, the order
+    alternating (other, this, this, other, ...); saturate by CUDA events
+    at the bench shape, admit_sorted by graph replay at each ADMIT_SIZES;
+    the two trees' outputs first held equal."""
+    import torch
+    from shadow_tpu_torch.ops import saturate_device as sd
+    from shadow_tpu_torch.tools import modelbench as mb
+    dev = _card()
+    run = {tag: _launchers(libs) for tag, libs in
+           _tree_libs({"other": other, "this": HERE}).items()}
+    sizes = mb.FULL
+    bwv, first, npk = mb.saturate_flows(sizes)
+    sat = sd.DeviceSaturate(bwv)
+    sargs = (torch.as_tensor(first, device=dev),
+             torch.as_tensor(npk, device=dev), sat.size, sat._refill,
+             sat._capacity, sat.qcap_pkts, sizes["sat_ticks"])
+    aargs = {n: tuple(torch.as_tensor(a, device=dev)
+                      for a in admit_case(n, seed=n)[0])
+             for n in ADMIT_SIZES}
+    err = _max_err(zip(run["other"][0](*sargs), run["this"][0](*sargs)))
+    for n, a in aargs.items():
+        err = max(err, _max_err([(run["other"][1](*a), run["this"][1](*a))]))
+    if err:
+        fail(f"pairs: the two trees' kernels differ (max_abs_err {err})")
+    times = {tag: {"saturate": []} | {n: [] for n in ADMIT_SIZES}
+             for tag in run}
+    for i in range(PAIRS):
+        for tag in (("other", "this") if i % 2 == 0 else ("this", "other")):
+            sat_fn, adm_fn = run[tag]
+            times[tag]["saturate"].append(
+                _events_ms(lambda: sat_fn(*sargs), 2)[1])
+            for n, a in aargs.items():
+                times[tag][n].append(graph_ms(lambda: adm_fn(*a)))
+    out = {}
+    for key in ["saturate", *ADMIT_SIZES]:
+        mine = statistics.median(times["this"][key])
+        theirs = statistics.median(times["other"][key])
+        out[key] = {"this_ms": times["this"][key],
+                    "other_ms": times["other"][key], "this_median_ms": mine,
+                    "other_median_ms": theirs, "ratio": mine / theirs}
+        unit, scale = ("ms", 1) if key == "saturate" else ("us", 1e3)
+        label = "saturate 4096 x 30000" if key == "saturate" else \
+            f"admit_sorted N={key}"
+        print(f"pairs {label}: this " + ", ".join(
+            f"{t * scale:.3f}" for t in times["this"][key])
+            + f" {unit}; other " + ", ".join(
+                f"{t * scale:.3f}" for t in times["other"][key])
+            + f" {unit}; medians {mine * scale:.3f} / {theirs * scale:.3f} "
+            f"= {mine / theirs:.3f}x", flush=True)
     return out
 
 
@@ -3116,6 +3621,10 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES)
                     + " (default: all)")
+    ap.add_argument("--pairs-against", default=None, metavar="DIR",
+                    help="time saturate.cu and admit_sorted.cu against "
+                    "those of the checkout at DIR, in turns (after the "
+                    "build)")
     args = ap.parse_args(argv)
     want = set(args.phases.split(","))
     if not want <= set(PHASES):
@@ -3134,6 +3643,10 @@ def main(argv=None) -> int:
     if "build" in want:
         phase("build")
         build()
+    if args.pairs_against:
+        phase(f"pairs: saturate and admit_sorted against "
+              f"{args.pairs_against}, {PAIRS} pairs in turns")
+        res["pairs"] = run_pairs(os.path.abspath(args.pairs_against))
     plane = None
     if want & {"kernels", "times", "mesh-kernels", "mesh-times"}:
         t0 = time.perf_counter()

@@ -16,7 +16,9 @@ every host at once over a batch sorted by (dst_row, arrival, order), so
 each host's packets form a contiguous FIFO run.  On CPU tensors it runs the
 plain torch version :func:`admit_sorted_torch`; on CUDA tensors one launch
 of the hand-written kernel ``csrc/admit_sorted.cu`` (one thread per host
-run), counted in ``admit_sorted.launches``.  :class:`BandwidthKernel` sorts
+run: a block a tile of ADMIT_TILE lanes staged in shared memory, or, for a
+batch of at most ADMIT_LANES_MAX lanes, a thread a lane), counted in
+``admit_sorted.launches``.  :class:`BandwidthKernel` sorts
 and pads a batch on the host, as the JAX class does.  The engine does not
 use this kernel (the interface's self-suspending refill task also refills
 the send bucket, so receive-side pacing decided ahead of time would not
@@ -37,6 +39,8 @@ from ..device import resolve_device
 from ._build import check_tensor, entry
 
 REFILL_NS = 1000000   # == defs.INTERFACE_REFILL_INTERVAL_NS (1 ms)
+ADMIT_TILE = 768      # csrc/admit_sorted.cu TILE: the lanes a block owns
+ADMIT_LANES_MAX = 4096  # csrc/admit_sorted.cu LANES_MAX: above, the tiles
 
 
 def bucket_params(rate_kibps: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -66,7 +70,11 @@ def admit_sorted_torch(dst_rows: torch.Tensor, sizes: torch.Tensor,
     lane whose dst differs from the previous VALID lane's (invalid lanes
     output 0 and leave the carry alone).  The runs between resets are
     independent, so the loop steps every run at once, one position a step.
-    Returns int64 [N].  Pure."""
+    The contract is the JAX function's: dst_rows sorted over every lane,
+    invalid lanes included.  There the two agree bit for bit.  Where an
+    invalid lane of another dst sits inside a run (only an unsorted batch
+    has one), JAX's scan resets its tick, tokens and admit at that lane and
+    this keeps them (ROADMAP C4).  Returns int64 [N].  Pure."""
     dev = sizes.device
     n = sizes.shape[0]
     h = refill.shape[0]
@@ -122,7 +130,10 @@ def admit_sorted(dst_rows: torch.Tensor, sizes: torch.Tensor,
     """FIFO token-bucket admission times for a dst-sorted batch (the JAX
     package's ``admit_sorted`` argument list: dst_rows int32 [N], sizes and
     arrive int64 [N], valid bool [N], tokens0 / refill / capacity int64
-    [H]; every valid dst_row in [0, H)).  On CPU tensors the plain version;
+    [H]; every valid dst_row in [0, H); dst_rows sorted over every lane,
+    invalid lanes included, as :func:`admit_sorted_torch` says, which is
+    also what it computes off that contract).  On CPU tensors the plain
+    version;
     on CUDA tensors one launch of csrc/admit_sorted.cu on the current
     stream, no synchronisation, counted in ``admit_sorted.launches``.
     Returns int64 [N] admission times (0 on invalid lanes)."""

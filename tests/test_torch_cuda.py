@@ -14,12 +14,15 @@ instead of demoting it.
 The mesh's kernels (mesh_span, the mesh flush, the sharded hop in both
 layouts) are held the same way, and the small tor config on D shards of the
 card equals its CPU run, with every dispatch through the mesh kernels.
+The model kernels are held on small instances and, for saturate and
+admit_sorted, on chip_smoke.py's edge cases.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from shadow_tpu_torch.ops import round_step as rs
 
 pytestmark = pytest.mark.cuda
@@ -514,6 +517,45 @@ def test_admit_sorted_kernel_bit_exact_vs_plain_version(dev, n_hosts, n,
     tok0 = rng.integers(0, cap + 1).astype(np.int64)
     args = tuple(torch.as_tensor(a, device=dev) for a in
                  (dst, sizes, arrive, valid, tok0, refill, cap))
+    before = bw.admit_sorted.launches
+    got = bw.admit_sorted(*args)
+    assert bw.admit_sorted.launches == before + 1
+    assert torch.equal(got, bw.admit_sorted_torch(*args))
+    assert not got[~args[3]].any()
+
+
+@pytest.mark.parametrize("case", chip_smoke.saturate_edge_cases(),
+                         ids=lambda c: c[0])
+def test_saturate_kernel_bit_exact_on_edge_cases(dev, case):
+    """chip_smoke.py's saturate_edge_cases, one launch each: the "edges"
+    case mixes hosts on the kernel's 32-bit and int64 paths in one warp."""
+    from shadow_tpu_torch.ops import saturate_device as sd
+    name, first, npk, size, ref, cap, qcap, ticks = case
+    narrow = chip_smoke.saturate_narrow(size, ref, cap, qcap, ticks)
+    if name == "edges":
+        assert narrow[:32].any() and not narrow[:32].all()
+    args = (torch.as_tensor(first, device=dev),
+            torch.as_tensor(npk, device=dev), size,
+            torch.as_tensor(ref, device=dev),
+            torch.as_tensor(cap, device=dev), qcap, ticks)
+    before = sd.saturate_run.launches
+    got = sd.saturate_run(*args)
+    assert sd.saturate_run.launches == before + 1
+    for a, b in zip(got, sd.saturate_run_torch(*args)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", [*chip_smoke.admit_edge_cases(),
+                                  chip_smoke.admit_carry_case()],
+                         ids=lambda c: c[0])
+def test_admit_sorted_kernel_bit_exact_on_edge_cases(dev, case):
+    """chip_smoke.py's admit_edge_cases and admit_carry_case, one launch
+    each: runs across the kernel's tiles with invalid lanes at tile edges,
+    a whole tile invalid, packets and arrivals past the 32-bit path's
+    bounds, invalid lanes of other dsts inside runs."""
+    from shadow_tpu_torch.ops import bandwidth as bw
+    name, arrays = case
+    args = tuple(torch.as_tensor(a, device=dev) for a in arrays)
     before = bw.admit_sorted.launches
     got = bw.admit_sorted(*args)
     assert bw.admit_sorted.launches == before + 1
