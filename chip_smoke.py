@@ -92,8 +92,9 @@ result line:
     under a packet, qcap 0 and -1, size 1 and past 2^31) and
     ``admit_edge_cases`` (runs across tiles with invalid lanes at tile
     edges, a whole tile invalid, packets past 2^31 bytes, arrivals past
-    2^62) and ``admit_carry_case`` (invalid lanes of other dsts inside
-    runs, where the port keeps a run's carry), each printing how many
+    2^62) and ``admit_carry_cases`` (invalid lanes of other dsts inside
+    runs, where JAX's scan reloads a run's carry, on the tiled and the
+    lane kernel), each printing how many
     hosts took saturate's 32-bit path and how many admission runs crossed
     a tile;
 15. model times: each of those kernels at the main path's inputs (CUDA
@@ -108,6 +109,28 @@ result line:
 17. the model workloads under ``torch.profiler`` (without the engine twin,
     which launches no kernel): one kernel of each kind per counted launch,
     the card's busy time and idle share.
+
+The native tier (after 8; artifacts built from ``native/`` into
+``shadow_tpu_torch/native/`` in the build phase, beside nvcc):
+
+N1. native: tor1k under ``global`` with ``--dataplane=native`` (the C data
+    plane, its round executor, the C retransmit tally) and with
+    ``--dataplane=python``, each equal to EXPECTED; tor10k under ``global``
+    on the C plane (its cells on the card: one ``torcells_span`` and one
+    ``pack_flush`` launch per dispatch, the wakes into the C event heap),
+    equal to EXPECTED10K in digest, events, completed flows and forwards;
+    the walls beside the ``tpu`` runs' (5 and 7 also print which data
+    plane the ``auto`` global run took);
+N2. procs: tor1k with ``--processes 2`` under ``tpu`` on cuda (each shard
+    its own CUDA context, its hops through ``packet_hop``: the shards'
+    device and launches ride their metrics scrape to the parent's
+    summary) and under ``global`` (C-plane shards), and a shard killed at
+    round PROCS_DRILL_ROUND and resurrected under ``tpu``: each equal to
+    EXPECTED;
+N3. plugins: tests/native_src/testapp.c compiled with ``cc``; a two-host
+    ``exec:`` TCP transfer and six pooled UDP pairs (``pool:``) under
+    ``global`` and ``tpu`` on cuda, every binary exiting 0, equal to
+    EXPECTED_PLUGINS, the ``tpu`` hops through ``packet_hop``.
 
 The mesh (D shards on one card; run in this order among the phases above:
 mesh kernels and times after 4, the tor1k matrix slice after 6, the tor10k
@@ -237,16 +260,43 @@ def card() -> str:
 
 
 def build() -> None:
+    """The CUDA kernels (one nvcc each, in parallel) and, beside them, the
+    native tier's artifacts from native/ (utils/native_build.py)."""
+    import threading
     from shadow_tpu_torch.ops import _build
+    native = {}
     t0 = time.perf_counter()
+    thread = threading.Thread(target=lambda: native.update(build_native()))
+    thread.start()
     res = _build.build()
     print(f"built {', '.join(res)} in {time.perf_counter() - t0:.2f} s "
           "(one nvcc each, in parallel)")
+    thread.join()
+    if "error" in native:
+        fail(f"native build: {native['error']}")
+    print(f"native tier built in {native['seconds']:.2f} s beside them: "
+          f"{', '.join(native['artifacts'])} in {native['dir']}", flush=True)
     for name, r in res.items():
         print(f"{name}: {r['seconds']:.2f} s")
         for ln in r["log"].splitlines():
             if "registers" in ln or "spill" in ln or "Compiling" in ln:
                 print(f"  {ln.strip()}")
+
+
+def build_native() -> dict:
+    """Build the C data plane, the retransmit tally, the preload shim and
+    the pool helper into shadow_tpu_torch/native/."""
+    from shadow_tpu_torch.utils import native_build as nb
+    t0 = time.perf_counter()
+    names = ("_shadow_dataplane.so", "libshadow_tally.so",
+             *nb.PLUGIN_ARTIFACTS)
+    try:
+        for name in names:
+            nb.ensure(name)
+    except nb.NativeBuildError as e:
+        return {"error": str(e)}
+    return {"seconds": time.perf_counter() - t0, "artifacts": names,
+            "dir": nb.NATIVE_DIR}
 
 
 def make_inputs(b: int, seed: int, device):
@@ -1017,18 +1067,21 @@ def busy_intervals(prof) -> dict:
     return out
 
 
-def run_slice(policy: str, trace: bool = False) -> dict:
+def run_slice(policy: str, trace: bool = False,
+              dataplane: str = "auto") -> dict:
     import torch
     from shadow_tpu_torch.core.checkpoint import state_digest
     from shadow_tpu_torch.core.controller import Controller
     from shadow_tpu_torch.core.logger import SimLogger, set_logger
     from shadow_tpu_torch.core.options import Options
+    from shadow_tpu_torch.descriptor.retransmit_tally import make_tally
     from shadow_tpu_torch.ops import round_step as rs
     # 3,000 app log lines per run would bury the phases
     set_logger(SimLogger(level="warning"))
     cfg = tor1k_config()
     opts = Options(scheduler_policy=policy, device="cuda", seed=TOR1K["seed"],
-                   stop_time_sec=int(cfg.stop_time_sec), log_level="warning")
+                   stop_time_sec=int(cfg.stop_time_sec), log_level="warning",
+                   dataplane=dataplane)
     ctl = Controller(opts, cfg)
     rs.packet_hop_mapped.launches = rs.packet_hop_packed.launches = 0
     with card_trace(trace) as prof:
@@ -1044,12 +1097,18 @@ def run_slice(policy: str, trace: bool = False) -> dict:
     eng = ctl.engine
     pol = eng.scheduler.policy
     kern = getattr(pol, "_kernel", None)
+    tally = make_tally()
+    tally.close()
     out = {"policy": policy, "rc": rc, "hosts": len(eng.hosts),
            "digest": state_digest(eng), "events": eng.events_executed,
            "rounds": eng.rounds_executed,
            "drops": eng.counters._new.get("packet_drop", 0),
            "wall_s": wall, "events_per_s": eng.events_executed / wall,
-           "launches": launches}
+           "launches": launches, "dataplane": dataplane,
+           "plane": "C" if eng.native_plane is not None else "python",
+           "scheduler": type(pol).__name__,
+           "round_windows": getattr(pol, "round_windows", None),
+           "tally": type(tally).__name__}
     if kern is not None:
         out.update(device_calls=kern.device_calls, host_calls=kern.host_calls,
                    packets_batched=pol.packets_batched,
@@ -1087,9 +1146,11 @@ def check_slice(tpu: dict, glob: dict) -> None:
           "== global == JAX", flush=True)
 
 
-def run_tor10k(trace: bool = False) -> dict:
+def run_tor10k(trace: bool = False, policy: str = "tpu",
+               dataplane: str = "auto") -> dict:
     """The tor10k slice through Controller.run on cuda, with every kernel
     count set to 0 just before it and read just after."""
+    import dataclasses
     import torch
     from shadow_tpu_torch.core.checkpoint import state_digest
     from shadow_tpu_torch.core.controller import Controller
@@ -1097,7 +1158,9 @@ def run_tor10k(trace: bool = False) -> dict:
     from shadow_tpu_torch.ops import round_step as rs
     from shadow_tpu_torch.ops import torcells_device as td
     set_logger(SimLogger(level="warning"))
-    ctl = Controller(tor10k_options(), tor10k_config())
+    ctl = Controller(dataclasses.replace(
+        tor10k_options(), scheduler_policy=policy, dataplane=dataplane),
+        tor10k_config())
     td.torcells_span.launches = 0
     td.pack_flush.launches = 0
     rs.packet_hop_mapped.launches = rs.packet_hop_packed.launches = 0
@@ -1114,8 +1177,10 @@ def run_tor10k(trace: bool = False) -> dict:
     eng = ctl.engine
     plane = eng.device_plane
     st = plane.stats()
-    kern = eng.scheduler.policy._kernel
-    out = {"slice": "tor10k", "rc": rc, "hosts": len(eng.hosts),
+    kern = getattr(eng.scheduler.policy, "_kernel", None)
+    out = {"slice": "tor10k", "policy": policy, "rc": rc,
+           "hosts": len(eng.hosts),
+           "plane": "C" if eng.native_plane is not None else "python",
            "digest": state_digest(eng), "events": eng.events_executed,
            "rounds": eng.rounds_executed, "completed": st["completed"],
            "forwards": st["forwards"], "dispatches": st["dispatches"],
@@ -1124,7 +1189,8 @@ def run_tor10k(trace: bool = False) -> dict:
            "mode": st["mode"], "recoveries": st["recoveries"],
            "demoted": st["demoted"], "span_launches": span_l,
            "pack_launches": pack_l, "hop_launches": hop_l,
-           "hop_calls": kern.device_calls, "host_calls": kern.host_calls,
+           "hop_calls": kern.device_calls if kern else 0,
+           "host_calls": kern.host_calls if kern else 0,
            "flows": plane.n_flows, "chains": plane.n_chains,
            "nodes": plane.n_nodes, "ring_len": plane.ring_len,
            "wall_s": wall, "host_exec_s": eng.host_exec_ns * 1e-9,
@@ -1132,7 +1198,7 @@ def run_tor10k(trace: bool = False) -> dict:
            "plane_host_s": st["plane_host_sec"],
            "plane_collect_s": st["plane_device_sec"],
            "pipeline_overlap_s": st["pipeline_overlap_sec"],
-           "hop_device_ns": eng.scheduler.policy.device_ns,
+           "hop_device_ns": getattr(eng.scheduler.policy, "device_ns", 0),
            "events_per_s": eng.events_executed / wall}
     if trace:
         out.update(busy_intervals(prof))
@@ -1162,6 +1228,253 @@ def check_tor10k(run: dict) -> None:
           f"{run['dispatches']} dispatches = {run['span_launches']} span + "
           f"{run['pack_launches']} pack launches, {run['hop_launches']} hop "
           "launches", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# The native tier: the C data plane (parallel/native_plane.py), the
+# retransmit tally, --processes N shards (parallel/procs.py) and native
+# plugins (process/native.py), all over artifacts built from native/ into
+# shadow_tpu_torch/native/ (utils/native_build.py)
+# ---------------------------------------------------------------------------
+
+# the resurrection drill: shard 1 of 2 hard-exits at this round of the
+# tor1k tpu run, is respawned and replayed to the barrier
+PROCS_DRILL_ROUND = 400
+SLICE_KEYS = ("digest", "events", "rounds", "drops")
+
+
+def run_native(tpu10k) -> dict:
+    """tor1k under global on the C data plane and on the Python plane, and
+    tor10k under global on the C plane (its cells still on the card
+    through torcells_span + pack_flush, its wakes into the C event heap):
+    each held to the JAX package's constants."""
+    out = {}
+    for plane in ("native", "python"):
+        r = out[f"tor1k_{plane}"] = run_slice("global", dataplane=plane)
+        for key in SLICE_KEYS:
+            if r[key] != EXPECTED[key]:
+                fail(f"tor1k global --dataplane={plane}: {key} {r[key]} != "
+                     f"JAX run's {EXPECTED[key]}")
+        if r["rc"] != 0 or r["launches"] != 0:
+            fail(f"tor1k global --dataplane={plane}: rc {r['rc']}, "
+                 f"{r['launches']} hop launches")
+    c, py = out["tor1k_native"], out["tor1k_python"]
+    if c["plane"] != "C" or c["scheduler"] != "NativeGlobalPolicy" \
+            or not c["round_windows"]:
+        fail(f"--dataplane=native ran the {c['plane']} plane under "
+             f"{c['scheduler']} ({c['round_windows']} executor windows)")
+    if py["plane"] != "python" or c["tally"] != "NativeTally":
+        fail(f"--dataplane=python ran the {py['plane']} plane; the "
+             f"retransmit tally is {c['tally']}")
+    print(f"tor1k global: C plane wall {c['wall_s']:.3f} s "
+          f"({c['events_per_s']:.0f} events/s, {c['round_windows']} "
+          f"windows through the C round executor), Python plane wall "
+          f"{py['wall_s']:.3f} s ({py['events_per_s']:.0f} events/s); "
+          f"both == JAX; retransmit tally {c['tally']}", flush=True)
+    r = out["tor10k"] = run_tor10k(policy="global", dataplane="native")
+    if r["rc"] != 0 or r["plane"] != "C" or r["mode"] != "device" \
+            or r["recoveries"] or r["demoted"]:
+        fail(f"tor10k global: rc {r['rc']}, {r['plane']} plane, device "
+             f"plane mode {r['mode']}, recoveries {r['recoveries']}")
+    for key in ("digest", "events", "completed", "forwards"):
+        if r[key] != EXPECTED10K[key]:
+            fail(f"tor10k global on the C plane: {key} {r[key]} != JAX "
+                 f"run's {EXPECTED10K[key]}")
+    if not r["span_launches"] == r["pack_launches"] == r["dispatches"] > 0 \
+            or r["hop_launches"]:
+        fail(f"tor10k global: span launches {r['span_launches']}, pack "
+             f"launches {r['pack_launches']}, dispatches "
+             f"{r['dispatches']}, hop launches {r['hop_launches']}")
+    tpu_wall = f"{tpu10k['wall_s']:.3f} s" if tpu10k else "not run"
+    print(f"tor10k global on the C plane: digest {r['digest'][:16]}... "
+          f"events {r['events']} completed {r['completed']} forwards "
+          f"{r['forwards']} == JAX; {r['dispatches']} dispatches = "
+          f"{r['span_launches']} span + {r['pack_launches']} pack launches; "
+          f"wall {r['wall_s']:.3f} s (tpu in this call: {tpu_wall})",
+          flush=True)
+    return out
+
+
+def run_procs_slice(policy: str, fault: str = "") -> dict:
+    """tor1k with --processes 2 on cuda through the sharded coordinator;
+    each shard's scrape (its hop device and launches) read from the
+    parent's metrics summary."""
+    import tempfile
+    from shadow_tpu_torch.core.logger import SimLogger, set_logger
+    from shadow_tpu_torch.core.options import Options
+    from shadow_tpu_torch.obs.metrics import read_metrics_file
+    from shadow_tpu_torch.parallel.procs import ProcsController
+    set_logger(SimLogger(level="warning"))
+    cfg = tor1k_config()
+    with tempfile.TemporaryDirectory(prefix="smoke-procs-") as tmp:
+        metrics = os.path.join(tmp, "metrics.jsonl")
+        opts = Options(scheduler_policy=policy, device="cuda", processes=2,
+                       seed=TOR1K["seed"], log_level="warning",
+                       stop_time_sec=int(cfg.stop_time_sec),
+                       metrics_path=metrics, fault_inject=fault,
+                       data_directory=os.path.join(tmp, "data"))
+        pc = ProcsController(opts, cfg)
+        t0 = time.perf_counter()
+        rc = pc.run()
+        wall = time.perf_counter() - t0
+        summary = [r for r in read_metrics_file(metrics)
+                   if r.get("summary")][-1]
+    shards = [{"device": m.get("hop.device"),
+               "launches": m.get("hop.launches"),
+               "device_calls": m.get("policy.device_calls"),
+               "host_calls": m.get("policy.host_calls"),
+               "round_windows": m.get("native.round_windows")}
+              for m in summary["shards"]]
+    out = {"policy": policy, "fault": fault, "rc": rc, "digest": pc.digest,
+           "events": pc.events_executed, "rounds": pc.rounds_executed,
+           "wall_s": wall, "shards": shards,
+           "supervision": pc.supervision.summary()}
+    print(json.dumps(out, default=str), flush=True)
+    return out
+
+
+def run_procs() -> dict:
+    out = {}
+    for key, policy, fault in (
+            ("tpu", "tpu", ""), ("global", "global", ""),
+            ("resurrect", "tpu",
+             f"shard-exit-resurrect:1:{PROCS_DRILL_ROUND}")):
+        r = out[key] = run_procs_slice(policy, fault)
+        if r["rc"] != 0:
+            fail(f"tor1k {policy} --processes 2 {fault}: rc {r['rc']}")
+        for k in ("digest", "events", "rounds"):
+            if r[k] != EXPECTED[k]:
+                fail(f"tor1k {policy} --processes 2 {fault}: {k} {r[k]} "
+                     f"!= JAX run's {EXPECTED[k]}")
+        for i, sh in enumerate(r["shards"]):
+            if policy == "tpu" and not (
+                    str(sh["device"]).startswith("cuda")
+                    and sh["launches"] and sh["launches"] > 0
+                    and sh["launches"] == sh["device_calls"]
+                    and sh["host_calls"] == 0):
+                fail(f"tor1k tpu shard {i}: {sh} (the hops must all run "
+                     "through packet_hop on the card)")
+            if policy == "global" and not sh["round_windows"]:
+                fail(f"tor1k global shard {i}: not on the C plane ({sh})")
+    sup = out["resurrect"]["supervision"]
+    if sup["shard_resurrections"] != 1 or sup["shard_deaths_detected"] != 1:
+        fail(f"the resurrection drill: {sup}")
+    t, g, d = out["tpu"], out["global"], out["resurrect"]
+    print(f"tor1k --processes 2: tpu wall {t['wall_s']:.3f} s, shards' "
+          f"packet_hop launches {[sh['launches'] for sh in t['shards']]} on "
+          f"{[sh['device'] for sh in t['shards']]}; global (C-plane shards) "
+          f"wall {g['wall_s']:.3f} s; a shard resurrected at round "
+          f"{PROCS_DRILL_ROUND}: wall {d['wall_s']:.3f} s, mttr "
+          f"{sup['mttr_sec']:.3f} s; all == JAX", flush=True)
+    return out
+
+
+# A two-host real-binary TCP transfer (exec:) and six pooled UDP pairs
+# (pool:), tests/native_src/testapp.c compiled with cc.  EXPECTED_PLUGINS
+# was made with the JAX package on the CPU under global;
+# tests/test_torch_native_slices.py reproduces it (pytest -m slow) and
+# holds the port's CPU runs under global and tpu to it.
+PLUGIN_STOP = {"exec": 60, "pool": 30}
+EXPECTED_PLUGINS = {
+    "exec": {"digest": "596a91254df6a46d3be37974d5cca2ff"
+                       "6a97a8064c6110c0a43df3f694248294", "events": 182},
+    "pool": {"digest": "844cc188672e76bc02569401591dcf5e"
+                       "71bf780ff7b80e8afe66682ce2871eeb", "events": 60},
+}
+
+
+def plugin_binaries(out_dir: str) -> dict:
+    """testapp.c as an executable and as a pooled .so linked against the
+    port's shim (built first), compiled with cc into ``out_dir``."""
+    from shadow_tpu_torch.utils import native_build as nb
+    lib_dir = nb.ensure_plugins()
+    src = os.path.join(HERE, "tests", "native_src", "testapp.c")
+    app, so = os.path.join(out_dir, "testapp"), \
+        os.path.join(out_dir, "testapp.so")
+    for cmd in (["cc", "-O1", "-o", app, src, "-lpthread"],
+                ["cc", "-O1", "-fPIC", "-shared", "-o", so, src, "-L",
+                 lib_dir, "-l:libshadow_preload.so", "-lpthread"]):
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+        if r.returncode != 0:
+            raise RuntimeError(f"{' '.join(cmd)}: {r.stderr}")
+    return {"exec": app, "pool": so}
+
+
+def plugin_config(kind: str, path: str) -> str:
+    """The exec: transfer or the pooled UDP pairs, as XML."""
+    def host(name, start, args):
+        return (f'<host id="{name}" bandwidthdown="10240" '
+                f'bandwidthup="10240"><process plugin="app" '
+                f'starttime="{start}" arguments="{args}" /></host>')
+    if kind == "exec":
+        hosts = [host("server", 1, "tcpserver 8001 100000"),
+                 host("client", 2, "tcpclient server 8001 100000")]
+    else:
+        hosts = [host(f"{r}{i}", 1 + (r == "c"),
+                      f"udpserver {8100 + i} 2" if r == "s"
+                      else f"udpclient s{i} {8100 + i} 2 300")
+                 for i in range(6) for r in "sc"]
+    return (f'<shadow stoptime="{PLUGIN_STOP[kind]}"><plugin id="app" '
+            f'path="{kind}:{path}" />' + "".join(hosts) + "</shadow>")
+
+
+def run_plugins() -> dict:
+    """The exec: and pool: configs under global and under tpu on cuda:
+    every binary exits 0, the digests equal the JAX package's, and under
+    tpu the hops go through packet_hop."""
+    import tempfile
+    from shadow_tpu_torch.core import configuration
+    from shadow_tpu_torch.core.checkpoint import state_digest
+    from shadow_tpu_torch.core.controller import Controller
+    from shadow_tpu_torch.core.logger import SimLogger, set_logger
+    from shadow_tpu_torch.core.options import Options
+    from shadow_tpu_torch.ops import round_step as rs
+    set_logger(SimLogger(level="warning"))
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="smoke-plugins-") as tmp:
+        bins = plugin_binaries(tmp)
+        for kind, path in bins.items():
+            stop = PLUGIN_STOP[kind]
+            for policy in ("global", "tpu"):
+                ctl = Controller(Options(
+                    scheduler_policy=policy, device="cuda", seed=1,
+                    stop_time_sec=stop, log_level="warning",
+                    data_directory=os.path.join(tmp, f"{kind}-{policy}")),
+                    configuration.parse_xml(plugin_config(kind, path)))
+                rs.packet_hop_mapped.launches = 0
+                rs.packet_hop_packed.launches = 0
+                t0 = time.perf_counter()
+                rc = ctl.run()
+                wall = time.perf_counter() - t0
+                eng = ctl.engine
+                kern = getattr(eng.scheduler.policy, "_kernel", None)
+                codes = sorted({p.exit_code for h in eng.hosts.values()
+                                for p in h.processes}, key=str)
+                r = out[f"{kind}_{policy}"] = {
+                    "rc": rc, "digest": state_digest(eng),
+                    "events": eng.events_executed, "codes": codes,
+                    "wall_s": wall, "launches": rs.packet_hop_mapped.launches,
+                    "hop_calls": kern.device_calls if kern else 0,
+                    "host_calls": kern.host_calls if kern else 0}
+                print(json.dumps({"plugins": f"{kind}:{policy}", **r}),
+                      flush=True)
+                if rc != 0 or codes != [0]:
+                    fail(f"{kind}: plugin under {policy}: rc {rc}, exit "
+                         f"codes {codes}")
+                for key, want in EXPECTED_PLUGINS[kind].items():
+                    if r[key] != want:
+                        fail(f"{kind}: plugin under {policy}: {key} "
+                             f"{r[key]} != JAX run's {want}")
+                if policy == "tpu" and not (
+                        r["launches"] == r["hop_calls"] > 0
+                        and r["host_calls"] == 0):
+                    fail(f"{kind}: plugin under tpu: {r['launches']} "
+                         f"packet_hop launches for {r['hop_calls']} hop "
+                         f"calls ({r['host_calls']} on the host)")
+    print("native plugins: exec: and pool: under global and tpu == JAX; "
+          + ", ".join(f"{k} {v['wall_s']:.3f} s" for k, v in out.items()),
+          flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2249,8 +2562,8 @@ def admit_edge_cases():
                   batch(np.sort(rng.integers(0, 3, size=n)), valid=whole)))
     three = np.where(lane < 1000, 5, np.where(lane < 3100, 9, 40))
     cases.append(("one run over three tile boundaries", batch(three)))
-    # every lane valid, so that JAX's scan is the reference here: an
-    # invalid lane of another dst inside a run is admit_carry_case's
+    # every lane valid; an invalid lane of another dst inside a run is
+    # admit_carry_case's
     cases.append(("unsorted, dsts that come back",
                   batch(rng.integers(0, 8, size=n), sort=False)))
     cases.append(("refill 0", batch(rng.integers(0, 20, size=n),
@@ -2279,11 +2592,12 @@ def admit_edge_cases():
 def admit_carry_case():
     """An unsorted batch of ADMIT_EDGE_N lanes over 64 hosts whose runs hold
     invalid lanes of other dsts (at every tile's first and last lanes and
-    at random inside runs): (name, (dst int32, sizes, arrive, valid,
-    tokens0, refill, capacity)).  The port keeps a run's carry across such
-    a lane, so each run's admits are those of the batch without its invalid
-    lanes; the JAX scan resets its tick, tokens and admit there (ROADMAP
-    C4).  A batch sorted by dst over every lane has no such lane."""
+    at random inside runs; a fifth of those dsts negative or past H): (name,
+    (dst int32, sizes, arrive, valid, tokens0, refill, capacity)).  JAX's
+    scan reloads a run's tick, tokens and admit at each such lane (from
+    its arrival and its dst's tokens0, the row as JAX indexes it); the
+    plain version and both kernels of csrc/admit_sorted.cu do the same.
+    A batch sorted by dst over every lane has no such lane."""
     import numpy as np
     from shadow_tpu_torch.ops import bandwidth as bw
     from shadow_tpu_torch.ops.bandwidth import REFILL_NS, bucket_params
@@ -2304,11 +2618,25 @@ def admit_carry_case():
     valid = (rng.random(n) >= 0.1) & (lane % bw.ADMIT_TILE != 0) \
         & (lane % bw.ADMIT_TILE != bw.ADMIT_TILE - 1)
     other = (dst + rng.integers(1, h, size=n)) % h
+    wild = rng.random(n) < 0.2
+    other = np.where(wild, rng.integers(-h - 8, 2 * h, size=n), other)
     dst = np.where(valid, dst, other).astype(np.int32)
     return ("unsorted, invalid lanes of other dsts inside runs",
             (dst, rng.integers(60, 1501, size=n).astype(np.int64),
              arrive.astype(np.int64), valid, tok0,
              refill.astype(np.int64), cap.astype(np.int64)))
+
+
+def admit_carry_cases():
+    """admit_carry_case on each kernel of csrc/admit_sorted.cu: the whole
+    batch (the tiled kernel) and its first ADMIT_LANES_MAX lanes (the lane
+    kernel)."""
+    from shadow_tpu_torch.ops.bandwidth import ADMIT_LANES_MAX
+    name, arrays = admit_carry_case()
+    return [(name, arrays),
+            (name + ", lane kernel",
+             tuple(a[:ADMIT_LANES_MAX] if len(a) == len(arrays[0]) else a
+                   for a in arrays))]
 
 
 def admit_form(n: int) -> str:
@@ -2524,7 +2852,7 @@ def check_model_edges():
               f"host steps {int(stepped[narrow].max(initial=0))} ticks",
               flush=True)
     admit_err = crossed_all = 0
-    for name, arrays in [*admit_edge_cases(), admit_carry_case()]:
+    for name, arrays in [*admit_edge_cases(), *admit_carry_cases()]:
         targs = tuple(torch.as_tensor(a, device=dev) for a in arrays)
         before = bw.admit_sorted.launches
         kern = bw.admit_sorted(*targs)
@@ -3609,6 +3937,7 @@ def run_tor1k_matrix() -> dict:
 
 PHASES = ("build", "kernels", "times", "mesh-kernels", "mesh-times",
           "tor1k", "tor1k-trace", "tor1k-matrix", "tor10k", "tor10k-trace",
+          "native", "procs", "plugins",
           "mesh10k", "mesh10k-trace", "fleet-kernels", "fleet-times",
           "fleet-smoke", "sweep", "sweep-trace", "model-kernels",
           "model-times", "models", "models-trace")
@@ -3696,8 +4025,10 @@ def main(argv=None) -> int:
         print(f"tor1k tpu: wall {tpu['wall_s']:.3f} s, "
               f"{tpu['events_per_s']:.0f} events/s, device_ns "
               f"{tpu['device_ns']}, host_flush_ns {tpu['host_flush_ns']}, "
-              f"launches {tpu['launches']}; global: wall "
-              f"{glob['wall_s']:.3f} s, {glob['events_per_s']:.0f} events/s",
+              f"launches {tpu['launches']}, {tpu['plane']} data plane; "
+              f"global: wall {glob['wall_s']:.3f} s, "
+              f"{glob['events_per_s']:.0f} events/s, --dataplane=auto ran "
+              f"the {glob['plane']} data plane ({glob['scheduler']})",
               flush=True)
     if "tor1k-trace" in want:
         phase("trace: tor1k under --scheduler-policy=tpu on cuda, profiled")
@@ -3761,6 +4092,18 @@ def main(argv=None) -> int:
               f"{tr['span_kernel_s']:.6f} s; pack {tr['pack_kernels']} x "
               f"{tr['pack_kernel_mean_us']:.2f} us; hop {tr['hop_kernels']}"
               f" x {tr['hop_kernel_mean_us']:.3f} us", flush=True)
+    if "native" in want:
+        phase("native: tor1k under global on the C data plane and the "
+              "Python plane; tor10k under global on the C plane, on cuda")
+        res["native"] = run_native(res.get("tor10k"))
+    if "procs" in want:
+        phase("procs: tor1k with --processes 2 under tpu and global on "
+              "cuda; a shard resurrected")
+        res["procs"] = run_procs()
+    if "plugins" in want:
+        phase("plugins: exec: and pool: native plugins under global and tpu "
+              "on cuda")
+        res["plugins"] = run_plugins()
     if "mesh10k" in want:
         phase("slice: tor10k with --tpu-devices 8 on cuda (the plane on 8 "
               "shards of the card, the hop batch-sharded)")

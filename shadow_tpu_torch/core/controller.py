@@ -4,12 +4,16 @@ Loads configuration + topology, registers programs and hosts into the
 Engine, computes the lookahead, runs the simulation, reports results
 (master_run :400 flow).
 
-The port runs the Python data plane with the ``tpu`` policy's hop on the
-device, device-mode clients' bulk cells and the HostTable tier's
-processless flows on the device traffic plane (parallel/device_plane.py),
-and boots hosts as HostTable rows under ``--host-table`` (scale/).  Paths it has not ported refuse with
-NotImplementedError naming their ROADMAP item, before any simulation work;
-they never quietly take another path (:func:`refuse_unported`).
+The port runs the ``tpu`` policy's hop on the device, device-mode
+clients' bulk cells and the HostTable tier's processless flows on the
+device traffic plane (parallel/device_plane.py), boots hosts as HostTable
+rows under ``--host-table`` (scale/), attaches the C data plane where the
+reference does (parallel/native_plane.py, built from ``native/`` into the
+port's own ``native/`` directory: utils/native_build.py) and runs
+``--processes N`` as N shard processes (parallel/procs.py).  Paths it has
+not ported refuse with NotImplementedError naming their ROADMAP item,
+before any simulation work; they never quietly take another path
+(:func:`refuse_unported`).
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from ..host.host import Host, HostParams
 from ..process.process import Process
 from ..routing.address import ip_to_int
 from ..routing.topology import Topology, single_vertex_topology
+from ..utils import native_build
 from . import stime
 from .configuration import Configuration, tokenize_arguments
 from .engine import Engine
@@ -46,25 +51,11 @@ def has_device_clients(config: Configuration) -> bool:
 
 def refuse_unported(options: Options, config: Configuration) -> None:
     """Raise NotImplementedError for the configurations whose paths the
-    port does not run yet; log once that ``--dataplane=auto`` means the
-    Python data plane here."""
+    port does not run yet."""
     if (getattr(options, "cost_model", "") or "").strip():
         raise NotImplementedError(
             "--cost-model: the port has no device cost model yet (the "
             "checked-in COSTMODEL.json is the JAX package's): ROADMAP A7")
-    if getattr(options, "processes", 0) >= 2:
-        raise NotImplementedError(
-            "--processes >= 2 (sharded multi-process runs) is not ported "
-            "yet: ROADMAP A9")
-    dataplane = getattr(options, "dataplane", "auto")
-    if dataplane == "native":
-        raise NotImplementedError(
-            "--dataplane=native (the C data plane) is not ported yet: "
-            "ROADMAP A14")
-    if dataplane == "auto":
-        get_logger().message(
-            "engine", "--dataplane=auto: the port runs the Python data "
-            "plane (the C plane is ROADMAP A14)")
     if getattr(options, "tpu_device_threshold", 0) > 0 \
             and getattr(options, "device", "cuda") != "cpu":
         raise NotImplementedError(
@@ -82,6 +73,9 @@ class Controller:
             # fail before setup, not at the first launch, when the
             # requested device is missing (device.py never falls back)
             resolve_device(getattr(options, "device", "cuda"))
+        # the retransmit tally's library, before the first TCP socket asks
+        # for it (make_tally remembers its first answer)
+        native_build.ensure_tally()
         self.options = options
         self.config = config
         self.topology = self._load_topology()
@@ -184,9 +178,12 @@ class Controller:
         profile.commit(self.engine.total_host_count())
         profile.install(self.engine)
         self.topology.finalize()
-        # (the JAX package attaches its C data plane here; the port runs
-        # the Python data plane only — --dataplane=native is refused,
-        # ROADMAP A14 — so there is nothing to attach)
+        # the C data plane (parallel/native_plane.py): TCP/UDP pipeline +
+        # interfaces + router + hop execute natively for eligible serial
+        # runs; Python keeps the control plane.  No-op (with a logged
+        # reason) when ineligible in auto mode.
+        from ..parallel.native_plane import attach as attach_native
+        attach_native(self.engine)
 
     def _setup_eager_hosts(self) -> None:
         """The classic boot path: one Host object per quantity expansion."""
@@ -249,5 +246,12 @@ class Controller:
 
 def run_simulation(options: Options, config: Configuration) -> int:
     """One-call entry used by the CLI and tests.  ``--processes N`` (N >= 2)
-    is refused (ROADMAP A9) by the Controller's :func:`refuse_unported`."""
+    routes to the sharded multi-process coordinator."""
+    if getattr(options, "processes", 0) >= 2:
+        refuse_unported(options, config)
+        # the parent builds the tally before it spawns, so that its N
+        # shards find it built
+        native_build.ensure_tally()
+        from ..parallel.procs import run_sharded
+        return run_sharded(options, config)
     return Controller(options, config).run()

@@ -10,8 +10,8 @@ Changes from the JAX package's runner: :func:`run_one_mode` takes the
 ``device`` the run's device work goes to (``--device``, cuda unless the
 caller asks for the CPU); mesh modes (``tpu_devices > 1``) run their D
 shards on that one device (``parallel/mesh``), so none is skipped; and a
-``processes >= 2`` mode raises NotImplementedError naming ROADMAP A9 inside
-the run's guard, so it is reported as rc -1 and never run another way.
+``processes >= 2`` mode builds the retransmit tally in this process before
+its shards spawn (utils/native_build.py).
 
 ``apply_fault`` implements the fuzz-level fault harness: a deliberately
 drifted oracle INPUT — perturbing the reported digest/events/supervision/rc
@@ -145,9 +145,14 @@ def run_one_mode(spec: Dict, mode: Dict, lane=None,
         if mode.get("resume"):
             _run_resume_mode(spec, opts, out)
         elif opts.processes >= 2:
-            raise NotImplementedError(
-                "--processes >= 2 (sharded multi-process runs) is not "
-                "ported yet: ROADMAP A9")
+            from ..parallel.procs import ProcsController
+            from ..utils.native_build import ensure_tally
+            ensure_tally()      # built once here, before the shards spawn
+            pc = ProcsController(opts, cfg)
+            out["rc"] = pc.run()
+            out["digest"] = pc.digest
+            out["events"] = pc.events_executed
+            out["supervision"] = pc.supervision.summary()
         else:
             ctrl = Controller(opts, cfg)
             out["rc"] = ctrl.run()

@@ -55,6 +55,12 @@ def _fdiv(a: torch.Tensor, b) -> torch.Tensor:
     return torch.div(a, b, rounding_mode="floor")
 
 
+def _rows(d: torch.Tensor, h: int) -> torch.Tensor:
+    """Table rows of dsts as JAX indexes them: a negative index counts from
+    the end, then every index is clamped into [0, h)."""
+    return torch.where(d < 0, d + h, d).clamp(0, h - 1)
+
+
 def admit_sorted_torch(dst_rows: torch.Tensor, sizes: torch.Tensor,
                        arrive: torch.Tensor, valid: torch.Tensor,
                        tokens0: torch.Tensor, refill: torch.Tensor,
@@ -66,33 +72,51 @@ def admit_sorted_torch(dst_rows: torch.Tensor, sizes: torch.Tensor,
         admit_i = start_i                  if avail >= size_i
                 = (tick(start_i)+k)*REFILL with k = ceil((size-avail)/ref)
 
-    with ref = max(refill, 1), whose carry resets from tokens0 at each valid
-    lane whose dst differs from the previous VALID lane's (invalid lanes
-    output 0 and leave the carry alone).  The runs between resets are
-    independent, so the loop steps every run at once, one position a step.
-    The contract is the JAX function's: dst_rows sorted over every lane,
-    invalid lanes included.  There the two agree bit for bit.  Where an
-    invalid lane of another dst sits inside a run (only an unsorted batch
-    has one), JAX's scan resets its tick, tokens and admit at that lane and
-    this keeps them (ROADMAP C4).  Returns int64 [N].  Pure."""
+    with ref = max(refill, 1), carrying (dst, tick, tokens, admit).  At
+    every lane whose dst differs from the carried dst (the last valid
+    lane's, -1 before any) the tick, tokens and admit reload to
+    (arrive // REFILL, tokens0[dst], 0).  A valid lane then steps and
+    carries its dst; an invalid lane outputs 0 and keeps the carried dst,
+    so that at an invalid lane of another dst (a "reset lane": only a batch
+    that is not sorted by dst over every lane has one) the next valid lane
+    of the carried dst goes on from that reloaded state, with its own
+    refill and capacity; of several such lanes the last one wins.  The
+    runs that valid openers begin are independent, so the loop steps every
+    run at once, one position a step.  Table rows follow JAX's indexing
+    (a negative dst counts from the end, then clamps).  Bit for bit the JAX
+    function on every batch.  Returns int64 [N].  Pure."""
     dev = sizes.device
     n = sizes.shape[0]
     h = refill.shape[0]
     i64 = torch.int64
     admits = torch.zeros(n, dtype=i64, device=dev)
-    vi = torch.nonzero(valid.to(torch.bool), as_tuple=True)[0]
+    ok = valid.to(torch.bool)
+    vi = torch.nonzero(ok, as_tuple=True)[0]
     if vi.numel() == 0:
         return admits
-    d = dst_rows[vi].to(i64)
+    dst = dst_rows.to(i64)
+    idx = torch.arange(n, device=dev)
+    # the last valid lane before each lane, and the dst it carries
+    last = torch.cummax(torch.where(ok, idx, -1), 0).values
+    before = torch.cat([last.new_full((1,), -1), last[:-1]])
+    carried = torch.where(before >= 0, dst[before.clamp(min=0)], -1)
+    reset = ~ok & (dst != carried)
+    last_reset = torch.cummax(torch.where(reset, idx, -1), 0).values
+    d = dst[vi]
     opens = torch.ones_like(d, dtype=torch.bool)
     opens[1:] = d[1:] != d[:-1]
+    # a valid lane inside a run reloads from the last reset lane since the
+    # run's previous valid lane
+    reload = torch.full((n,), -1, dtype=i64, device=dev)
+    rl = last_reset[vi]
+    reload[vi] = torch.where(~opens & (rl > before[vi]), rl, -1)
     run = torch.cumsum(opens.to(i64), 0) - 1
     starts = torch.nonzero(opens, as_tuple=True)[0]
     pos = torch.arange(vi.numel(), device=dev) - starts[run]
     longest = int(pos.max()) + 1
     lane = torch.full((starts.numel(), longest), -1, dtype=i64, device=dev)
     lane[run, pos] = vi
-    row = d[starts].clamp(0, h - 1)   # the kernel clamps its gathers too
+    row = _rows(d[starts], h)
     ref = refill[row].clamp(min=1)
     cap = capacity[row]
     tick = _fdiv(arrive[vi[starts]], REFILL_NS)
@@ -102,6 +126,13 @@ def admit_sorted_torch(dst_rows: torch.Tensor, sizes: torch.Tensor,
         li = lane[:, k]
         live = li >= 0
         li = li.clamp(min=0)
+        r = reload[li]
+        back = live & (r >= 0)
+        if bool(back.any()):
+            r = r.clamp(min=0)
+            tick = torch.where(back, _fdiv(arrive[r], REFILL_NS), tick)
+            tok = torch.where(back, tokens0[_rows(dst[r], h)], tok)
+            prev = torch.where(back, 0, prev)
         size = sizes[li]
         start = torch.maximum(arrive[li], prev)
         stick = _fdiv(start, REFILL_NS)
@@ -130,10 +161,9 @@ def admit_sorted(dst_rows: torch.Tensor, sizes: torch.Tensor,
     """FIFO token-bucket admission times for a dst-sorted batch (the JAX
     package's ``admit_sorted`` argument list: dst_rows int32 [N], sizes and
     arrive int64 [N], valid bool [N], tokens0 / refill / capacity int64
-    [H]; every valid dst_row in [0, H); dst_rows sorted over every lane,
-    invalid lanes included, as :func:`admit_sorted_torch` says, which is
-    also what it computes off that contract).  On CPU tensors the plain
-    version;
+    [H]; every valid dst_row in [0, H); computed as
+    :func:`admit_sorted_torch` says, the JAX scan on any batch, sorted by
+    dst or not).  On CPU tensors the plain version;
     on CUDA tensors one launch of csrc/admit_sorted.cu on the current
     stream, no synchronisation, counted in ``admit_sorted.launches``.
     Returns int64 [N] admission times (0 on invalid lanes)."""

@@ -6,29 +6,31 @@
 // is shadow_tpu_torch/ops/bandwidth.py:admit_sorted_torch; the two agree bit
 // for bit (int64 throughout).
 //
-// The scan carries (dst, tick, tokens, admit).  At a valid lane whose dst
-// differs from the carried dst (a host's run begins) the carry resets to
-// (dst, arrive / REFILL, tokens0[dst], 0); then, with ref = max(refill, 1),
+// The scan carries (dst, tick, tokens, admit).  At every lane whose dst
+// differs from the carried dst (the last valid lane's, -1 before any),
+// tick, tokens and admit reload to (arrive / REFILL, tokens0[dst], 0);
+// then, at a valid lane, with ref = max(refill, 1) of its dst,
 //   start = max(arrive, admit);  stick = start / REFILL
 //   avail = min(cap, tokens + ref * (stick - tick))
 //   k     = ceil(max(size - avail, 0) / ref)
 //   admit = k > 0 ? (stick + k) * REFILL : start
 //   tokens = min(cap, avail + k * ref) - size;  tick = stick + k
-// and the lane's output is admit.  An invalid lane outputs 0 and leaves the
-// carry untouched.
+// the lane's output is admit and its dst is carried.  An invalid lane
+// outputs 0 and keeps the carried dst: at an invalid lane of another dst
+// (a "reset lane"; a batch sorted by dst over every lane, the JAX
+// function's contract, has none) the next valid lane of the carried dst
+// goes on from the reloaded state with its own refill and capacity, the
+// last of several such lanes winning; an invalid lane of the carried dst
+// changes nothing.  Rows index the tables as JAX does: a negative dst
+// counts from the end, then every row is clamped into [0, H).  This is
+// JAX's scan bit for bit on every batch, sorted or not.
 //
-// The batch is sorted by dst over every lane, invalid lanes included (the
-// JAX function's contract), so an invalid lane inside a run has the run's
-// dst.  Off that contract this rule (the plain version's) and JAX's scan
-// part: JAX resets tick, tokens and admit at an invalid lane of another
-// dst, and this keeps them (ROADMAP C4).
-//
-// Design.  The carry resets completely where a run begins, so runs are
-// independent and one thread walking one run in order computes exactly
-// what the scan computes.  Because invalid lanes do not touch the carry, a
-// run begins at a valid lane whose dst differs from the previous VALID
-// lane's dst (a dst that comes back later in an unsorted batch opens a new
-// run, as the scan resets there too).
+// Design.  The carry reloads completely at a valid lane whose dst differs
+// from the previous VALID lane's (a run begins; a dst that comes back
+// later in an unsorted batch opens a new run), so runs are independent
+// and one thread walking one run in order computes exactly what the scan
+// computes.  A reset lane does not begin a run: it reloads the tick,
+// tokens and admit of the run it sits in, before that run's next packet.
 // A run is a serial chain, so the longest run sets the time.  Two kernels,
 // one launch a call, chosen by N:
 //
@@ -49,6 +51,14 @@
 //     their tables loaded at once, each packet's loads ahead of the step
 //     before it; a run longer than the halo goes on over windows of HALO
 //     lanes that the block stages;
+//   * a reset lane of the span marks the compacted position of the next
+//     valid lane (the count of valid span lanes before it) with its lane,
+//     the last such lane winning (an atomic max); the walk reloads the
+//     carry from the marked lane before it steps that position's packet,
+//     and before the windows when the mark is at the span's end; a window
+//     reloads at its reset lanes as it meets them (so does the lane
+//     kernel); a mark at position 0 is never read, as the tile's first
+//     valid lane either opens a run or belongs to an earlier block's;
 //   * no division on the chain: floor(x / 10^6) is a multiply-high, the
 //     stick of the previous admit is the tick the step leaves (admit is
 //     start, or (stick + k) * REFILL), and k = ceil(kneed / ref) is a
@@ -59,9 +69,10 @@
 //     the stick of its admit by division.
 // admit_sorted_kernel_lanes (N <= LANES_MAX), a thread a lane: a valid
 // lane looks back past invalid lanes to the previous valid one and, if it
-// opens a run, walks it in device memory.  A small batch is
-// launch-bound, and the tiled kernel's fixed work (a round trip and two
-// block scans before the first step) costs more there than it saves.
+// opens a run, walks it in device memory, reloading at its reset lanes.
+// A small batch is launch-bound, and the tiled kernel's fixed work (a
+// round trip and two block scans before the first step) costs more there
+// than it saves.
 //
 // Bound.  Per lane it reads 4 + 8 + 8 + 1 bytes and writes 8, and per run
 // three int64 words of tables: ~1.9 MB at N = 65,536, ~0.6 us at HBM rate;
@@ -111,7 +122,10 @@ __device__ __noinline__ int64_t floor_div_wide(int64_t a, int64_t b) {
   return floor_div(a, b);
 }
 
+// a table row as JAX indexes it: a negative index counts from the end,
+// then the index is clamped into [0, h)
 __device__ __forceinline__ int64_t clamp_row(int64_t r, int64_t h) {
+  r = r < 0 ? r + h : r;
   return r < 0 ? 0 : (r >= h ? h - 1 : r);
 }
 
@@ -160,6 +174,15 @@ struct Run {
     rc.init(narrow ? (uint32_t)ref : 1u);
   }
 
+  // a reset lane (arrive arr0, its dst's tokens0): the tick, tokens and
+  // admit reload; ref and cap stay the run's
+  __device__ void reset(int64_t arr0, int64_t tok0) {
+    tok = tok0;
+    tick = floor_refill(arr0);
+    prev = 0;
+    pstick = 0;
+  }
+
   __device__ __forceinline__ int64_t finish(int64_t start, int64_t stick,
                                             int64_t avail, int64_t kneed,
                                             int64_t size, int64_t k) {
@@ -196,20 +219,65 @@ struct Run {
 };
 
 // ``run`` (host ``d``) over a staged window of ``e`` lanes, lane k of the
-// window being lane g0 + k of the batch: skips invalid lanes, stops at a
-// valid lane of another dst (returns true).
+// window being lane g0 + k of the batch: reloads at a reset lane, skips the
+// other invalid lanes, stops at a valid lane of another dst (returns true).
 __device__ __forceinline__ bool walk(Run& run, int32_t d, int e, int64_t g0,
                                      const int64_t* __restrict__ s_size,
                                      const int64_t* __restrict__ s_arr,
                                      const int32_t* __restrict__ s_dst,
                                      const uint8_t* __restrict__ s_valid,
-                                     int64_t* __restrict__ admits) {
+                                     const int64_t* __restrict__ tokens0,
+                                     int64_t h, int64_t* __restrict__ admits) {
   for (int k = 0; k < e; ++k) {
-    if (!s_valid[k]) continue;
+    if (!s_valid[k]) {
+      if (s_dst[k] != d)
+        run.reset(s_arr[k], tokens0[clamp_row(s_dst[k], h)]);
+      continue;
+    }
     if (s_dst[k] != d) return true;
     admits[g0 + k] = run.step(s_size[k], s_arr[k], floor_refill(s_arr[k]));
   }
   return false;
+}
+
+// What a reset lane g of the batch reloads: (its arrive, its dst's
+// tokens0).  Out of line: a rare path, its loads on the chain.
+__device__ __noinline__ longlong2
+reset_lane(int64_t g, const int32_t* __restrict__ dst,
+           const int64_t* __restrict__ arrive,
+           const int64_t* __restrict__ tokens0, int64_t h) {
+  return make_longlong2(arrive[g], tokens0[clamp_row(dst[g], h)]);
+}
+
+// ``run`` over compacted positions [j, e) of a block's span (j its
+// opener), every packet's loads ahead of the step before it; with RESETS,
+// reloading at a position that a reset lane marked.
+template <bool RESETS>
+__device__ __forceinline__ void walk_span(
+    Run& run, int j, int e, int64_t t0, const int64_t* __restrict__ c_size,
+    const int64_t* __restrict__ c_arr, const int64_t* __restrict__ c_astick,
+    const int16_t* __restrict__ c_lane, const int32_t* __restrict__ c_reset,
+    const int32_t* __restrict__ dst, const int64_t* __restrict__ arrive,
+    const int64_t* __restrict__ tokens0, int64_t h,
+    int64_t* __restrict__ admits) {
+  int64_t nsz = c_size[j], nar = c_arr[j], nst = c_astick[j];
+  int nl = c_lane[j], nr = -1;
+  for (int k = j; k < e; ++k) {
+    const int64_t ksz = nsz, kar = nar, kst = nst;
+    const int kl = nl, kr = nr;
+    if (k + 1 < e) {
+      nsz = c_size[k + 1];
+      nar = c_arr[k + 1];
+      nst = c_astick[k + 1];
+      nl = c_lane[k + 1];
+      if (RESETS) nr = c_reset[k + 1];
+    }
+    if (RESETS && kr >= 0) {
+      const longlong2 r = reset_lane(t0 + kr, dst, arrive, tokens0, h);
+      run.reset(r.x, r.y);
+    }
+    admits[t0 + kl] = run.step(ksz, kar, kst);
+  }
 }
 
 // Exclusive block sum-scan of one int a thread; ``total`` gets the
@@ -253,12 +321,15 @@ admit_sorted_kernel(const int32_t* __restrict__ dst,
   __shared__ int32_t c_dst[SPAN];
   __shared__ int16_t c_lane[SPAN];
   __shared__ int16_t s_open[TILE];  // the runs' first positions
+  // per compacted position, the span lane of the last reset lane since the
+  // valid lane before it (-1: none); one more for the span's end
+  __shared__ int32_t c_reset[SPAN + 1];
   // past the span: windows of HALO lanes, as they are
   __shared__ __align__(16) int64_t w_size[HALO];
   __shared__ __align__(16) int64_t w_arr[HALO];
   __shared__ int32_t w_dst[HALO];
   __shared__ uint8_t w_valid[HALO];
-  __shared__ int s_has_prev, s_look, s_more, s_end;
+  __shared__ int s_has_prev, s_look, s_more, s_end, s_resets;
   __shared__ int32_t s_prev_dst;
 
   const int tid = threadIdx.x, lane = tid & 31;
@@ -300,6 +371,12 @@ admit_sorted_kernel(const int32_t* __restrict__ dst,
   const int64_t gb = t0 - 32 + lane;
   const bool bv = tid < 32 && gb >= 0 && valid[gb];
   const int32_t bd = bv ? dst[gb] : 0;
+#pragma unroll
+  for (int u = 0; u < LANES; ++u) c_reset[base + u] = -1;
+  if (tid == 0) {
+    c_reset[SPAN] = -1;
+    s_resets = 0;
+  }
 
   int n_valid = 0, n_own = 0;
 #pragma unroll
@@ -362,15 +439,24 @@ admit_sorted_kernel(const int32_t* __restrict__ dst,
   // the runs: a valid tile lane opens one when its dst differs from the
   // previous valid lane's (or there is none); a second sum-scan lists
   // them, so each run's packets are [its opener, the next) in compacted
-  // order, the last run's up to the first halo lane of another dst
+  // order, the last run's up to the first halo lane of another dst; a
+  // reset lane marks the next valid lane's position (an invalid lane's
+  // carried dst is the valid lane's before it; position 0 is never read,
+  // so it is not marked) and flags the block
   bool opens[LANES];
   int n_open = 0;
   pos = first;
 #pragma unroll
   for (int u = 0; u < LANES; ++u) {
-    opens[u] = vv[u] && pos < n_tile &&
-               !(pos > 0 ? c_dst[pos - 1] == dd[u]
-                         : s_has_prev && s_prev_dst == dd[u]);
+    const bool look = vv[u] ? pos < n_tile : base + u < span && pos > 0;
+    const bool other =
+        look && !(pos > 0 ? c_dst[pos - 1] == dd[u]
+                          : s_has_prev && s_prev_dst == dd[u]);
+    opens[u] = vv[u] && other;
+    if (!vv[u] && other) {
+      atomicMax(&c_reset[pos], base + u);
+      s_resets = 1;
+    }
     n_open += opens[u];
     pos += vv[u];
   }
@@ -411,20 +497,20 @@ admit_sorted_kernel(const int32_t* __restrict__ dst,
     const int e = p + 1 < runs ? s_open[p + 1] : s_end;
     d = c_dst[j];
     run.init(t_ref[i], t_cap[i], t_tok[i], c_arr[j]);
-    int64_t nsz = c_size[j], nar = c_arr[j], nst = c_astick[j];
-    int nl = c_lane[j];
-    for (int k = j; k < e; ++k) {
-      const int64_t ksz = nsz, kar = nar, kst = nst;
-      const int kl = nl;
-      if (k + 1 < e) {
-        nsz = c_size[k + 1];
-        nar = c_arr[k + 1];
-        nst = c_astick[k + 1];
-        nl = c_lane[k + 1];
-      }
-      admits[t0 + kl] = run.step(ksz, kar, kst);
-    }
+    // the same walk with and without the marks: a block with no reset
+    // lane (every sorted batch) reads none
+    if (s_resets)
+      walk_span<true>(run, j, e, t0, c_size, c_arr, c_astick, c_lane,
+                      c_reset, dst, arrive, tokens0, h, admits);
+    else
+      walk_span<false>(run, j, e, t0, c_size, c_arr, c_astick, c_lane,
+                       c_reset, dst, arrive, tokens0, h, admits);
     more = e == n_span && left > SPAN;
+    if (more && c_reset[n_span] >= 0) {
+      const longlong2 r =
+          reset_lane(t0 + c_reset[n_span], dst, arrive, tokens0, h);
+      run.reset(r.x, r.y);
+    }
   }
   // past the span (the last run reaches its end): windows of HALO lanes
   // that the block stages, walked by the run's thread
@@ -440,7 +526,8 @@ admit_sorted_kernel(const int32_t* __restrict__ dst,
     }
     __syncthreads();
     if (more) {
-      more = !walk(run, d, wn, w0, w_size, w_arr, w_dst, w_valid, admits) &&
+      more = !walk(run, d, wn, w0, w_size, w_arr, w_dst, w_valid, tokens0, h,
+                   admits) &&
              w0 + wn < n;
       s_more = more;
     }
@@ -476,7 +563,14 @@ admit_sorted_kernel_lanes(const int32_t* __restrict__ dst,
   int64_t tok = tokens0[r];
   int64_t prev = 0;
   for (int64_t k = i; k < n; ++k) {
-    if (!valid[k]) continue;
+    if (!valid[k]) {
+      if (dst[k] != d) {  // a reset lane
+        tick = floor_div(arrive[k], REFILL_NS);
+        tok = tokens0[clamp_row(dst[k], h)];
+        prev = 0;
+      }
+      continue;
+    }
     if (dst[k] != d) break;
     const int64_t size = sizes[k];
     const int64_t arr = arrive[k];

@@ -51,6 +51,19 @@ from ..core.worker import _deliver_packet_task
 from ..device import resolve_device
 
 
+def _hop_source(device):
+    """The hop's scrape: the device its kernel runs on and the hop kernel
+    launches this process made (a ``--processes`` shard's scrape rides its
+    final message to the parent's metrics summary)."""
+    def scrape():
+        from ..ops import round_step as rs
+        return {"hop.device": str(device),
+                "hop.launches": rs.packet_hop_mapped.launches
+                + rs.packet_hop_packed.launches
+                + rs.packet_hop_sharded.launches}
+    return scrape
+
+
 class _TPUBatchMixin:
     """The device-batching behavior (offer/launch/consume/warmup), layered
     over an event-storage policy.  Two concrete layouts:
@@ -164,6 +177,7 @@ class _TPUBatchMixin:
                 self._kernel = PacketHopKernel(
                     topo, engine._drop_key, engine.bootstrap_end, device,
                     device_threshold=threshold)
+            engine.metrics.source("hop", _hop_source(device))
             if self._chunk is None:
                 self._chunk = getattr(opts, "tpu_chunk", 0)
             # --processes shards hand cross-shard hops to their owner at the

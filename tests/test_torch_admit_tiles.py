@@ -15,9 +15,15 @@ when its dst differs from the previous valid lane's (or there is none); a
 second sum-scan lists the openers, so a run's packets are a known range
 of compacted positions, the tile's last run's reaching into the halo up
 to the first lane of another dst; thread p walks runs p, p + 256, ...,
-their tables loaded at once.  Past the span
-the last run goes on over windows of 256 lanes that the block stages,
-skipping invalid lanes.  A step divides by 10^6 with a multiply-high,
+their tables loaded at once.  An invalid lane whose dst differs from the
+carried one (the valid lane's before it: a "reset lane", as JAX's scan
+has it) marks the compacted position of the next valid lane with its
+lane, the last such lane winning, and the walk reloads the run's tick,
+tokens and admit from the marked lane before that position's packet (and
+before the windows, for a mark at the span's end).  Past the span the last
+run goes on over windows of 256 lanes that the block stages, reloading at
+reset lanes and skipping the other invalid lanes.  Table rows follow
+JAX's indexing (a negative dst counts from the end, then clamps).  A step divides by 10^6 with a multiply-high,
 tracks the stick of its admit (the tick it leaves) instead of dividing
 it, and takes k = ceil(kneed / ref) from a reciprocal of ref made once
 per run where ref < 2^31, kneed + ref - 1 < 2^32 and |start| < 2^62, the
@@ -31,10 +37,9 @@ Held bit for bit (no tolerance: exact integers) on chip_smoke.py's
 last lanes, a whole tile invalid inside a run, a run over three tile
 boundaries, an unsorted batch whose dsts come back, refill 0, packets past
 2^31 bytes, arrivals below 0 and past 2^62, padding, one host, no valid
-lane) at the kernel's tile and at tiles of 192 and 24 lanes, where runs
-cross one or many tiles.  Where ``dst_rows`` is not sorted over every lane,
-an invalid lane of another dst inside a run keeps the port's carry but
-resets JAX's (ROADMAP C4); ``admit_carry_case`` pins that difference.
+lane) and ``admit_carry_case`` (an unsorted batch with invalid lanes of
+other dsts, some negative or past H, inside runs) at the kernel's tile and
+at tiles of 192 and 24 lanes, where runs cross one or many tiles.
 """
 
 import jax.numpy as jnp
@@ -106,6 +111,14 @@ class Run:
         self.rc = recip(self.ref if self.narrow else 1)
         self.stats = stats
 
+    def reset(self, arr0, tok0):
+        """A reset lane: the tick, tokens and admit reload."""
+        self.tok = int(tok0)
+        self.tick = floor_refill(int(arr0))
+        self.prev = 0
+        self.pstick = 0
+        self.stats["resets"] += 1
+
     def step(self, size, arr):
         size, arr = int(size), int(arr)
         astick = floor_refill(arr)
@@ -132,28 +145,40 @@ class Run:
         return admit
 
 
+def row(d, h: int) -> int:
+    """A table row as JAX indexes it (and the kernel's clamp_row)."""
+    d = int(d)
+    d = d + h if d < 0 else d
+    return min(max(d, 0), h - 1)
+
+
 def tiled_admit(dst, sizes, arrive, valid, tokens0, refill, capacity,
                 tile: int):
     """The kernel's blocks, one after another: a block of ``tile // 3``
     threads stages a span of LANES lanes a thread, its tile and a halo of
     a lane a thread.  Returns (admits, stats)."""
-    n = len(dst)
+    n, h = len(dst), len(refill)
     threads = tile // 3
     assert tile == 3 * threads and (LANES - 1) * threads == tile
     out = np.full(n, GARBAGE, dtype=np.int64)
     writes = np.zeros(n, dtype=np.int64)
     stats = {"narrow": 0, "wide": 0, "runs": 0, "crossed": 0,
-             "look_steps": 0, "past_halo": 0}
+             "look_steps": 0, "past_halo": 0, "resets": 0}
 
     def write(k, x):
         out[k] = x
         writes[k] += 1
 
+    def reset(run, k):
+        run.reset(arrive[k], tokens0[row(dst[k], h)])
+
     def walk(run, d, lanes):
-        """The checked walk over the halo or a window: skips invalid lanes,
-        stops at a valid lane of another dst (True)."""
+        """A window: reloads at a reset lane, skips the other invalid
+        lanes, stops at a valid lane of another dst (True)."""
         for k in lanes:
             if not valid[k]:
+                if dst[k] != d:
+                    reset(run, k)
                 continue
             if dst[k] != d:
                 return True
@@ -189,34 +214,58 @@ def tiled_admit(dst, sizes, arrive, valid, tokens0, refill, capacity,
                 found = back[-1]
                 break
             top -= 32
-        c_dst = np.asarray(dst)[t0 + lanes]
-        prev = np.r_[dst[found] if found >= 0 else 0, c_dst[:-1]]
-        opens = c_dst != prev
-        if found < 0:
-            opens[0] = True
+        n_tile, n_span = len(lanes), len(in_span)
+        c_dst = np.asarray(dst)[t0 + in_span]
+        # the valid lane's dst before each compacted position (at 0 the
+        # one before the tile, if any): a lane of another dst opens a run
+        # if valid, and is a reset lane if not
+        prev = np.r_[dst[found] if found >= 0 else 0, c_dst]
+
+        def other(p, d):
+            return (p == 0 and found < 0) or d != prev[p]
+
+        opens = np.array([other(p, c_dst[p]) for p in range(n_tile)])
+        # a reset lane marks the next valid lane's position (the count of
+        # valid span lanes before it; n_span is the span's end) with its
+        # span lane, the last one winning (atomicMax); position 0 is never
+        # read, so it is not marked; a block with no mark walks without
+        # reading them
+        before = np.cumsum(np.r_[0, span])
+        c_reset = np.full(n_span + 1, -1)
+        for k in np.flatnonzero(~span):
+            p = int(before[k])
+            if p > 0 and other(p, dst[t0 + k]):
+                c_reset[p] = max(c_reset[p], k)
+        marked = (c_reset >= 0).any()
+        # the last run's end: the first halo position of another dst
+        ends = [p for p in range(n_tile, n_span) if c_dst[p] != c_dst[p - 1]]
+        s_end = ends[0] if ends else n_span
         starts = np.flatnonzero(opens)
         stats["runs"] += len(starts)
         for p, j in enumerate(starts):
-            e = starts[p + 1] if p + 1 < len(starts) else len(lanes)
+            e = starts[p + 1] if p + 1 < len(starts) else s_end
             d = int(c_dst[j])
-            row = min(max(d, 0), len(refill) - 1)
-            run = Run(int(refill[row]), int(capacity[row]),
-                      int(tokens0[row]), arrive[t0 + lanes[j]], stats)
+            run = Run(int(refill[row(d, h)]), int(capacity[row(d, h)]),
+                      int(tokens0[row(d, h)]), arrive[t0 + in_span[j]],
+                      stats)
+            written = writes[t0 + count:].sum()
             for c in range(j, e):
-                k = t0 + int(lanes[c])
+                if marked and c > j and c_reset[c] >= 0:
+                    reset(run, t0 + c_reset[c])
+                k = t0 + int(in_span[c])
                 write(k, run.step(sizes[k], arrive[k]))
-            if p + 1 < len(starts) or not rest:
-                continue
-            # the tile's last run: on over the halo's compacted lanes up to
-            # another dst, then over windows of HALO lanes the block stages
-            written = writes.sum()
-            done = walk(run, d, range(t0 + count, t0 + count + halo))
-            w0 = t0 + count + halo
-            stats["past_halo"] += not done and w0 < n
-            while not done and w0 < n:
-                done = walk(run, d, range(w0, min(w0 + threads, n)))
-                w0 += threads
-            stats["crossed"] += writes.sum() > written
+            # the tile's last run past the span: over windows of a lane a
+            # thread that the block stages
+            if e == n_span and rest > halo:
+                stats["past_halo"] += 1
+                if c_reset[n_span] >= 0:
+                    reset(run, t0 + c_reset[n_span])
+                w0 = t0 + count + halo
+                done = False
+                while not done and w0 < n:
+                    done = walk(run, d, range(w0, min(w0 + threads, n)))
+                    w0 += threads
+            stats["crossed"] += writes[t0 + count:].sum() > written
     np.testing.assert_array_equal(writes, 1)
     return out, stats
 
@@ -246,42 +295,27 @@ def test_restatement_equals_jax_and_plain_version(case):
             assert crossed > 0, tile
 
 
-def test_invalid_lanes_of_other_dsts_keep_the_carry():
-    """The contract's edge (ROADMAP C4), pinned: on an unsorted batch with
-    invalid lanes of other dsts inside runs, the restatement and the plain
-    version keep each run's carry across those lanes (each run's admits
-    are those of the batch without its invalid lanes), and JAX's scan,
-    which resets its tick, tokens and admit there, differs exactly at
-    valid lanes after such a lane in their run.  Without the invalid lanes
-    JAX agrees."""
-    name, args = chip_smoke.admit_carry_case()
+def test_invalid_lanes_of_other_dsts_follow_jax():
+    """An unsorted batch whose runs hold invalid lanes of other dsts (some
+    of them negative or past H): the restatement at every tile size and
+    the plain version equal JAX's scan, which reloads a run's tick, tokens
+    and admit at each such lane.  The case exercises that: without its
+    invalid lanes JAX's admits differ at some valid lanes."""
+    (name, args), (_lname, lane_args) = chip_smoke.admit_carry_cases()
     dst, sizes, arrive, valid = args[:4]
-    plain = bw.admit_sorted_torch(*(torch.as_tensor(a) for a in args))
-    plain = plain.numpy()
+    want = _jax(args)
+    for a, w in ((args, want), (lane_args, _jax(lane_args))):
+        plain = bw.admit_sorted_torch(*(torch.as_tensor(x) for x in a))
+        np.testing.assert_array_equal(plain.numpy(), w, err_msg="plain")
     for tile in TILES:
-        got, _stats = tiled_admit(*args, tile)
-        np.testing.assert_array_equal(got, plain, err_msg=f"tile {tile}")
+        got, stats = tiled_admit(*args, tile)
+        np.testing.assert_array_equal(got, want, err_msg=f"tile {tile}")
+        assert stats["resets"] > 0, tile
     vi = np.flatnonzero(valid)
     packed = (dst[vi], sizes[vi], arrive[vi], np.ones(len(vi), dtype=bool),
               *args[4:])
-    without = bw.admit_sorted_torch(*(torch.as_tensor(a) for a in packed))
-    np.testing.assert_array_equal(plain[vi], without.numpy())
-    np.testing.assert_array_equal(_jax(packed), without.numpy())
-    want = _jax(args)
-    # a valid lane is tainted once its run has passed an invalid lane of
-    # another dst; the run's opener never is
-    tainted = np.zeros(len(dst), dtype=bool)
-    run_dst, seen = None, False
-    for k in range(len(dst)):
-        if not valid[k]:
-            seen |= run_dst is not None and dst[k] != run_dst
-            continue
-        if dst[k] != run_dst:
-            run_dst, seen = dst[k], False
-        tainted[k] = seen
-    assert not want[~valid].any() and not plain[~valid].any()
-    differs = want != plain
-    assert differs.any() and not (differs & ~tainted).any()
+    assert (_jax(packed) != want[vi]).any()
+    assert (dst[~valid] < 0).any() and (dst[~valid] >= len(args[5])).any()
 
 
 def _stats(name: str, tile: int = bw.ADMIT_TILE) -> dict:

@@ -546,13 +546,15 @@ def test_saturate_kernel_bit_exact_on_edge_cases(dev, case):
 
 
 @pytest.mark.parametrize("case", [*chip_smoke.admit_edge_cases(),
-                                  chip_smoke.admit_carry_case()],
+                                  *chip_smoke.admit_carry_cases()],
                          ids=lambda c: c[0])
 def test_admit_sorted_kernel_bit_exact_on_edge_cases(dev, case):
-    """chip_smoke.py's admit_edge_cases and admit_carry_case, one launch
+    """chip_smoke.py's admit_edge_cases and admit_carry_cases, one launch
     each: runs across the kernel's tiles with invalid lanes at tile edges,
     a whole tile invalid, packets and arrivals past the 32-bit path's
-    bounds, invalid lanes of other dsts inside runs."""
+    bounds, invalid lanes of other dsts inside runs (on the tiled and the
+    lane kernel), each equal to the plain version, which the CPU tests
+    hold to JAX."""
     from shadow_tpu_torch.ops import bandwidth as bw
     name, arrays = case
     args = tuple(torch.as_tensor(a, device=dev) for a in arrays)

@@ -4,6 +4,11 @@ another path — the paths that were refused before their slice run and
 equal the JAX package, and the port's CLI runs a config end to end on the
 CPU."""
 
+import io
+import os
+import shutil
+import subprocess
+
 import pytest
 
 from shadow_tpu_torch import cli
@@ -25,8 +30,6 @@ DEVICE_TOR3 = tor_network(3, n_clients=2, n_servers=1, stoptime=60,
 
 
 @pytest.mark.parametrize("xml,opts,item", [
-    (ECHO, {"processes": 2}, "A9"),
-    (ECHO, {"dataplane": "native"}, "A14"),
     (DEVICE_TOR, {"cost_model": "COSTMODEL.json"}, "A7"),
     (ECHO, {"cost_model": "COSTMODEL.json"}, "A7"),
 ])
@@ -109,11 +112,92 @@ def test_host_table_configs_run_and_equal_jax(xml, opts):
         (jdigest(jctrl.engine), jctrl.engine.events_executed)
 
 
-@pytest.mark.parametrize("path", ["exec:/bin/true", "pool:/x/plugin.so",
-                                  "/bin/true"])
-def test_native_plugins_raise(path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        registry.resolve(path)
+def _run_both(xml, stop=5, **opts):
+    """The port's run_simulation and the JAX package's on one config:
+    (rc, digest, events) of each.  A sharded run reports its coordinator's;
+    a serial one its engine's."""
+    from shadow_tpu.core import configuration as jconfiguration
+    from shadow_tpu.core import controller as jcontroller
+    from shadow_tpu.core.checkpoint import state_digest as jdigest
+    from shadow_tpu.core.logger import SimLogger as JSimLogger
+    from shadow_tpu.core.logger import set_logger as jset_logger
+    from shadow_tpu.core.options import Options as JOptions
+    from shadow_tpu.parallel.procs import ProcsController as JProcs
+    from shadow_tpu_torch.core.checkpoint import state_digest
+    from shadow_tpu_torch.core.logger import SimLogger, set_logger
+    from shadow_tpu_torch.parallel.procs import ProcsController
+    out = []
+    for cfgmod, ctl, procs, digest, opt, setlog, logger, dev in (
+            (configuration, Controller, ProcsController, state_digest,
+             Options, set_logger, SimLogger, {"device": "cpu"}),
+            (jconfiguration, jcontroller.Controller, JProcs, jdigest,
+             JOptions, jset_logger, JSimLogger, {})):
+        setlog(logger(stream=io.StringIO(), level="warning"))
+        options = opt(stop_time_sec=stop, log_level="warning", **dev, **opts)
+        if options.processes >= 2:
+            run = procs(options, cfgmod.parse_xml(xml))
+            out.append((run.run(), run.digest, run.events_executed))
+        else:
+            run = ctl(options, cfgmod.parse_xml(xml))
+            rc = run.run()
+            out.append((rc, digest(run.engine), run.engine.events_executed))
+    return out
+
+
+ECHO_PAIR = ('<shadow stoptime="5"><plugin id="e" path="python:echo" />'
+             '<host id="s"><process plugin="e" starttime="1" '
+             'arguments="udp server 8000" /></host><host id="c"><process '
+             'plugin="e" starttime="2" arguments="udp client s 8000 3 100" />'
+             '</host></shadow>')
+
+
+@pytest.mark.parametrize("opts", [{"processes": 2},
+                                  {"dataplane": "native"}],
+                         ids=["A9-processes", "A14-native-dataplane"])
+def test_lifted_paths_run_and_equal_jax(opts):
+    """``--processes 2`` and ``--dataplane=native`` (once refused as
+    ROADMAP A9 and A14) run through run_simulation and end in the JAX
+    package's state digest and event count."""
+    ours, theirs = _run_both(ECHO_PAIR, **opts)
+    assert ours[0] == 0 and ours == theirs
+    cfg = configuration.parse_xml(ECHO_PAIR)
+    assert run_simulation(Options(device="cpu", stop_time_sec=5,
+                                  log_level="warning", **opts), cfg) == 0
+
+
+@pytest.fixture(scope="module")
+def testapp_so(tmp_path_factory):
+    """tests/native_src/testapp.c as a pooled plugin, linked against the
+    port's shim (the pool's library path resolves each package's own)."""
+    from shadow_tpu_torch.utils.native_build import ensure_plugins
+    if not all(shutil.which(t) for t in ("cc", "g++", "make")):
+        pytest.skip("needs cc, g++ and make")
+    lib_dir = ensure_plugins()
+    out = tmp_path_factory.mktemp("refusals") / "testapp.so"
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "native_src", "testapp.c")
+    subprocess.run(["cc", "-O1", "-fPIC", "-shared", "-o", str(out), src,
+                    "-L", lib_dir, "-l:libshadow_preload.so", "-lpthread"],
+                   check=True, capture_output=True)
+    return str(out)
+
+
+@pytest.mark.parametrize("path", ["exec:/bin/true", "pool:", "/bin/true"],
+                         ids=["exec", "pool", "executable-path"])
+def test_native_plugins_run_and_equal_jax(path, testapp_so):
+    """The three native plugin forms (once refused as ROADMAP A15) resolve
+    to the interposer, run a binary to exit 0, and end in the JAX
+    package's digest and event count."""
+    if path == "pool:":
+        path, args = "pool:" + testapp_so, "hostname h"
+    else:
+        args = ""
+    assert callable(registry.resolve(path))
+    xml = (f'<shadow stoptime="10"><plugin id="p" path="{path}" />'
+           f'<host id="h"><process plugin="p" starttime="1" '
+           f'arguments="{args}" /></host></shadow>')
+    ours, theirs = _run_both(xml, stop=10)
+    assert ours[0] == 0 and ours == theirs
     assert registry.resolve("python:echo") is registry.resolve("echo")
 
 
