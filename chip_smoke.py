@@ -121,11 +121,11 @@ N1. native: tor1k under ``global`` with ``--dataplane=native`` (the C data
     equal to EXPECTED10K in digest, events, completed flows and forwards;
     the walls beside the ``tpu`` runs' (5 and 7 also print which data
     plane the ``auto`` global run took);
-N2. procs: tor1k with ``--processes 2`` under ``tpu`` on cuda (each shard
-    its own CUDA context, its hops through ``packet_hop``: the shards'
-    device and launches ride their metrics scrape to the parent's
-    summary) and under ``global`` (C-plane shards), and a shard killed at
-    round PROCS_DRILL_ROUND and resurrected under ``tpu``: each equal to
+N2. procs: tor1k with ``--processes 2`` under ``global`` (C-plane shards)
+    and under ``tpu`` on cuda with a shard killed at round
+    PROCS_DRILL_ROUND and resurrected (each shard its own CUDA context, its
+    hops through ``packet_hop``: the shards' device and launches ride
+    their metrics scrape to the parent's summary): each equal to
     EXPECTED;
 N3. plugins: tests/native_src/testapp.c compiled with ``cc``; a two-host
     ``exec:`` TCP transfer and six pooled UDP pairs (``pool:``) under
@@ -145,12 +145,15 @@ M1. mesh kernels vs plain versions: ``mesh_span`` + the mesh entry of
     through the layout, against ``torcells_span`` + ``pack_flush`` on the
     unpadded table; the same on the long-node table at D = 2 (fused,
     ppermute, none: nodes of up to 614 flows, longer than a tile and the
-    512-flow chunk); the sharded hop in both layouts at B in {256, 4096,
+    512-flow chunk); the mesh flush with caps (the JAX package's
+    ``cap_chains`` / ``cap_nodes``) at D = 8, caps below the counts
+    (overflow detected) and above them, against the plain mesh version;
+    the sharded hop in both layouts at B in {256, 4096,
     65536} and D in {8, 3, 1, 5} against its plain versions and
     ``packet_hop``, one launch a batch;
 M2. mesh times: one 256-tick mesh dispatch at D = 8 in turns with the
-    single-table span on the same state (CUDA events), the mesh flush and
-    the sharded hop (D = 8 batch-sharded, D = 4 matrix-sharded) beside
+    single-table span on the same state (CUDA events), the mesh flush
+    (also capped at the tuner's caps) and the sharded hop (D = 8 batch-sharded, D = 4 matrix-sharded) beside
     ``packet_hop`` by graph replay, each beside its bound;
 M3. the tor1k matrix slice: tor1k under ``tpu`` with ``--tpu-devices 4
     --tpu-shard-matrix``: EXPECTED, every hop batch one launch of
@@ -163,6 +166,26 @@ M4. the tor10k mesh slice: tor10k with ``--tpu-devices 8``: EXPECTED10K,
 M5. the tor10k mesh slice under ``torch.profiler``: one mesh span and one
     mesh flush kernel per counted dispatch, the card's busy time and idle
     share.
+
+The cost model (after M5):
+
+C1. costmodel: ``python -m shadow_tpu_torch.prof calibrate --batched`` on
+    cuda into a temporary path (one bounded child, wall cap
+    COSTMODEL_WALL_CAP_S): the span + pack step per tick at 1,000 to
+    120,000 flows, ``mesh_span`` per exchange mode at D in {2, 3, 4, 8}
+    beside ``torcells_span`` on the same flows, the plane's copies, the
+    batched step at W in {1, 2, 4, 8}, each the median of 5 launches with
+    its spread; ``simprof check`` on it (ok, it loads here, both drills
+    refused) and the JAX package's COSTMODEL.json refused; tor10k under
+    ``tpu`` with ``--cost-model`` (EXPECTED10K's digest, events, rounds,
+    completed flows and forwards; the tuner's K, the launch attribution,
+    the wall); a 100-client Tor config at ``--tpu-devices 8`` with the
+    model, without it and with each exchange mode forced: one digest, the
+    model's run reading its exchange from the model.
+
+When a slice and its trace are both asked for (5 and 6, 7 and 8, M4 and
+M5), the slice runs once, under the profiler, and both phases' checks are
+made on that run (the profiler costs the host ~3% of the wall).
 
 Each trace (6, 8, 13, 17, M5) runs its slice between two marker kernels;
 the profiler at times drops the card's events at the start of its window,
@@ -239,8 +262,11 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - _T0:.1f} s)", flush=True)
 
 
 def card() -> str:
@@ -1147,9 +1173,10 @@ def check_slice(tpu: dict, glob: dict) -> None:
 
 
 def run_tor10k(trace: bool = False, policy: str = "tpu",
-               dataplane: str = "auto") -> dict:
+               dataplane: str = "auto", cost_model: str = "") -> dict:
     """The tor10k slice through Controller.run on cuda, with every kernel
-    count set to 0 just before it and read just after."""
+    count set to 0 just before it and read just after (``cost_model``:
+    the ``--cost-model`` path; the scrape's ``prof.*`` in the result)."""
     import dataclasses
     import torch
     from shadow_tpu_torch.core.checkpoint import state_digest
@@ -1159,8 +1186,8 @@ def run_tor10k(trace: bool = False, policy: str = "tpu",
     from shadow_tpu_torch.ops import torcells_device as td
     set_logger(SimLogger(level="warning"))
     ctl = Controller(dataclasses.replace(
-        tor10k_options(), scheduler_policy=policy, dataplane=dataplane),
-        tor10k_config())
+        tor10k_options(), scheduler_policy=policy, dataplane=dataplane,
+        cost_model=cost_model), tor10k_config())
     td.torcells_span.launches = 0
     td.pack_flush.launches = 0
     rs.packet_hop_mapped.launches = rs.packet_hop_packed.launches = 0
@@ -1200,6 +1227,8 @@ def run_tor10k(trace: bool = False, policy: str = "tpu",
            "pipeline_overlap_s": st["pipeline_overlap_sec"],
            "hop_device_ns": getattr(eng.scheduler.policy, "device_ns", 0),
            "events_per_s": eng.events_executed / wall}
+    out.update({k: v for k, v in eng.metrics.scrape().items()
+                if k.startswith("prof.")})
     if trace:
         out.update(busy_intervals(prof))
         out["idle_share"] = 1.0 - out["busy_s"] / wall
@@ -1334,9 +1363,13 @@ def run_procs_slice(policy: str, fault: str = "") -> dict:
 
 
 def run_procs() -> dict:
+    """tor1k with --processes 2 under global (C-plane shards) and under
+    tpu with a shard killed at PROCS_DRILL_ROUND and resurrected: the tpu
+    shards' run is the drill's (its checks are the plain tpu run's, and
+    one run fewer keeps the smoke inside its time limit)."""
     out = {}
     for key, policy, fault in (
-            ("tpu", "tpu", ""), ("global", "global", ""),
+            ("global", "global", ""),
             ("resurrect", "tpu",
              f"shard-exit-resurrect:1:{PROCS_DRILL_ROUND}")):
         r = out[key] = run_procs_slice(policy, fault)
@@ -1359,13 +1392,13 @@ def run_procs() -> dict:
     sup = out["resurrect"]["supervision"]
     if sup["shard_resurrections"] != 1 or sup["shard_deaths_detected"] != 1:
         fail(f"the resurrection drill: {sup}")
-    t, g, d = out["tpu"], out["global"], out["resurrect"]
-    print(f"tor1k --processes 2: tpu wall {t['wall_s']:.3f} s, shards' "
-          f"packet_hop launches {[sh['launches'] for sh in t['shards']]} on "
-          f"{[sh['device'] for sh in t['shards']]}; global (C-plane shards) "
-          f"wall {g['wall_s']:.3f} s; a shard resurrected at round "
+    g, d = out["global"], out["resurrect"]
+    print(f"tor1k --processes 2: global (C-plane shards) wall "
+          f"{g['wall_s']:.3f} s; tpu with a shard resurrected at round "
           f"{PROCS_DRILL_ROUND}: wall {d['wall_s']:.3f} s, mttr "
-          f"{sup['mttr_sec']:.3f} s; all == JAX", flush=True)
+          f"{sup['mttr_sec']:.3f} s, shards' packet_hop launches "
+          f"{[sh['launches'] for sh in d['shards']]} on "
+          f"{[sh['device'] for sh in d['shards']]}; both == JAX", flush=True)
     return out
 
 
@@ -2013,12 +2046,19 @@ def _wrappers() -> dict:
 
 
 def _reset_counts():
+    from shadow_tpu_torch.parallel.mesh import exchange as ex
     for fn in _wrappers().values():
         fn.launches = 0
+    ex.mesh_pack_flush.capped_launches = 0
 
 
 def _counts() -> dict:
-    return {key: fn.launches for key, fn in _wrappers().items()}
+    """Each wrapper's launches, and ``mesh_pack_capped``: the mesh flush's
+    launches with a cap below its count (counted in mesh_pack as well)."""
+    from shadow_tpu_torch.parallel.mesh import exchange as ex
+    counts = {key: fn.launches for key, fn in _wrappers().items()}
+    counts["mesh_pack_capped"] = ex.mesh_pack_flush.capped_launches
+    return counts
 
 
 def run_fleet_smoke() -> dict:
@@ -3417,7 +3457,7 @@ def unpad_mesh_state(lay, out, n_nodes: int) -> list:
             out[5][inv], out[6][inv], nodes(out[7]), out[8], out[9]]
 
 
-def _mesh_step(plane, lay, n_shards: int, mode: str):
+def _mesh_step(plane, lay, n_shards: int, mode: str, caps=(None, None)):
     from shadow_tpu_torch.parallel.mesh import device_mesh
     from shadow_tpu_torch.parallel.mesh import exchange as ex
     masked = mode.endswith("-masked")
@@ -3427,7 +3467,8 @@ def _mesh_step(plane, lay, n_shards: int, mode: str):
     last = lay["inv"][plane.last_flow]
     step = ex.make_mesh_span_flush(
         device_mesh(n_shards, device=_card()), "flows", plane.ring_len, lay,
-        last, lay["node_src"], plane.n_nodes, mode=mode, leg_mask=lm)
+        last, lay["node_src"], plane.n_nodes, mode=mode, leg_mask=lm,
+        cap_chains=caps[0], cap_nodes=caps[1])
 
     def plain(*a):
         import torch
@@ -3435,7 +3476,8 @@ def _mesh_step(plane, lay, n_shards: int, mode: str):
             *a, ring_len=plane.ring_len, schedule=lay["exchange"],
             last_flow_pad=torch.as_tensor(last, device=_card()),
             node_src=torch.as_tensor(lay["node_src"], device=_card()),
-            n_nodes=plane.n_nodes, mode=mode, leg_mask=lm)
+            n_nodes=plane.n_nodes, mode=mode, leg_mask=lm,
+            cap_chains=caps[0], cap_nodes=caps[1])
     return step, plain
 
 
@@ -3537,6 +3579,78 @@ def check_mesh(plane, checks=MESH_CHECK) -> int:
     return max_err
 
 
+def check_capped_mesh(plane, n_shards: int = MESH10K_SHARDS) -> int:
+    """The mesh entry of pack_flush.cu with caps (the JAX package's
+    ``cap_chains`` / ``cap_nodes``; no run engages them on the mesh),
+    against the plain mesh version on the card, bit-exact on all ten
+    outputs, for 3's first three span cases at D = ``n_shards`` (fused):
+    caps below each case's counts (its header's TRUE counts exceed them:
+    overflow) and caps just above them (nothing dropped, the buffer
+    shorter than full); each capped flush read back equals the full one's
+    entries.  Returns the largest absolute difference seen (0)."""
+    import numpy as np
+    from shadow_tpu_torch.ops.torcells_device import (flush_len,
+                                                      flush_overflowed,
+                                                      parse_flush)
+    from shadow_tpu_torch.parallel.mesh import exchange as ex
+    from shadow_tpu_torch.parallel.mesh.partition import pad_state
+    t0 = time.perf_counter()
+    cases = [c for c in span_cases(plane) if c[6] is None]
+    lay = mesh_layout(plane, n_shards)
+    statics = _mesh_statics(lay)
+    c, h = plane.n_chains, plane.n_nodes
+    full_step, _ = _mesh_step(plane, lay, n_shards, "fused")
+    max_err, seen = 0, []
+    for name, st, inj, inj_t, tv, idle, _c in cases:
+        args = (pad_mesh_state(lay, st), pad_state(lay, inj),
+                pad_state(lay, inj_t), tv, idle, statics)
+        full = _mesh_run(full_step, *args)
+        n_done, n_touched = int(full[9][2]), int(full[9][3])
+        below = (max(n_done // 2, 1), max(n_touched // 3, 1))
+        above = (min(n_done + 7, c), min(n_touched + 9, h))
+        for label, caps in (("below", below), ("above", above)):
+            step, plain = _mesh_step(plane, lay, n_shards, "fused", caps)
+            p0 = ex.mesh_pack_flush.launches
+            q0 = ex.mesh_pack_flush.capped_launches
+            kern = _mesh_run(step, *args)
+            if ex.mesh_pack_flush.launches != p0 + 1:
+                fail("the capped mesh flush did not count one launch")
+            if ex.mesh_pack_flush.capped_launches != q0 + int(
+                    caps[0] < c or caps[1] < h):
+                fail("the capped mesh flush did not count its caps")
+            ref = _mesh_run(plain, *args)
+            err = _max_err(zip(kern, ref))
+            max_err = max(max_err, err)
+            if err:
+                fail(f"capped mesh flush D={n_shards} {name} caps {caps} "
+                     f"({label}): the kernels differ from the plain mesh "
+                     f"version (max |diff| {err})")
+            flush = kern[9]
+            if len(flush) != flush_len(c, h, *caps) + 1:
+                fail(f"capped mesh flush {name}: {len(flush)} words")
+            over = flush_overflowed(flush, *caps)
+            if over != (label == "below"):
+                fail(f"capped mesh flush {name} caps {caps} ({label}): "
+                     f"overflow {over}")
+            if ex.mesh_flush_extra(flush, c, h, *caps) != int(full[9][-1]):
+                fail(f"capped mesh flush {name}: the cross slot differs")
+            if not over:
+                got = parse_flush(flush, c, h, *caps)
+                want = parse_flush(full[9][:-1], c, h)
+                if got[:3] != want[:3] or not all(
+                        np.array_equal(a, b)
+                        for a, b in zip(got[3:], want[3:])):
+                    fail(f"capped mesh flush {name}: its entries differ "
+                         "from the full flush's")
+            seen.append(f"{label} {caps}")
+    print(f"capped mesh flush D={n_shards} fused: {len(cases)} cases x "
+          f"caps below and above the counts ({'; '.join(seen)}) == plain "
+          f"mesh version, bit-exact; overflow detected below, entries equal "
+          f"to the full flush above ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    return max_err
+
+
 def _hop_inputs(n: int, seed: int):
     import numpy as np
     rng = np.random.default_rng(seed)
@@ -3618,12 +3732,14 @@ def check_sharded_hop() -> int:
     return max_err
 
 
-def mesh_flush_bound(c: int, h: int) -> dict:
+def mesh_flush_bound(c: int, h: int, caps=(None, None)) -> dict:
     """done_tick and delivered read through last_flow, done_in; node_sent
-    and sent_in through node_slot; the three scalars; the buffer with its
-    trailing slot written once."""
+    and sent_in through node_slot; the three scalars; the buffer (capped
+    by ``caps``) with its trailing slot written once."""
+    cc = c if caps[0] is None else min(caps[0], c)
+    hh = h if caps[1] is None else min(caps[1], h)
     return _bound_row(8 * (2 * c + c + c + 3 * h + 3)
-                      + 8 * (6 + 2 * c + 2 * h), 8 * (c + h))
+                      + 8 * (6 + 2 * cc + 2 * hh), 8 * (c + h))
 
 
 def sharded_hop_bound(bucket: int, pairs: int) -> dict:
@@ -3764,6 +3880,29 @@ def time_mesh(plane) -> dict:
     print(f"mesh flush: {pack_ms * 1e3:.3f} us (graph replay), plain "
           f"{pack_plain_ms * 1e3:.1f} us, bound {pack['bound_ms'] * 1e3:.3f}"
           f" us ({pack['bound_by']})", flush=True)
+    # the capped entry at the tuner's caps for this table (no run engages
+    # caps on the mesh; the entry is held to JAX's make_mesh_span_flush)
+    from shadow_tpu_torch.prof.autotune import flush_caps
+    caps = flush_caps(plane.n_chains, plane.n_nodes)
+    capped_ms = graph_ms(lambda: ex.mesh_pack_flush(*pargs, *caps))
+
+    def capped_plain():
+        done_last = sc[6][last]
+        newly = (done_last >= 0) & (done_in < 0)
+        delta = ex.global_sent_torch(sc[7], nsrc, plane.n_nodes) \
+            - ex.global_sent_torch(sent_in, nsrc, plane.n_nodes)
+        flush = td.pack_flush_torch(sc[8], sc[4][last].sum(), sc[0], newly,
+                                    done_last, delta, *caps)
+        return torch.cat([flush, cross.reshape(1)])
+    if not torch.equal(ex.mesh_pack_flush(*pargs, *caps), capped_plain()):
+        fail("the capped mesh flush differs from its plain version")
+    _, capped_plain_ms = _events_ms(capped_plain, reps=5)
+    capped = {"ms": capped_ms, "plain_ms": capped_plain_ms, "caps": caps}
+    capped.update(mesh_flush_bound(plane.n_chains, plane.n_nodes, caps))
+    print(f"mesh flush capped at {caps}: {capped_ms * 1e3:.3f} us (graph "
+          f"replay), plain {capped_plain_ms * 1e3:.1f} us, bound "
+          f"{capped['bound_ms'] * 1e3:.3f} us ({capped['bound_by']})",
+          flush=True)
     # the sharded hop beside packet_hop, at the tor1k run's larger bucket
     n = MAIN_B - MAIN_B // 8
     lat, rel, cols, barrier = _hop_inputs(n, 77)
@@ -3799,7 +3938,7 @@ def time_mesh(plane) -> dict:
               f"packet_hop {single_hop_ms * 1e3:.2f} us at B={MAIN_B}; plain "
               f"{p_ms * 1e3:.1f} us; bound {row['bound_ms'] * 1e6:.2f} ns "
               f"({row['bound_by']})", flush=True)
-    return {"span": span, "pack": pack, "hop": hops}
+    return {"span": span, "pack": pack, "pack_capped": capped, "hop": hops}
 
 
 def run_tor10k_mesh(trace: bool = False) -> dict:
@@ -3868,6 +4007,9 @@ def check_tor10k_mesh(run: dict) -> None:
     if not c["mesh_span"] == c["mesh_pack"] == run["dispatches"]:
         fail(f"tor10k mesh: {c['mesh_span']} mesh span and {c['mesh_pack']} "
              f"mesh flush launches for {run['dispatches']} dispatches")
+    if c["mesh_pack_capped"]:
+        fail(f"tor10k mesh: {c['mesh_pack_capped']} capped mesh flushes "
+             "(the plane turns its caps off before it shards)")
     if c["hop_s"] != run["hop_calls"] or run["host_calls"] != 0:
         fail(f"tor10k mesh: {c['hop_s']} sharded hop launches for "
              f"{run['hop_calls']} batches")
@@ -3935,10 +4077,345 @@ def run_tor1k_matrix() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The cost model (shadow_tpu_torch/prof/): a calibration of this card, its
+# check, and the runs that read it
+# ---------------------------------------------------------------------------
+
+# the calibration's wall cap (the child is killed 120 s past it)
+COSTMODEL_WALL_CAP_S = 200
+# the small device-traffic Tor config run at --tpu-devices 8 with the
+# model, without it and with each exchange mode forced: 100 device
+# clients, 200 chains, F = 1,000 flows (inside the model's 500-240,000)
+COSTMODEL_MESH = {"n_relays": 100, "stoptime": 64, "seed": 1, "shards": 8}
+# the deeper superwindow on the card: 150 device bulk clients of 256 MiB
+# to 60 s (F = 600 flows, inside the model's range) keep the host quiet for
+# long stretches, so the model's K merges rounds that K = 8 cannot (on the
+# CPU: 322 dispatches at K = 14 against 477 at K = 8, one digest); run at
+# D = 1 and D = 8, with the model and without
+COSTMODEL_STAR = {"clients": 150, "bulk_mib": 256, "stoptime": 60,
+                  "seed": 1}
+NO_MODEL = "/nonexistent-no-model"
+TUNED_KEYS = ("digest", "events", "rounds", "completed", "forwards")
+
+
+def run_calibration(path: str) -> dict:
+    """``python -m shadow_tpu_torch.prof calibrate --batched`` on cuda into
+    ``path`` (one bounded child), its status row printed."""
+    from shadow_tpu_torch.prof.calibrate import run_calibration as calib
+    t0 = time.perf_counter()
+    row = calib(path, wall_cap_sec=COSTMODEL_WALL_CAP_S, batched=True,
+                device="cuda")
+    wall = time.perf_counter() - t0
+    if not row.get("ok"):
+        fail(f"calibration failed: {json.dumps(row)[:1500]}")
+    meas = row["measured"]
+    print(f"calibration: {wall:.1f} s (child {row['child_wall_sec']} s), "
+          f"{row['step_points']} step points, {row['collective_points']} "
+          f"exchange entries, truncated {row['truncated']}", flush=True)
+    for p in meas["step_kernel"]:
+        print(f"  step kernel F={p['flows']}: {p['us_per_step']} us a tick "
+              f"(min {p['min_us_per_step']}, max {p['max_us_per_step']}, "
+              f"{p['steps']} ticks a launch)", flush=True)
+    for d, r in sorted(meas["exchange"].items(), key=lambda x: int(x[0])):
+        print(f"  exchange D={d} (F {r['flows_padded']} padded, {r['legs']} "
+              f"legs, {r['cross_edges']} cross edges, pair width "
+              f"{r['pair_width']}): a tick single {r['single_us']} us, "
+              f"fused {r['fused_us']}, ppermute {r['ppermute_us']}; the "
+              f"cross-free twin ({r['cross_free_flows_padded']} padded): "
+              f"single {r['single_cf_us']}, mesh {r['cross_free_us']}; "
+              f"differences {r['diff_us']}", flush=True)
+    print(f"  exchange tables: {json.dumps(row['collectives'])}", flush=True)
+    print(f"  transfer: {row['transfer']} (median, min, max: "
+          f"{meas['transfer']})", flush=True)
+    for p in (row.get("fleet_batched") or {}).get("points", []):
+        print(f"  batched W={p['width']}: {p['us_per_lane_step']} us a lane "
+              f"tick (min {p['min_us_per_lane_step']}, max "
+              f"{p['max_us_per_lane_step']}), {p['speedup_vs_serial']}x W=1",
+              flush=True)
+    if row["truncated"]:
+        fail("the calibration was truncated by its wall cap")
+    if row["step_points"] < 5 or any(
+            f"{d}x2" not in row["collectives"]["psum"] for d in (2, 3, 4, 8)):
+        fail("the calibration lacks step points or exchange entries")
+    row["wall_s"] = wall
+    return row
+
+
+def check_costmodel(path: str) -> dict:
+    """``simprof check`` on the calibrated model (ok, loads for cuda runs
+    here, both drills refused), and the JAX package's COSTMODEL.json
+    refused: by load_model and, as one warning and status ``refused``, by
+    load_for_engine."""
+    from shadow_tpu_torch.core.logger import SimLogger, set_logger
+    from shadow_tpu_torch.core.options import Options
+    from shadow_tpu_torch.prof import model as prof_model
+    from shadow_tpu_torch.prof.cli import check_model
+    chk = check_model(path)
+    if not (chk["ok"] and chk.get("loads_on_this_box")
+            and chk.get("stale_fingerprint_refused")
+            and chk.get("tampered_digest_refused")):
+        fail(f"simprof check of the calibrated model: {json.dumps(chk)}")
+    jax_model = os.path.join(HERE, "COSTMODEL.json")
+    try:
+        prof_model.load_model(jax_model, device="cuda")
+        fail("the JAX package's COSTMODEL.json loaded in the port")
+    except prof_model.CostModelError as e:
+        refusal = str(e)
+    import io
+    stream = io.StringIO()
+    log = SimLogger(stream=stream, level="warning")
+    set_logger(log)
+    got = prof_model.load_for_engine(Options(cost_model=jax_model))
+    log.flush()
+    warnings = [ln for ln in stream.getvalue().splitlines()
+                if "cost model refused" in ln]
+    if got != (None, "refused") or len(warnings) != 1:
+        fail(f"load_for_engine on COSTMODEL.json: {got}, {len(warnings)} "
+             "warnings")
+    print(f"simprof check: ok, loads on this card, drills refused "
+          f"(fingerprint {json.dumps(chk['fingerprint'])}); the JAX "
+          f"package's COSTMODEL.json refused ({refusal[:160]}...)",
+          flush=True)
+    return chk
+
+
+def run_tor10k_tuned(path: str, base) -> dict:
+    """The tor10k slice under tpu with ``--cost-model path``: the digest,
+    events, rounds, completed flows and forwards of EXPECTED10K; the
+    tuner's decision, the launch attribution and the wall beside the
+    tor10k phase's (one run each)."""
+    run = run_tor10k(cost_model=path)
+    if run["rc"] != 0 or run["mode"] != "device" or run["demoted"]:
+        fail(f"tuned tor10k: rc {run['rc']}, mode {run['mode']}")
+    for key in TUNED_KEYS:
+        if run[key] != EXPECTED10K[key]:
+            fail(f"tuned tor10k {key}: {run[key]} != JAX run's "
+                 f"{EXPECTED10K[key]}")
+    if not run["span_launches"] == run["pack_launches"] == run["dispatches"]:
+        fail(f"tuned tor10k: span {run['span_launches']}, pack "
+             f"{run['pack_launches']}, dispatches {run['dispatches']}")
+    if run["prof.autotune_source"] != "model":
+        fail(f"tuned tor10k: autotune source {run['prof.autotune_source']}")
+    if run["prof.autotune_flush_compact"] != 0:
+        fail("tuned tor10k: a capped flush on the card")
+    if base and run["prof.autotune_k"] == base["prof.autotune_k"] and (
+            run["dispatches"], run["superwindows"]) != (
+                base["dispatches"], base["superwindows"]):
+        fail(f"tuned tor10k: the tor10k phase's K, but {run['dispatches']} "
+             f"dispatches and {run['superwindows']} superwindows against "
+             f"{base['dispatches']} and {base['superwindows']}")
+    pred = run.get("prof.launch_predicted_us") or {}
+    meas = run.get("prof.launch_measured_us") or {}
+
+    def mean(h):
+        return h["sum"] / h["count"] if h.get("count") else None
+    run["predicted_mean_us"], run["measured_mean_us"] = mean(pred), mean(meas)
+    base_wall = base["wall_s"] if base else None
+    print(f"tuned tor10k: == EXPECTED10K in {', '.join(TUNED_KEYS)}; "
+          f"autotune source {run['prof.autotune_source']}, K "
+          f"{run['prof.autotune_k']} (would {run['prof.autotune_k_would']}), "
+          f"cadence {run['prof.autotune_cadence']}, compaction "
+          f"{run['prof.autotune_flush_compact']}, predicted "
+          f"{run['prof.autotune_predicted_us']} us a launch; "
+          f"{run['dispatches']} dispatches, {run['superwindows']} "
+          f"superwindows, {run['rounds_per_launch']:.3f} rounds a launch "
+          f"(the tor10k phase: {base and base['dispatches']}, "
+          f"{base and base['superwindows']}, "
+          f"{base and base['rounds_per_launch']}); attribution: {run['prof.launches_checked']} "
+          f"launches checked, predicted window p50 {pred.get('p50')} us "
+          f"(mean {run['predicted_mean_us']}), measured p50 "
+          f"{meas.get('p50')} us (mean {run['measured_mean_us']}), "
+          f"model_stale {run['prof.model_stale']}; wall {run['wall_s']:.3f} "
+          f"s beside the tor10k phase's {base_wall} s (one run each)",
+          flush=True)
+    return run
+
+
+def run_mesh_modes(path: str) -> dict:
+    """The small device-traffic Tor config (COSTMODEL_MESH) at
+    --tpu-devices 8 under tpu on cuda, four times: with the model, without
+    a model, and with each exchange mode forced (with the model).  The four
+    digests are one; the model's run reads ``mesh.exchange_source`` model,
+    ``mesh.cost_model`` loaded."""
+    import torch
+    from shadow_tpu_torch.core import configuration
+    from shadow_tpu_torch.core.checkpoint import state_digest
+    from shadow_tpu_torch.core.controller import Controller
+    from shadow_tpu_torch.core.logger import SimLogger, set_logger
+    from shadow_tpu_torch.core.options import Options
+    from shadow_tpu_torch.tools.workloads import tor_network
+    cm = COSTMODEL_MESH
+    xml = tor_network(cm["n_relays"], stoptime=cm["stoptime"],
+                      device_data=True)
+    runs = {}
+    for label, model, mode in (("model", path, "auto"),
+                               ("no model", NO_MODEL, "auto"),
+                               ("fused", path, "fused"),
+                               ("ppermute", path, "ppermute")):
+        set_logger(SimLogger(level="warning"))
+        ctl = Controller(Options(
+            scheduler_policy="tpu", device="cuda", workers=0, seed=cm["seed"],
+            tpu_devices=cm["shards"], stop_time_sec=cm["stoptime"],
+            log_level="warning", cost_model=model, exchange_mode=mode),
+            configuration.parse_xml(xml))
+        _reset_counts()
+        t0 = time.perf_counter()
+        rc = ctl.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        eng = ctl.engine
+        st = eng.device_plane.stats()
+        sc = eng.metrics.scrape()
+        r = {"rc": rc, "digest": state_digest(eng),
+             "events": eng.events_executed, "rounds": eng.rounds_executed,
+             "completed": st["completed"], "forwards": st["forwards"],
+             "dispatches": st["dispatches"], "flows": eng.device_plane.n_flows,
+             "superwindows": st["superwindows"],
+             "rounds_per_launch": st["rounds_per_launch"],
+             "counts": _counts(), "wall_s": wall}
+        r.update({k: v for k, v in sc.items()
+                  if k.startswith(("mesh.", "prof.autotune"))})
+        runs[label] = r
+        print(f"mesh modes, {label}: rc {rc}, digest {r['digest'][:16]}..., "
+              f"events {r['events']}, F {r['flows']}, exchange "
+              f"{r['mesh.exchange_mode']} [{r['mesh.exchange_source']}], "
+              f"cost model {r['mesh.cost_model']}, predicted "
+              f"{r['mesh.predicted_us']} us a tick, autotune "
+              f"{r['prof.autotune_source']} K {r['prof.autotune_k']}, "
+              f"{r['dispatches']} dispatches = {r['counts']['mesh_span']} "
+              f"mesh span launches, {r['superwindows']} superwindows, "
+              f"{r['rounds_per_launch']} rounds a launch, wall {wall:.3f} s",
+              flush=True)
+        if rc != 0 or r["completed"] == 0:
+            fail(f"mesh modes {label}: rc {rc}, {r['completed']} completed")
+        if r["counts"]["mesh_span"] != r["dispatches"] or \
+                r["counts"]["mesh_pack"] != r["dispatches"]:
+            fail(f"mesh modes {label}: {r['counts']} for {r['dispatches']} "
+                 "dispatches")
+    digests = {k: (r["digest"], r["events"], r["rounds"])
+               for k, r in runs.items()}
+    if len(set(digests.values())) != 1:
+        fail(f"mesh modes: the digests differ: {digests}")
+    m = runs["model"]
+    if (m["mesh.exchange_source"], m["mesh.cost_model"]) != ("model",
+                                                             "loaded"):
+        fail(f"mesh modes: the model run's exchange source "
+             f"{m['mesh.exchange_source']}, cost model {m['mesh.cost_model']}")
+    if runs["no model"]["mesh.exchange_source"] != "heuristic":
+        fail("mesh modes: the run without a model did not take the "
+             "heuristic")
+    for mode in ("fused", "ppermute"):
+        if (runs[mode]["mesh.exchange_mode"],
+                runs[mode]["mesh.exchange_source"]) != (mode, "forced"):
+            fail(f"mesh modes: forced {mode} ran "
+                 f"{runs[mode]['mesh.exchange_mode']}")
+    u = runs["no model"]
+    if m["prof.autotune_k"] == u["prof.autotune_k"] and (
+            m["dispatches"], m["superwindows"]) != (u["dispatches"],
+                                                    u["superwindows"]):
+        fail(f"mesh modes: one K, but {m['dispatches']} and "
+             f"{u['dispatches']} dispatches")
+    print(f"mesh modes: the four digests are one; the model picked "
+          f"{m['mesh.exchange_mode']} at D = {cm['shards']} "
+          f"(predicted {m['mesh.predicted_us']} us a tick); its K "
+          f"{m['prof.autotune_k']} against {u['prof.autotune_k']} untuned: "
+          f"{m['dispatches']} against {u['dispatches']} dispatches, "
+          f"{m['rounds_per_launch']} against {u['rounds_per_launch']} "
+          f"rounds a launch", flush=True)
+    return runs
+
+
+def run_superwindow(path: str) -> dict:
+    """The bulk star (COSTMODEL_STAR) under tpu on cuda at D = 1 and
+    D = 8, each with the model and without: one digest, events, rounds and
+    completed flows for all four; with the model a K deeper than the
+    untuned 8, fewer dispatches and more rounds a launch than the untuned
+    run of the same D; each dispatch one launch of its span and flush
+    kernels."""
+    import torch
+    from shadow_tpu_torch.core import configuration
+    from shadow_tpu_torch.core.checkpoint import state_digest
+    from shadow_tpu_torch.core.controller import Controller
+    from shadow_tpu_torch.core.logger import SimLogger, set_logger
+    from shadow_tpu_torch.core.options import Options
+    from shadow_tpu_torch.tools.workloads import star_bulk
+    cs = COSTMODEL_STAR
+    xml = star_bulk(cs["clients"], stoptime=cs["stoptime"],
+                    bulk_bytes=cs["bulk_mib"] << 20, device_data=True)
+    runs = {}
+    for d in (1, 8):
+        span, pack = ("span", "pack") if d == 1 else ("mesh_span",
+                                                      "mesh_pack")
+        for tuned in (True, False):
+            label = f"D={d} {'model' if tuned else 'no model'}"
+            set_logger(SimLogger(level="warning"))
+            ctl = Controller(Options(
+                scheduler_policy="tpu", device="cuda", workers=0,
+                seed=cs["seed"], tpu_devices=d,
+                stop_time_sec=cs["stoptime"], log_level="warning",
+                cost_model=path if tuned else NO_MODEL),
+                configuration.parse_xml(xml))
+            _reset_counts()
+            t0 = time.perf_counter()
+            rc = ctl.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            eng = ctl.engine
+            st = eng.device_plane.stats()
+            sc = eng.metrics.scrape()
+            r = runs[label] = {
+                "rc": rc, "digest": state_digest(eng),
+                "events": eng.events_executed,
+                "rounds": eng.rounds_executed, "completed": st["completed"],
+                "flows": eng.device_plane.n_flows,
+                "dispatches": st["dispatches"],
+                "superwindows": st["superwindows"],
+                "rounds_per_launch": st["rounds_per_launch"],
+                "source": sc["prof.autotune_source"],
+                "k": sc["prof.autotune_k"], "counts": _counts(),
+                "wall_s": wall}
+            print(f"superwindow, {label}: rc {rc}, digest "
+                  f"{r['digest'][:16]}..., events {r['events']}, rounds "
+                  f"{r['rounds']}, completed {r['completed']}, F "
+                  f"{r['flows']}, autotune {r['source']} K {r['k']}, "
+                  f"{r['dispatches']} dispatches, {r['superwindows']} "
+                  f"superwindows, {r['rounds_per_launch']} rounds a launch, "
+                  f"wall {wall:.3f} s", flush=True)
+            c = r["counts"]
+            if rc != 0 or r["completed"] != cs["clients"]:
+                fail(f"superwindow {label}: rc {rc}, {r['completed']} "
+                     "completed")
+            if not c[span] == c[pack] == r["dispatches"] > 0:
+                fail(f"superwindow {label}: {c[span]} {span} and {c[pack]} "
+                     f"{pack} launches for {r['dispatches']} dispatches")
+        m, u = runs[f"D={d} model"], runs[f"D={d} no model"]
+        if (m["source"], u["source"], u["k"]) != ("model", "defaults", 8):
+            fail(f"superwindow D={d}: autotune {m['source']} and "
+                 f"{u['source']} K {u['k']}")
+        if not (m["k"] > u["k"] and m["dispatches"] < u["dispatches"]
+                and m["rounds_per_launch"] > u["rounds_per_launch"]):
+            fail(f"superwindow D={d}: the model's K {m['k']} merged no more "
+                 f"rounds than K {u['k']}: {m['dispatches']} against "
+                 f"{u['dispatches']} dispatches, {m['rounds_per_launch']} "
+                 f"against {u['rounds_per_launch']} rounds a launch")
+    keys = {k: (r["digest"], r["events"], r["rounds"], r["completed"])
+            for k, r in runs.items()}
+    if len(set(keys.values())) != 1:
+        fail(f"superwindow: the runs differ: {keys}")
+    print("superwindow: the four digests are one; the model's K "
+          + ", ".join(f"{runs[f'D={d} model']['k']} at D = {d}: "
+                      f"{runs[f'D={d} model']['dispatches']} dispatches "
+                      f"against {runs[f'D={d} no model']['dispatches']} at "
+                      "K 8" for d in (1, 8)), flush=True)
+    return runs
+
+
 PHASES = ("build", "kernels", "times", "mesh-kernels", "mesh-times",
           "tor1k", "tor1k-trace", "tor1k-matrix", "tor10k", "tor10k-trace",
           "native", "procs", "plugins",
-          "mesh10k", "mesh10k-trace", "fleet-kernels", "fleet-times",
+          "mesh10k", "mesh10k-trace", "costmodel", "fleet-kernels",
+          "fleet-times",
           "fleet-smoke", "sweep", "sweep-trace", "model-kernels",
           "model-times", "models", "models-trace")
 
@@ -4010,15 +4487,23 @@ def main(argv=None) -> int:
               "flows", flush=True)
         res["mesh_err"] = max(res["mesh_err"], check_mesh(
             long_table, MESH_LONG_NODE_CHECK))
+        res["mesh_capped_err"] = check_capped_mesh(plane)
         res["hop_sharded_err"] = check_sharded_hop()
     if "mesh-times" in want:
         phase("mesh times: a mesh dispatch beside the single-table span, "
               "the sharded hop beside packet_hop")
         res["mesh_times"] = time_mesh(plane)
     plane = None
+    # a slice and its trace in one run, traced, when both are asked for
+    # (the profiler costs the host ~3%; the checks of both are made on it)
+    once = {k for k in ("tor1k", "tor10k", "mesh10k")
+            if {k, k + "-trace"} <= want}
     if "tor1k" in want:
-        phase("slice: tor1k under --scheduler-policy=tpu on cuda")
-        tpu = res["tor1k_tpu"] = run_slice("tpu")
+        phase("slice: tor1k under --scheduler-policy=tpu on cuda"
+              + (", profiled" if "tor1k" in once else ""))
+        tpu = res["tor1k_tpu"] = retake(
+            lambda: run_slice("tpu", trace=True)) if "tor1k" in once \
+            else run_slice("tpu")
         phase("slice: tor1k under --scheduler-policy=global")
         glob = res["tor1k_global"] = run_slice("global")
         check_slice(tpu, glob)
@@ -4032,8 +4517,8 @@ def main(argv=None) -> int:
               flush=True)
     if "tor1k-trace" in want:
         phase("trace: tor1k under --scheduler-policy=tpu on cuda, profiled")
-        traced = res["tor1k_traced"] = retake(
-            lambda: run_slice("tpu", trace=True))
+        traced = res["tor1k_traced"] = res["tor1k_tpu"] if "tor1k" in once \
+            else retake(lambda: run_slice("tpu", trace=True))
         if "tor1k_tpu" in res and traced["digest"] != res["tor1k_tpu"][
                 "digest"]:
             fail("the profiled tpu run's digest differs from the "
@@ -4065,13 +4550,15 @@ def main(argv=None) -> int:
         res["tor1k_matrix"] = run_tor1k_matrix()
     if "tor10k" in want:
         phase("slice: tor10k, device clients, --scheduler-policy=tpu on "
-              "cuda")
-        res["tor10k"] = run_tor10k()
+              "cuda" + (", profiled" if "tor10k" in once else ""))
+        res["tor10k"] = retake(lambda: run_tor10k(trace=True)) \
+            if "tor10k" in once else run_tor10k()
         check_tor10k(res["tor10k"])
     if "tor10k-trace" in want:
         phase("trace: tor10k under --scheduler-policy=tpu on cuda, "
               "profiled")
-        tr = res["tor10k_traced"] = retake(lambda: run_tor10k(trace=True))
+        tr = res["tor10k_traced"] = res["tor10k"] if "tor10k" in once \
+            else retake(lambda: run_tor10k(trace=True))
         check_tor10k(tr)
         if "tor10k" in res and tr["digest"] != res["tor10k"]["digest"]:
             fail("the profiled tor10k run's digest differs from the "
@@ -4107,12 +4594,14 @@ def main(argv=None) -> int:
     if "mesh10k" in want:
         phase("slice: tor10k with --tpu-devices 8 on cuda (the plane on 8 "
               "shards of the card, the hop batch-sharded)")
-        res["mesh10k"] = run_tor10k_mesh()
+        res["mesh10k"] = retake(lambda: run_tor10k_mesh(trace=True)) \
+            if "mesh10k" in once else run_tor10k_mesh()
         check_tor10k_mesh(res["mesh10k"])
     if "mesh10k-trace" in want:
         phase("trace: the tor10k mesh slice under torch.profiler")
-        tr = res["mesh10k_traced"] = retake(
-            lambda: run_tor10k_mesh(trace=True))
+        tr = res["mesh10k_traced"] = res["mesh10k"] \
+            if "mesh10k" in once else retake(
+                lambda: run_tor10k_mesh(trace=True))
         check_tor10k_mesh(tr)
         if "mesh10k" in res and tr["digest"] != res["mesh10k"]["digest"]:
             fail("the profiled tor10k mesh run's digest differs from the "
@@ -4135,6 +4624,21 @@ def main(argv=None) -> int:
               f"{tr['mesh_pack_kernel_mean_us']:.2f} us; sharded hop "
               f"{tr['hop_s_kernels']} x {tr['hop_s_kernel_mean_us']:.3f} us",
               flush=True)
+    if "costmodel" in want:
+        phase("costmodel: calibrate this card, check the model, tor10k "
+              "tuned by it, the mesh's exchange from it, its deeper "
+              "superwindow")
+        import tempfile
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="costmodel-") as td:
+            path = os.path.join(td, "COSTMODEL_TORCH.json")
+            cm = res["costmodel"] = {"calibration": run_calibration(path)}
+            cm["check"] = check_costmodel(path)
+            cm["tor10k"] = run_tor10k_tuned(path, res.get("tor10k"))
+            cm["mesh_modes"] = run_mesh_modes(path)
+            cm["superwindow"] = run_superwindow(path)
+        cm["wall_s"] = time.perf_counter() - t0
+        print(f"costmodel phase: {cm['wall_s']:.1f} s", flush=True)
     fp = lanes = None
     if want & {"fleet-kernels", "fleet-times"}:
         t0 = time.perf_counter()
@@ -4332,6 +4836,21 @@ def main(argv=None) -> int:
     # the batch layout's ms is one batch (the tor10k mesh slice's D = 8
     # slices in one launch), as the main path runs it
     kernels[-2]["ms_is_per"] = "batch of D slices, one launch"
+    # the mesh entry with caps: held to its plain version and timed; its
+    # launches are the mesh10k run's capped flushes, which must be 0 (the
+    # plane turns its caps off before it shards)
+    mc = mesh_t.get("pack_capped") or {}
+    kernels.append({
+        "name": "pack_flush_mesh[capped]", "route": "cuda",
+        "source": "shadow_tpu_torch/ops/csrc/pack_flush.cu",
+        "replaces": "shadow_tpu/parallel/mesh/exchange.py:473",
+        "launches": get("mesh10k", "counts", "mesh_pack_capped"),
+        "max_abs_err": res.get("mesh_capped_err"),
+        "ms": mc.get("ms"), "plain_ms": mc.get("plain_ms"),
+        "bound_ms": mc.get("bound_ms"), "bound_by": mc.get("bound_by"),
+        "library_ms": None, "caps": mc.get("caps"),
+        "main_path": "none: the plane turns its caps off before it shards "
+                     "(launches read from the mesh10k run)"})
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     if args.out:

@@ -52,10 +52,6 @@ def has_device_clients(config: Configuration) -> bool:
 def refuse_unported(options: Options, config: Configuration) -> None:
     """Raise NotImplementedError for the configurations whose paths the
     port does not run yet."""
-    if (getattr(options, "cost_model", "") or "").strip():
-        raise NotImplementedError(
-            "--cost-model: the port has no device cost model yet (the "
-            "checked-in COSTMODEL.json is the JAX package's): ROADMAP A7")
     if getattr(options, "tpu_device_threshold", 0) > 0 \
             and getattr(options, "device", "cuda") != "cpu":
         raise NotImplementedError(

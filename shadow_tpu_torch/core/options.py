@@ -138,8 +138,9 @@ class Options:
                                          # the hand defaults, untouched
     cost_model: str = ""                 # --cost-model: per-box measured
                                          # cost model path (simprof
-                                         # calibrate); "" = $SHADOW_COSTMODEL
-                                         # or the repo-root COSTMODEL.json;
+                                         # calibrate); "" = $SHADOW_TORCH_
+                                         # COSTMODEL or the repo-root
+                                         # COSTMODEL_TORCH.json;
                                          # refuses a fingerprint mismatch
                                          # and falls back to heuristics
     # Checkpointing (new capability; absent in the reference — SURVEY.md §5)
@@ -342,9 +343,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "'off' restores the hand defaults exactly")
     p.add_argument("--cost-model", default="", dest="cost_model",
                    help="path to the per-box measured cost model "
-                        "(simprof calibrate); default: $SHADOW_COSTMODEL "
-                        "or the repo-root COSTMODEL.json; a fingerprint "
-                        "mismatch refuses loudly and heuristics run")
+                        "(python -m shadow_tpu_torch.prof calibrate); "
+                        "default: $SHADOW_TORCH_COSTMODEL or the repo-root "
+                        "COSTMODEL_TORCH.json; a fingerprint mismatch "
+                        "refuses loudly and heuristics run")
     p.add_argument("--device-plane-batch-steps", type=int, default=8,
                    dest="device_plane_batch_steps",
                    help="accumulate at least N plane steps per kernel "

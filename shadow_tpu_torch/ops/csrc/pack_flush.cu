@@ -12,7 +12,7 @@
 //   torcells_device.py:pack_flush_batched_torch.
 // * mesh: the flush half of shadow_tpu/parallel/mesh/exchange.py:473
 //   make_mesh_span_flush (its step_flush :502-518: the gathers through
-//   last_flow_pad, global_sent through node_src, _pack_flush_jnp with no
+//   last_flow_pad, global_sent through node_src, _pack_flush_jnp with its
 //   caps, and the trailing slot), after csrc/mesh_span.cu.  Plain torch
 //   version: shadow_tpu_torch/parallel/mesh/exchange.py:mesh_span_flush_torch
 //   (its flush half: global_sent_torch, pack_flush_torch, the cross slot).
@@ -25,7 +25,7 @@
 //   [5+cc     : 5+cc+n]     their done_last[c]
 //   [5+2cc    : 5+2cc+m]    nodes h with sent_delta[h] != 0, ascending
 //   [5+2cc+hh : 5+2cc+hh+m] their sent_delta[h]
-//   (mesh) [5+2C+2H]        cross
+//   (mesh) [5+2cc+2hh]      cross
 // and zeros elsewhere.  The header counts are the TRUE counts; entries
 // whose position is past a cap are not written (the JAX scatter's "drop"
 // mode), so the host can tell a capped buffer lost entries.  How a lane is
@@ -207,7 +207,7 @@ struct MeshSrc {
     out[2] = n_done;
     out[3] = n_touched;
     out[4] = *t_stop;
-    out[HEADER + 2 * d.c + 2 * d.h] = *cross;
+    out[HEADER + 2 * d.cc + 2 * d.hh] = *cross;
   }
 };
 
@@ -534,15 +534,17 @@ extern "C" int pack_flush_batched_launch(
   return launch(pack_flush_batched_kernel, src, d, buf, stream);
 }
 
-// buf [5 + 2C + 2H + 1], no caps, the cross slot last.
+// buf [5 + 2cc + 2hh + 1]: the caps as in the serial entry (cc = c and
+// hh = h for none), the cross slot last.
 extern "C" int pack_flush_mesh_launch(
     const void* t_stop, const void* forwards, const void* cross,
     const void* done_tick, const void* delivered, const void* node_sent,
     const void* done_in, const void* sent_in, void* buf,
     const void* last_flow, const void* node_slot, int64_t c, int64_t h,
-    void* scratch, int64_t n_scratch, void* stream) {
+    int64_t cc, int64_t hh, void* scratch, int64_t n_scratch,
+    void* stream) {
   Dims d;
-  if (!make_dims(d, 1, c, h, c, h, HEADER + 2 * c + 2 * h + 1, scratch,
+  if (!make_dims(d, 1, c, h, cc, hh, HEADER + 2 * cc + 2 * hh + 1, scratch,
                  n_scratch))
     return (int)cudaErrorInvalidValue;
   MeshSrc src;

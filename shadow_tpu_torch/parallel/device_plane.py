@@ -395,10 +395,8 @@ class DeviceTrafficPlane:
                 f"device plane: host {dup!r} has multiple device-mode tor "
                 "clients; run at most one per host (flows are keyed by "
                 "host name)")
-        # the measured per-box cost model : consulted by
-        # advance() for per-launch predicted cost and by the tuner below.
-        # The port has none yet (prof/model.py is a stand-in, ROADMAP A7),
-        # so both keep their pre-model behavior.
+        # the measured per-box cost model (prof/model.py): consulted by
+        # advance() for per-launch predicted cost and by the tuner below
         if mode == "device":
             from ..prof.model import load_for_engine
             self._costmodel, self._costmodel_status = load_for_engine(

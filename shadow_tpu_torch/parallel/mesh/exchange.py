@@ -412,12 +412,15 @@ def mesh_span_flush_torch(t0, queued, ring, tokens, delivered, target,
                           last_flow_pad: torch.Tensor,
                           node_src: torch.Tensor, n_nodes: int,
                           mode: Optional[str] = None,
-                          leg_mask: Optional[Tuple[bool, ...]] = None):
+                          leg_mask: Optional[Tuple[bool, ...]] = None,
+                          cap_chains: Optional[int] = None,
+                          cap_nodes: Optional[int] = None):
     """Plain torch version of the JAX package's ``make_mesh_span_flush``
     step: :func:`mesh_span_torch` and the packed flush of the global view
-    (no caps on the mesh) with ONE trailing slot, the window's cross-shard
-    cells.  Returns (t_stop, queued, ring, tokens, delivered, target,
-    done_tick, node_sent, forwards, flush)."""
+    (capped by ``cap_chains`` / ``cap_nodes`` as ``pack_flush_torch`` caps
+    it) with ONE trailing slot, the window's cross-shard cells, after the
+    capped layout.  Returns (t_stop, queued, ring, tokens, delivered,
+    target, done_tick, node_sent, forwards, flush)."""
     done_in_last = done_tick[last_flow_pad]
     sent_in = global_sent_torch(node_sent, node_src, n_nodes)
     out = mesh_span_torch(
@@ -430,7 +433,7 @@ def mesh_span_flush_torch(t0, queued, ring, tokens, delivered, target,
     flush = pack_flush_torch(out[8], out[4][last_flow_pad].sum(), out[0],
                              newly, done_last,
                              global_sent_torch(out[7], node_src, n_nodes)
-                             - sent_in)
+                             - sent_in, cap_chains, cap_nodes)
     return (*out[:9], torch.cat([flush, out[9].reshape(1)]))
 
 
@@ -609,7 +612,7 @@ class MeshTables:
 _VP = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _MESH_ARGTYPES = ([_VP] * 20 + [_I64] * 8 + [ctypes.c_int, _VP, _VP])
-_MESH_PACK_ARGTYPES = [_VP] * 11 + [_I64] * 2 + [_VP, _I64, _VP]
+_MESH_PACK_ARGTYPES = [_VP] * 11 + [_I64] * 4 + [_VP, _I64, _VP]
 
 
 def mesh_span(t0, queued, ring, tokens, delivered, target, done_tick,
@@ -681,14 +684,18 @@ mesh_span.launches = 0
 
 
 def mesh_pack_flush(t_stop, forwards, cross, done_tick, delivered,
-                    node_sent, done_in, sent_in,
-                    tables: MeshTables) -> torch.Tensor:
+                    node_sent, done_in, sent_in, tables: MeshTables,
+                    cap_chains: Optional[int] = None,
+                    cap_nodes: Optional[int] = None) -> torch.Tensor:
     """Launch the mesh entry of csrc/pack_flush.cu on CUDA tensors (one
     cooperative launch, current stream, no synchronisation): the packed
     flush of the global view — chains through ``last_flow_pad``, nodes
-    through ``node_slot`` — with no caps and the trailing cross-shard slot.
+    through ``node_slot`` — capped as the serial entry caps it (None: the
+    full length), with the trailing cross-shard slot after it.
     ``t_stop``, ``forwards`` and ``cross`` are 0-d int64 tensors on the
-    card (the span kernel's outputs).  Counts ``mesh_pack_flush.launches``."""
+    card (the span kernel's outputs).  Counts ``mesh_pack_flush.launches``,
+    and ``mesh_pack_flush.capped_launches`` too when a cap is below its
+    count."""
     dev = done_tick.device
     if dev.type != "cuda":
         raise ValueError(f"mesh_pack_flush: needs CUDA tensors, got {dev}")
@@ -703,7 +710,10 @@ def mesh_pack_flush(t_stop, forwards, cross, done_tick, delivered,
                            ("done_in", done_in, (c,)),
                            ("sent_in", sent_in, (d * hp,))):
         _check(f"mesh_pack_flush: {name}", t, i64, shape, dev)
-    buf = torch.empty(flush_len(c, h) + 1, dtype=i64, device=dev)
+    cc = c if cap_chains is None else min(int(cap_chains), c)
+    hh = h if cap_nodes is None else min(int(cap_nodes), h)
+    buf = torch.empty(flush_len(c, h, cap_chains, cap_nodes) + 1, dtype=i64,
+                      device=dev)
     scratch, tiles = flush_scratch(1, c, h, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _bound("pack_flush", "pack_flush_mesh_launch", _MESH_PACK_ARGTYPES)(
@@ -711,15 +721,18 @@ def mesh_pack_flush(t_stop, forwards, cross, done_tick, delivered,
         done_tick.data_ptr(), delivered.data_ptr(), node_sent.data_ptr(),
         done_in.data_ptr(), sent_in.data_ptr(), buf.data_ptr(),
         tables.last_flow_pad.data_ptr(), tables.node_slot.data_ptr(), c, h,
-        scratch.data_ptr(), tiles, stream)
+        cc, hh, scratch.data_ptr(), tiles, stream)
     if rc != 0:
         raise RuntimeError(f"pack_flush mesh kernel launch failed: CUDA "
                            f"error {rc} (C={c}, H={h})")
     mesh_pack_flush.launches += 1
+    if cc < c or hh < h:
+        mesh_pack_flush.capped_launches += 1
     return buf
 
 
 mesh_pack_flush.launches = 0
+mesh_pack_flush.capped_launches = 0
 
 
 def _as_tensor(a, device) -> torch.Tensor:
@@ -732,17 +745,23 @@ def _as_tensor(a, device) -> torch.Tensor:
 def make_mesh_span_flush(mesh, axis: str, ring_len: int, layout: dict,
                          last_flow_pad: np.ndarray, node_src: np.ndarray,
                          n_nodes: int, mode: Optional[str] = None,
-                         leg_mask: Optional[Tuple[bool, ...]] = None):
+                         leg_mask: Optional[Tuple[bool, ...]] = None,
+                         cap_chains: Optional[int] = None,
+                         cap_nodes: Optional[int] = None):
     """Mesh superwindow step + packed flush in ONE dispatch: the engine's
     sharded step (DeviceTrafficPlane._sharded_step contract — the JAX
     package's argument list and 10-tuple; the flush grows ONE trailing
     slot, the window's cross-shard cells).  ``mode`` picks the exchange
     (choose_exchange_mode; None = the heuristic), ``leg_mask`` leaves quiet
-    legs out.  No flush caps on the mesh (the plane never engages them
-    there).  On CPU tensors the step runs :func:`mesh_span_flush_torch`; on
-    CUDA tensors one launch of csrc/mesh_span.cu and one of the mesh entry
-    of csrc/pack_flush.cu on the current stream, the carried state updated
-    in place, nothing else.  ``mesh`` names the device (its shards) and
+    legs out, and the caps pick the capped flush layout, as the JAX
+    package's ``cap_chains`` / ``cap_nodes`` do (:func:`mesh_flush_extra`
+    reads the trailing slot after it).  The plane passes its tuner's caps,
+    which it turns off before it shards (parallel/device_plane.py), so no
+    run packs a capped mesh flush: the caps are there for parity with the
+    JAX function.  On CPU tensors the step runs
+    :func:`mesh_span_flush_torch`; on CUDA tensors one launch of
+    csrc/mesh_span.cu and one of the mesh entry of csrc/pack_flush.cu on
+    the current stream, the carried state updated in place, nothing else.  ``mesh`` names the device (its shards) and
     ``axis`` the sharded axis, as in the JAX package."""
     sched = layout["exchange"]
     if mesh.n_shards != sched.n_shards:
@@ -767,7 +786,8 @@ def make_mesh_span_flush(mesh, axis: str, ring_len: int, layout: dict,
                 ring_len=ring_len, schedule=sched,
                 last_flow_pad=torch.as_tensor(lf),
                 node_src=torch.as_tensor(nsrc), n_nodes=n_nodes, mode=mode,
-                leg_mask=leg_mask)
+                leg_mask=leg_mask, cap_chains=cap_chains,
+                cap_nodes=cap_nodes)
         if not tables or tables[0].meta.device != dev:
             tables[:] = [MeshTables(layout, ring_len, lf, nsrc, n_nodes,
                                     mode, leg_mask, dev)]
@@ -778,7 +798,7 @@ def make_mesh_span_flush(mesh, axis: str, ring_len: int, layout: dict,
             _as_tensor(refill, dev), _as_tensor(capacity, dev), tables[0])
         flush = mesh_pack_flush(state[0], state[8], cross, state[6],
                                 state[4], state[7], done_in, sent_in,
-                                tables[0])
+                                tables[0], cap_chains, cap_nodes)
         return (*state, flush)
 
     return step_flush

@@ -152,8 +152,10 @@ def attach_mesh(plane, n_dev: int) -> None:
     plane._chain_leg_bits = chain_bits
     plane._full_leg_bits = -1 if sched.legs > 63 \
         else (1 << sched.legs) - 1
-    # no flush caps on the mesh (the plane turns them off before it
-    # shards): the mesh flush is always full-length plus its trailing slot
+    # no flush caps on the mesh: the plane turns them off before it
+    # shards (device_plane.py, as the JAX package's does), so every mesh
+    # flush is full-length plus its trailing slot.  make_mesh_span_flush
+    # takes caps for parity with the JAX package's; no run passes them
 
     # one step per exchange the masks resolve to: fused mode exchanges
     # every leg whatever the mask, so its masked variants are the full

@@ -1,48 +1,41 @@
-"""simprof: the device cost observatory (ISSUE 15 / ROADMAP item 5).
+"""simprof: the device cost observatory of the port.
 
-After the host-plane cuts of PRs 7-12 the flagship wall is dominated by
-XLA device kernel compute — the one plane the repo observed only as a
-single ``flush_sec`` blob, and the one whose scheduling decision (fused
-``all_to_all`` vs lone ``ppermute`` in the mesh exchange) was made by
-heuristic, not data.  This package closes both gaps with the
-microbenchmark-calibration methodology of *Dissecting the Graphcore IPU
-Architecture via Microbenchmarking* (arXiv 1912.03413) and the
-measured-schedule framing of *FAST* (arXiv 2505.09764):
+The port's copy of the JAX package's ``prof`` package, measuring the
+port's own hand-written CUDA kernels on the card (or their plain versions
+on the CPU) instead of XLA programs:
 
-* :mod:`calibrate` — ``simprof calibrate`` microbenchmarks the actual
-  backend in a bounded subprocess (per-collective launch cost across
-  mesh widths, step-kernel cost vs flow count, dispatch/flush transfer
-  cost) and persists a digest-stamped per-box ``COSTMODEL.json``;
-* :mod:`model` — the :class:`~shadow_tpu_torch.prof.model.CostModel` the mesh
-  exchange scheduler and the device plane consult at run time; a model
-  whose backend fingerprint does not match this box REFUSES to load
-  (loudly) and the consumers fall back to the pre-existing heuristics;
-* :mod:`ledger` — the persistent perf-trend ledger
-  (``BENCH_HISTORY.jsonl``): bench.py appends every flagship/sharded
-  row keyed by box + git sha, and ``trace_report --trend`` renders the
-  trajectory with regression flags, so the next perf regression is
-  caught by the repo instead of a human rereading CHANGES.md;
-* :mod:`cli` — the ``simprof`` console entry (calibrate / check / show).
+* :mod:`calibrate` — ``python -m shadow_tpu_torch.prof calibrate`` times
+  the span + pack step the device plane dispatches against the flow count,
+  ``mesh_span`` per exchange mode at D in {2, 3, 4, 8}, and the plane's
+  inject upload and flush read-back, in one bounded child process, and
+  persists a digest-stamped per-box model;
+* :mod:`model` — the :class:`~shadow_tpu_torch.prof.model.CostModel` the
+  mesh exchange scheduler, the dispatch tuner (:mod:`autotune`) and the
+  device plane's launch attribution consult at run time; a model whose
+  fingerprint (platform, GPU, torch and CUDA versions, host) does not match
+  the run REFUSES to load, and the consumers keep their pre-model rules;
+* :mod:`ledger` — the perf-trend ledger, read by
+  ``tools/trace_report.py --trend``;
+* :mod:`cli` — the ``simprof`` entry (calibrate / check / show).
 
-Live attribution rides the existing observability plane: the device
-plane publishes per-launch predicted-vs-measured histograms under
-``prof.*`` and a sim-time-correlated ``device-sim`` track into the
-Chrome trace; a drifting model (measured/predicted outside the band)
-raises the loud ``prof.model_stale`` counter instead of silently
-mis-scheduling.
+The port keeps files of its own names: the JAX package's ``COSTMODEL.json``
+and ``BENCH_HISTORY.jsonl`` beside it are that package's checked-in
+records, which the port must never overwrite (and whose model, calibrated
+for XLA, refuses to load here).  The port checks in no model: the
+fingerprint names the host, so a model loads only where it was made.
 """
 
 from __future__ import annotations
 
 import os
 
-COSTMODEL_BASENAME = "COSTMODEL.json"
-HISTORY_BASENAME = "BENCH_HISTORY.jsonl"
+COSTMODEL_BASENAME = "COSTMODEL_TORCH.json"
+HISTORY_BASENAME = "BENCH_HISTORY_TORCH.jsonl"
 
 
 def repo_root() -> str:
     """The repo checkout containing this package (where the per-box
-    COSTMODEL.json and BENCH_HISTORY.jsonl live, next to bench.py) —
-    the ONE definition every prof path default derives from."""
+    COSTMODEL_TORCH.json and BENCH_HISTORY_TORCH.jsonl live) — the ONE
+    definition every prof path default derives from."""
     return os.path.dirname(os.path.dirname(
         os.path.dirname(os.path.abspath(__file__))))

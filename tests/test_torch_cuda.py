@@ -587,6 +587,18 @@ def test_model_wrappers_reject_what_their_kernels_do_not_take(dev):
     (8, "fused", False), (8, "ppermute", False), (8, "ppermute", True),
     (3, "fused", False), (3, "none", False), (2, "ppermute", False)])
 def test_mesh_kernels_bit_exact_vs_plain_version(dev, n_dev, mode, masked):
+    _mesh_windows_vs_plain(dev, n_dev, mode, masked)
+
+
+@pytest.mark.parametrize("n_dev,mode,caps", [
+    (8, "fused", (40, 300)), (3, "ppermute", (5000, 9000))])
+def test_capped_mesh_flush_kernel_bit_exact(dev, n_dev, mode, caps):
+    """The mesh entry of pack_flush.cu with caps, below the windows'
+    counts (overflow) and above them, against the plain mesh version."""
+    _mesh_windows_vs_plain(dev, n_dev, mode, False, caps)
+
+
+def _mesh_windows_vs_plain(dev, n_dev, mode, masked, caps=(None, None)):
     from shadow_tpu_torch.ops.torcells_device import DeviceTorCells
     from shadow_tpu_torch.parallel.mesh import device_mesh
     from shadow_tpu_torch.parallel.mesh import exchange as ex
@@ -633,7 +645,8 @@ def test_mesh_kernels_bit_exact_vs_plain_version(dev, n_dev, mode, masked):
 
     step = ex.make_mesh_span_flush(
         device_mesh(n_dev, device=dev), "flows", inst.ring_len, lay,
-        lay["inv"][last_flow], lay["node_src"], h, mode=mode, leg_mask=lm)
+        lay["inv"][last_flow], lay["node_src"], h, mode=mode, leg_mask=lm,
+        cap_chains=caps[0], cap_nodes=caps[1])
     s0, p0 = ex.mesh_span.launches, ex.mesh_pack_flush.launches
     got = windows(step)
     assert (ex.mesh_span.launches - s0, ex.mesh_pack_flush.launches - p0) \
@@ -644,7 +657,8 @@ def test_mesh_kernels_bit_exact_vs_plain_version(dev, n_dev, mode, masked):
             *a, ring_len=inst.ring_len, schedule=lay["exchange"],
             last_flow_pad=torch.as_tensor(lay["inv"][last_flow], device=dev),
             node_src=torch.as_tensor(lay["node_src"], device=dev),
-            n_nodes=h, mode=mode, leg_mask=lm)
+            n_nodes=h, mode=mode, leg_mask=lm, cap_chains=caps[0],
+            cap_nodes=caps[1])
     want = windows(plain)
     torch.cuda.synchronize()
     for w, (g, p) in enumerate(zip(got, want)):

@@ -17,7 +17,7 @@ C and H span many tiles; JAX at the kernel's tile only, as it compiles
 each new shape), with a grid of a block a tile and a grid of 3
 blocks (the path where a block reads a later tile again after the sync),
 for the three entries (serial with caps, batched, mesh with nodes on no
-shard), on pack_cases-style inputs (all empty, all full, random, capped
+shard, with and without caps), on pack_cases-style inputs (all empty, all full, random, capped
 with overflow, capped to fit, a cap inside a later tile) at C and H on the
 tile boundaries (1, tile - 1, tile, tile + 1, 7 tiles + 3).  Each result
 equals ``pack_flush_np``, ``pack_flush_torch``, ``pack_flush_batched_torch``,
@@ -306,8 +306,10 @@ def _mesh_inputs(c: int, h: int, rng):
 
 
 def mesh_tiled(heads, done_tick, delivered, node_sent, done_in, sent_in,
-               last_flow, node_slot, tile, grid=None):
+               last_flow, node_slot, tile, grid=None, caps=(None, None)):
     c, h = len(last_flow), len(node_slot)
+    cc = c if caps[0] is None else min(caps[0], c)
+    hh = h if caps[1] is None else min(caps[1], h)
     t_stop, forwards, cross = heads
 
     def chain(_w, i):
@@ -322,9 +324,9 @@ def mesh_tiled(heads, done_tick, delivered, node_sent, done_in, sent_in,
 
     def header(_w, out, n_done, n_touched, dsum, _ns):
         out[:HEADER] = (forwards, dsum, n_done, n_touched, t_stop)
-        out[HEADER + 2 * c + 2 * h] = cross
-    return tiled_pack(chain, node, header, 1, c, h, c, h,
-                      HEADER + 2 * c + 2 * h + 1, tile, grid)[0][0]
+        out[HEADER + 2 * cc + 2 * hh] = cross
+    return tiled_pack(chain, node, header, 1, c, h, cc, hh,
+                      HEADER + 2 * cc + 2 * hh + 1, tile, grid)[0][0]
 
 
 @pytest.mark.parametrize("tile", TILES)
@@ -357,6 +359,46 @@ def test_mesh_tiles_equal_plain_and_jax(tile):
                 heads[1], delivered[last_flow].sum(), heads[0],
                 newly.numpy(), done_last.numpy(), delta.numpy()))
             np.testing.assert_array_equal(got[:-1], jax)
+
+
+@pytest.mark.parametrize("tile", TILES)
+def test_capped_mesh_tiles_equal_plain_and_jax(tile):
+    """The mesh entry with caps (as the serial entry takes them): the
+    trailing cross slot after the capped layout, caps below the true
+    counts (entries dropped, the header's counts TRUE), inside a later
+    tile, and above the counts."""
+    rng = np.random.default_rng(300 + tile)
+    heads = (4242, 123456789, 777)
+    for grid in (None, 3):
+        for c, h in _sizes(tile):
+            node_src, node_slot, done_tick, last_flow, done_in, delivered, \
+                sent_in, node_sent = _mesh_inputs(c, h, rng)
+            for caps in ((1, 2), (max(c // 3, 1), max(h // 2, 1)),
+                         (tile + 2, 2 * tile + 1), (c + 5, h + 5)):
+                got = mesh_tiled(heads, done_tick, delivered, node_sent,
+                                 done_in, sent_in, last_flow, node_slot,
+                                 tile, grid, caps)
+                lf = torch.as_tensor(last_flow)
+                nsrc = torch.as_tensor(node_src)
+                done_last = torch.as_tensor(done_tick)[lf]
+                newly = (done_last >= 0) & (torch.as_tensor(done_in) < 0)
+                delta = ex.global_sent_torch(torch.as_tensor(node_sent),
+                                             nsrc, h) \
+                    - ex.global_sent_torch(torch.as_tensor(sent_in), nsrc, h)
+                want = torch.cat([td.pack_flush_torch(
+                    heads[1], torch.as_tensor(delivered)[lf].sum(),
+                    heads[0], newly, done_last, delta, *caps),
+                    torch.tensor([heads[2]])])
+                np.testing.assert_array_equal(got, want.numpy())
+                assert len(got) == td.flush_len(c, h, *caps) + 1
+                assert ex.mesh_flush_extra(got, c, h, *caps) == heads[2]
+                if grid is not None or tile != td.FLUSH_TILE:
+                    continue
+                jax = np.asarray(_pack_flush_jnp(
+                    heads[1], delivered[last_flow].sum(), heads[0],
+                    newly.numpy(), done_last.numpy(), delta.numpy(),
+                    *caps))
+                np.testing.assert_array_equal(got[:-1], jax)
 
 
 @pytest.mark.parametrize("w,c,h", [(1, 20000, 30494), (8, 32768, 32768),

@@ -8,7 +8,9 @@ the port's ``run_one_mode`` on ``--device cpu`` (D shards of the one
 device) and through the JAX package's ``run_one_mode`` on JAX's 8 virtual
 CPU devices: rc, digest, events, rounds, the supervision counts and the
 ``mesh.*`` scrape must be equal.  ``mesh.cost_model`` differs by design
-(the port has no cost model yet, ROADMAP A7) and is left out.
+(the JAX package refuses its checked-in COSTMODEL.json on this box, the port
+finds no model of its own and never reads the JAX package's) and is left
+out.
 """
 
 import pytest

@@ -36,11 +36,12 @@ VERBATIM = [
     "apps/tor", "apps/echo", "apps/filetransfer", "apps/phold", "apps/tgen",
     "apps/blast", "apps/httpd", "apps/bitcoin",
     "obs/__init__", "obs/metrics", "obs/trace", "obs/profiler",
-    "prof/__init__", "prof/autotune",
+    "prof/autotune", "prof/ledger", "prof/__main__",
     "utils/pqueue", "utils/count_down_latch", "utils/pcap",
     "utils/byte_queue",
     "scale/__init__", "scale/memprof", "scale/hosttable", "scale/genscen",
-    "tools/workloads", "tools/mkscenario",
+    "tools/workloads", "tools/mkscenario", "tools/trace_report",
+    "tools/parse_log", "tools/plot_log",
     "fuzz/__init__", "fuzz/gen",
     "fleet/__init__", "fleet/__main__", "fleet/driver",
     "parallel/mesh/partition", "parallel/procs",
@@ -197,7 +198,10 @@ def test_changed_copy_equals_original_but_for_its_functions(module):
 # the model workloads' modules: each imports with jax and shadow_tpu
 # blocked, and keeps its numpy twins as copies of the JAX package's
 MODEL_MODULES = ["ops/phold_device", "ops/saturate_device", "ops/bandwidth",
-                 "ops/torcells_device", "tools/modelbench"]
+                 "ops/torcells_device", "tools/modelbench",
+                 # the cost model, its CLI and ledger, and the log tools
+                 "prof/model", "prof/calibrate", "prof/cli", "prof/ledger",
+                 "tools/trace_report", "tools/parse_log", "tools/plot_log"]
 MODEL_TWINS = [("ops/saturate_device", "saturate_run_numpy"),
                ("ops/phold_device", "phold_run_numpy"),
                ("ops/torcells_device", "torcells_run_numpy"),
@@ -235,3 +239,31 @@ def test_model_numpy_twin_equals_original(module, name):
     port = _function_source(os.path.join(PORT, module + ".py"), name)
     ref = _function_source(os.path.join(REF, module + ".py"), name)
     assert port == ref, f"{module}.{name} drifted from shadow_tpu's"
+
+
+def _sha256(path):
+    import hashlib
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def test_port_calibration_leaves_the_jax_records_alone(tmp_path):
+    """``python -m shadow_tpu_torch.prof calibrate --quick --device cpu``
+    then ``check`` exit 0, and the JAX package's checked-in model and
+    history are byte for byte what they were: the port writes files of its
+    own names (prof/__init__.py)."""
+    records = [os.path.join(REPO, n) for n in ("COSTMODEL.json",
+                                               "BENCH_HISTORY.jsonl")]
+    before = [_sha256(p) for p in records]
+    out = str(tmp_path / "cm.json")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env["OMP_NUM_THREADS"] = "1"     # do not crowd the other test workers
+    for args in (["calibrate", "--quick", "--device", "cpu", "--devices",
+                  "2", "--out", out], ["check", out]):
+        res = subprocess.run([sys.executable, "-m", "shadow_tpu_torch.prof",
+                              *args], cwd=REPO, env=env,
+                             capture_output=True, text=True, timeout=240)
+        assert res.returncode == 0, res.stdout + res.stderr
+    assert '"loads_on_this_box": true' in res.stdout
+    assert [_sha256(p) for p in records] == before

@@ -11,8 +11,11 @@ port's own single-table run's digest — at K = 1 and K = 8, uneven D = 3,
 ``device-dispatch:2`` drill (demoted to the numpy twin: host bounces
 counted), the ``device-lost`` re-shard 8->7 and 2->1, and with
 ``--exchange-mode`` forced each way.  ``mesh.cost_model`` is the one metric
-that differs by design: the JAX package refuses its checked-in cost model on
-this box, the port has none (ROADMAP A7).  The tor config runs in
+that differs by design: with no ``--cost-model`` the JAX package finds its
+checked-in COSTMODEL.json and refuses it on this box (``refused``), and the
+port finds no model of its own (``absent``; it never reads the JAX
+package's by default).  Runs with a model loaded by both packages are held
+to each other in tests/test_torch_costmodel.py.  The tor config runs in
 tests/test_torch_mesh_tor.py.
 """
 
@@ -29,7 +32,8 @@ STAR_XML = workloads.star_bulk(6, stoptime=120, bulk_bytes=192 * 1024 * 1024,
 PARITY = ("digest", "events", "rounds", "forwards", "completed",
           "dispatches")
 # the cost-model status: "refused" in the JAX package (its COSTMODEL.json
-# is fingerprinted to another box), "absent" in the port (ROADMAP A7)
+# is fingerprinted to another box), "absent" in the port (no
+# COSTMODEL_TORCH.json: the port never reads the JAX package's model)
 NOT_COMPARED = ("mesh.cost_model",)
 
 _CACHE: dict = {}

@@ -1,8 +1,8 @@
-"""Paths the port has not ported refuse with NotImplementedError naming
-their ROADMAP item, before any simulation work — they never quietly take
-another path — the paths that were refused before their slice run and
-equal the JAX package, and the port's CLI runs a config end to end on the
-CPU."""
+"""Paths the port refuses raise NotImplementedError before any simulation
+work — they never quietly take another path — the paths that were refused
+before their slice run and equal the JAX package (or, for a cost model
+that is not the port's, refuse to load it and run on), and the port's CLI
+runs a config end to end on the CPU."""
 
 import io
 import os
@@ -23,23 +23,50 @@ ECHO = ('<shadow stoptime="5"><plugin id="e" path="python:echo" />'
         'arguments="udp server 8000" /></host></shadow>')
 FLOW = ('<shadow stoptime="5"><host id="s" /><host id="c">'
         '<flow dest="s" down="1000" /></host></shadow>')
-DEVICE_TOR = tor_network(2, n_clients=1, n_servers=1, device_data=True)
 # three relays: a device-mode circuit needs three hops
 DEVICE_TOR3 = tor_network(3, n_clients=2, n_servers=1, stoptime=60,
                           device_data=True)
 
 
 @pytest.mark.parametrize("xml,opts,item", [
-    (DEVICE_TOR, {"cost_model": "COSTMODEL.json"}, "A7"),
-    (ECHO, {"cost_model": "COSTMODEL.json"}, "A7"),
+    (DEVICE_TOR3, {"tpu_devices": 2}, "A7"),
+    (ECHO, {}, "A7"),
 ])
 def test_unported_paths_raise(xml, opts, item):
-    cfg = configuration.parse_xml(xml)
-    options = Options(device="cpu", stop_time_sec=5, **opts)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        run_simulation(options, cfg)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        Controller(options, cfg)
+    """``--cost-model`` (once refused as ROADMAP A7, the item each case
+    names) no longer raises: the JAX package's COSTMODEL.json refuses to
+    load in the port (status ``refused``, ``mesh.cost_model`` on the mesh,
+    one warning line), and the run ends with the digest and events of a
+    run without a model."""
+    from shadow_tpu_torch.core.checkpoint import state_digest
+    from shadow_tpu_torch.core.logger import SimLogger, set_logger
+    from shadow_tpu_torch.prof.model import load_for_engine
+    stop = 60 if xml is DEVICE_TOR3 else 5
+    runs = []
+    for cost_model in ("COSTMODEL.json", "/nonexistent-no-model"):
+        stream = io.StringIO()
+        log = SimLogger(stream=stream, level="warning")
+        set_logger(log)
+        options = Options(device="cpu", stop_time_sec=stop,
+                          cost_model=cost_model, **opts)
+        ctrl = Controller(options, configuration.parse_xml(xml))
+        assert ctrl.run() == 0
+        log.flush()
+        refused = [ln for ln in stream.getvalue().splitlines()
+                   if "cost model refused" in ln]
+        runs.append((state_digest(ctrl.engine),
+                     ctrl.engine.events_executed))
+        plane = ctrl.engine.device_plane
+        if cost_model == "COSTMODEL.json":
+            assert load_for_engine(options) == (None, "refused")
+            if plane is not None:
+                assert plane._costmodel_status == "refused"
+                assert ctrl.engine.metrics.scrape()["mesh.cost_model"] == \
+                    "refused"
+                assert len(refused) == 1
+        else:
+            assert not refused
+    assert runs[0] == runs[1], item
 
 
 @pytest.mark.parametrize("xml,opts", [
