@@ -167,6 +167,26 @@ M5. the tor10k mesh slice under ``torch.profiler``: one mesh span and one
     mesh flush kernel per counted dispatch, the card's busy time and idle
     share.
 
+simfuzz (after 11):
+
+F1. simfuzz on cuda: (a) the 7 regression specs of ``shadow_tpu_torch/fuzz/corpus`` replayed in
+    process on cuda (``replay_file``), every mode of each equal to
+    EXPECTED_CORPUS (the JAX package's digest and events), the span,
+    pack, ``mesh_span`` and mesh flush launched and no other kernel; (b)
+    the fault drill through the CLI (``--spec`` the corpus' cdn spec,
+    ``--fault-inject digest-drift:numpy --shrink-budget 8``): rc 1, one
+    repro, which ``--repro`` replays with rc 0; (c) ``--seeds 1
+    --seed-base 1 --timeout-sec 240`` through the bounded subprocess
+    runner at the default device (the kernels built in the parent first),
+    rc 0; a child given seed 3's ``procs`` mode, 3,000 s of simulated time
+    and a 5 s bound comes back as a timeout that the rc_log oracle fails:
+    the group kill lands while the child's shards run (its group holds
+    more than the child just before it) and leaves nothing of the group
+    running; (d) ``--batched --lanes
+    8`` on seed 1: rc 0, batched launches (one batched span and pack
+    each), its ``base`` run equal to EXPECTED_FUZZ.  Each part prints its
+    wall and modes a second.
+
 The cost model (after M5):
 
 C1. costmodel: ``python -m shadow_tpu_torch.prof calibrate --batched`` on
@@ -2098,6 +2118,286 @@ def run_fleet_smoke() -> dict:
              f"{counts['span_b']} batched span and {counts['pack_b']} "
              "batched pack launches")
     return out
+
+
+# F1, simfuzz on the card.  EXPECTED_CORPUS: each corpus file's one state
+# digest and event count, which every mode of its matrix gives; made with
+# the JAX package on the CPU (shadow_tpu.fuzz.runner.run_modes, JAX's 8
+# virtual CPU devices).  EXPECTED_FUZZ: the ``base`` mode of fuzz seed 1
+# (cdn, device traffic), made the same way; the batched part runs seed 1
+# alone, to keep the whole smoke near 1,000 s (seed 2, with its procs
+# modes, added ~30 s).
+# tests/test_torch_simfuzz_parity.py holds both to the JAX runs and the
+# port's CPU runs to them.
+EXPECTED_CORPUS = {
+    "appmix-seed0": ("8ba2270010f990a37bcd8b4be7e5e67b"
+                     "002707c6ae75d66875d3f0ea8084074e", 10029),
+    "cdn-seed1": ("4985a60667a038cdc91c68f22aeb0e8b"
+                  "43d8d42447ac67a9e08bcd2a9e641905", 0),
+    "phold-seed3-resurrect": ("fcedf6e15e6f874fa60304eec44db777"
+                              "2174d3a0184953f808e695925aa36864", 10290),
+    "phold-seed3": ("3eaf5177103f566df74c4e0d7107186f"
+                    "054e20a1d8a2aaf0919fdc8953e7d797", 5140),
+    "star-seed11": ("004096ee4f04901f0199f145214c0f1e"
+                    "d674fb21d3d4b9125dcd3fe5975d5bc6", 0),
+    "swarm-seed12": ("79373a4a51cb38012947130cbfbc985f"
+                     "49facd0e5d21a0cdab01456bab2a7c54", 0),
+    "tor-seed21": ("ebe90297f6d073b2a7aab90b22beb941"
+                   "f17a2ce71b4ba1b8fd1e57a8ccd30ff6", 0),
+}
+EXPECTED_FUZZ = {
+    1: ("9dc4c29a8cbce7427f70d3f8a0b18220"
+        "418ef3b152fd1e4cd0c8f873ad27d916", 0),
+}
+FUZZ_DRILL_FILE = "cdn-seed1.json"
+FUZZ_CHILD_SEED = 1
+# a child given seed 3's procs mode alone (phold over 2 shard processes)
+# at a stoptime of 3,000 s, ~3 min of shard work on the CPU, and a bound it
+# cannot meet; the kill waits at most wait_s for the shards to start
+FUZZ_OVERRUN = {"seed": 3, "mode": "procs", "stoptime": 3000,
+                "bound_s": 5.0, "wait_s": 60.0}
+
+
+def live_group_members(pgid: int) -> list:
+    """Live processes (zombies excluded) of process group ``pgid``."""
+    out = []
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if int(fields[2]) == pgid and fields[0] != "Z":
+            out.append(int(name))
+    return out
+
+
+@contextlib.contextmanager
+def group_kill_witness(wait_s: float):
+    """While open, the subprocess runner's group kill first waits (at most
+    ``wait_s``) until the child's process group holds more than the child,
+    its ``--processes`` shards, then records the group's live members just
+    before the kill and just after it, in the dict it yields."""
+    from shadow_tpu_torch.fuzz import runner
+    seen = {}
+    end_group = runner._end_group
+
+    def witnessed(proc):
+        t0 = time.perf_counter()
+        seen["before"] = live_group_members(proc.pid)
+        while len(seen["before"]) < 2 and \
+                time.perf_counter() - t0 < wait_s:
+            time.sleep(0.05)
+            seen["before"] = live_group_members(proc.pid)
+        seen["waited_s"] = time.perf_counter() - t0
+        end_group(proc)
+        seen["after"] = live_group_members(proc.pid)
+    runner._end_group = witnessed
+    try:
+        yield seen
+    finally:
+        runner._end_group = end_group
+
+
+class _Recording:
+    """A runner that keeps every result list its inner runner returns."""
+
+    def __init__(self, runner):
+        self.runner = runner
+        self.results = []
+
+    def run(self, spec):
+        res = self.runner.run(spec)
+        self.results.append(res)
+        return res
+
+
+def _fuzz_part(label: str, t0: float, modes: int) -> float:
+    wall = time.perf_counter() - t0
+    print(f"simfuzz {label}: {modes} modes in {wall:.3f} s, "
+          f"{modes / wall:.3f} modes a second", flush=True)
+    return wall
+
+
+def run_simfuzz() -> dict:
+    """F1: simfuzz on cuda, each runner at its default device: (a) the
+    corpus replayed in process, every mode equal to EXPECTED_CORPUS, the
+    plane's and the mesh's kernels launched (on cuda a wrapper launches its
+    kernel or raises, so no plain version runs on the path); (b) the fault
+    drill through the CLI, caught, shrunk, written and replayed; (c) one
+    seed through the bounded subprocess runner, and a child past its bound
+    reported as a timeout, killed while its shards ran, with nothing of its
+    process group left; (d) the CLI's batched path on EXPECTED_FUZZ's
+    seeds, the base runs equal to it."""
+    import contextlib
+    import io
+    import tempfile
+    from shadow_tpu_torch.fuzz import cli as fuzz_cli
+    from shadow_tpu_torch.fuzz.gen import draw_spec
+    from shadow_tpu_torch.fuzz.oracles import check
+    from shadow_tpu_torch.fuzz.runner import (BatchedRunner,
+                                              InProcessRunner,
+                                              SubprocessRunner)
+    out = {}
+    # (a) the corpus
+    rec = _Recording(InProcessRunner())
+    files = fuzz_cli.corpus_files(fuzz_cli.CORPUS_DIR)
+    if sorted(os.path.basename(p)[:-5] for p in files) != \
+            sorted(EXPECTED_CORPUS):
+        fail(f"simfuzz corpus: files {files} are not EXPECTED_CORPUS's")
+    _reset_counts()
+    t0 = time.perf_counter()
+    rcs, walls = {}, {}
+    for path in files:
+        name = os.path.basename(path)
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rcs[name] = fuzz_cli.replay_file(path, rec)
+        walls[name[:-5]] = round(time.perf_counter() - t1, 3)
+    counts = _counts()
+    n_modes = sum(len(r) for r in rec.results)
+    wall = _fuzz_part("corpus", t0, n_modes)
+    for path, res in zip(files, rec.results):
+        name = os.path.basename(path)
+        want = EXPECTED_CORPUS[name[:-5]]
+        got = {r["mode"]: (r["digest"], r["events"]) for r in res}
+        bad = {m: g for m, g in got.items() if g != want}
+        if rcs[name] != 0 or bad:
+            fail(f"simfuzz corpus {name}: rc {rcs[name]}, modes off "
+                 f"EXPECTED_CORPUS {bad} "
+                 f"{[r['log_tail'][-300:] for r in res if r['rc']]}")
+    print(f"simfuzz corpus: {len(files)} files, {n_modes} modes, each "
+          f"equal to EXPECTED_CORPUS; walls {walls}; launches {counts}",
+          flush=True)
+    for key in ("span", "pack", "mesh_span", "mesh_pack"):
+        if counts[key] <= 0:
+            fail(f"simfuzz corpus: no {key} launch")
+    if counts["span"] != counts["pack"] or \
+            counts["mesh_span"] != counts["mesh_pack"]:
+        fail(f"simfuzz corpus: a dispatch is not one span and one pack "
+             f"launch: {counts}")
+    off_path = {k: v for k, v in counts.items()
+                if v and k not in ("span", "pack", "mesh_span", "mesh_pack")}
+    if off_path:
+        fail(f"simfuzz corpus: kernels off its path launched: {off_path}")
+    out["corpus"] = {"files": len(files), "modes": n_modes, "wall_s": wall,
+                     "walls_s": walls, "counts": counts}
+    with tempfile.TemporaryDirectory(prefix="simfuzz-smoke-") as td:
+        # (b) the fault drill through the CLI's path (its in-process
+        # runner recorded): caught, shrunk, written, replayed
+        drill = _Recording(InProcessRunner())
+        args = fuzz_cli.build_parser().parse_args([
+            "--spec", os.path.join(fuzz_cli.CORPUS_DIR, FUZZ_DRILL_FILE),
+            "--in-process", "--fault-inject", "digest-drift:numpy",
+            "--shrink-budget", "8", "--repro-dir",
+            os.path.join(td, "repros")])
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = fuzz_cli.fuzz(args, drill)
+            summary = json.loads(buf.getvalue().splitlines()[-1])[
+                "simfuzz"]
+            repros = summary["repros"]
+            rc_repro = fuzz_cli.replay_file(repros[0], drill) \
+                if len(repros) == 1 else None
+        wall = _fuzz_part("drill", t0, sum(len(r) for r in drill.results))
+        print(f"simfuzz drill: rc {rc}, {summary['violations']} "
+              f"violation(s), repros {len(repros)}, --repro rc "
+              f"{rc_repro}", flush=True)
+        if rc != 1 or len(repros) != 1 or rc_repro != 0:
+            fail(f"simfuzz drill: rc {rc} (want 1), repros {repros} (want "
+                 f"one), --repro rc {rc_repro} (want 0)")
+        out["drill"] = {"rc": rc, "repro_rc": rc_repro, "wall_s": wall}
+        # (c) the bounded subprocess runner, at the CLI's default device
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = fuzz_cli.main([
+                "--seeds", "1", "--seed-base", str(FUZZ_CHILD_SEED),
+                "--timeout-sec", "240", "--repro-dir",
+                os.path.join(td, "repros-child")])
+        summary = json.loads(buf.getvalue().splitlines()[-1])["simfuzz"]
+        wall = _fuzz_part("child", t0,
+                          len(draw_spec(FUZZ_CHILD_SEED)["modes"]))
+        if rc != 0 or summary["violations"]:
+            fail(f"simfuzz child: rc {rc}, {summary}")
+        spec = draw_spec(FUZZ_OVERRUN["seed"])
+        spec["stoptime"] = FUZZ_OVERRUN["stoptime"]
+        spec["modes"] = [m for m in spec["modes"]
+                         if m["name"] == FUZZ_OVERRUN["mode"]]
+        t0 = time.perf_counter()
+        with group_kill_witness(FUZZ_OVERRUN["wait_s"]) as group:
+            res = SubprocessRunner(
+                timeout_sec=FUZZ_OVERRUN["bound_s"]).run(spec)
+        over_s = time.perf_counter() - t0
+        viols = check(spec, res)
+        print(f"simfuzz overrun: bound {FUZZ_OVERRUN['bound_s']} s, back "
+              f"in {over_s:.3f} s, timeout {res[0].get('timeout')}, "
+              f"oracles {[v['oracle'] for v in viols]}; its group just "
+              f"before the kill {group.get('before')} (after waiting "
+              f"{group.get('waited_s', 0):.3f} s for its shards), just "
+              f"after {group.get('after')}", flush=True)
+        if not res[0].get("timeout") or \
+                [v["oracle"] for v in viols] != ["rc_log"]:
+            fail(f"simfuzz overrun: {res[0]}")
+        if len(group["before"]) < 2 or group["after"]:
+            fail(f"simfuzz overrun: the kill did not land while the "
+                 f"child's shards ran or left some running: {group}")
+        out["child"] = {"rc": rc, "wall_s": wall, "overrun_s": over_s}
+        # (d) the batched path of the CLI, its base runs recorded
+        seeds = sorted(EXPECTED_FUZZ)
+        runner = BatchedRunner(lanes=8)
+        got = []
+        run_specs = runner.run_specs
+
+        def recording(specs):
+            rows = run_specs(specs)
+            got.extend(rows)
+            return rows
+        runner.run_specs = recording
+        args = fuzz_cli.build_parser().parse_args([
+            "--batched", "--lanes", "8", "--seeds", str(len(seeds)),
+            "--seed-base", str(seeds[0]), "--repro-dir",
+            os.path.join(td, "repros-batched")])
+        _reset_counts()
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = fuzz_cli.fuzz(args, runner)
+        counts = _counts()
+        fleet = json.loads(buf.getvalue().splitlines()[-1])["simfuzz"][
+            "fleet"]
+        wall = _fuzz_part("batched", t0, sum(len(r) for r in got))
+        print(f"simfuzz batched: rc {rc}, seeds {seeds}, fleet.launches "
+              f"{fleet['fleet.launches']}, batched_modes "
+              f"{fleet['batched_modes']}, serial_modes "
+              f"{fleet['serial_modes']}; launches {counts}", flush=True)
+        for seed, rows in zip(seeds, got):
+            base = rows[0]
+            if (base["mode"], base["digest"], base["events"]) != \
+                    ("base", *EXPECTED_FUZZ[seed]):
+                fail(f"simfuzz batched seed {seed}: base {base['digest']} "
+                     f"{base['events']} != EXPECTED_FUZZ "
+                     f"{EXPECTED_FUZZ[seed]}")
+        if rc != 0 or not fleet["fleet.launches"] > 0 \
+                or not fleet["batched_modes"] > 0:
+            fail(f"simfuzz batched: rc {rc}, {fleet}")
+        if not (counts["span_b"] == counts["pack_b"]
+                == fleet["fleet.launches"]):
+            fail(f"simfuzz batched: {fleet['fleet.launches']} fleet "
+                 f"launches but {counts['span_b']} batched span and "
+                 f"{counts['pack_b']} batched pack launches")
+        out["batched"] = {"rc": rc, "wall_s": wall, "counts": counts,
+                          "fleet": fleet}
+    out["wall_s"] = sum(out[k]["wall_s"] for k in
+                        ("corpus", "drill", "child", "batched")) \
+        + out["child"]["overrun_s"]
+    print(json.dumps({"simfuzz": out}), flush=True)
+    return out
+
+
 
 
 def run_sweep_lane(seed: int, lane=None) -> dict:
@@ -4416,7 +4716,7 @@ PHASES = ("build", "kernels", "times", "mesh-kernels", "mesh-times",
           "native", "procs", "plugins",
           "mesh10k", "mesh10k-trace", "costmodel", "fleet-kernels",
           "fleet-times",
-          "fleet-smoke", "sweep", "sweep-trace", "model-kernels",
+          "fleet-smoke", "simfuzz", "sweep", "sweep-trace", "model-kernels",
           "model-times", "models", "models-trace")
 
 
@@ -4659,6 +4959,10 @@ def main(argv=None) -> int:
     if "fleet-smoke" in want:
         phase("simfleet smoke on cuda: 8 fuzz seeds as 8 lanes")
         res["fleet_smoke"] = run_fleet_smoke()
+    if "simfuzz" in want:
+        phase("F1 simfuzz on cuda: the corpus, the fault drill, the bounded "
+              "child and an overrun, a batched seed")
+        res["simfuzz"] = run_simfuzz()
     if want & {"sweep", "sweep-trace"}:
         phase("sweep: genscen tor10k seeds 1..8, each run serially on cuda")
         res["sweep_serial"] = run_sweep_serial()

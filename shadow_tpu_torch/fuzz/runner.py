@@ -1,28 +1,39 @@
 """Execute a spec's mode matrix and report per-mode results.
 
-The port's copy holds what the fleet plane needs (ROADMAP A8):
-:func:`run_one_mode` (one spec under one mode, in process), the resume leg,
-:func:`mode_batchable`, the fuzz-level fault harness (:func:`apply_fault`,
-:func:`parse_fault`) and :func:`run_modes`.  The JAX package's bounded
-subprocess runner, oracles, shrinker and ``simfuzz`` CLI are ROADMAP A12.
+Three execution surfaces over ONE code path (:func:`run_one_mode`):
 
-Changes from the JAX package's runner: :func:`run_one_mode` takes the
-``device`` the run's device work goes to (``--device``, cuda unless the
-caller asks for the CPU); mesh modes (``tpu_devices > 1``) run their D
-shards on that one device (``parallel/mesh``), so none is skipped; and a
-``processes >= 2`` mode builds the retransmit tally in this process before
-its shards spawn (utils/native_build.py).
+* :func:`run_modes` / :class:`InProcessRunner` — in-process: build the
+  spec's ``Configuration`` fresh per mode, run it, capture digest/events/
+  supervision/metrics and the log tail.  Used by the tests, corpus replay
+  and the subprocess child.
+* :class:`SubprocessRunner` — production fuzzing: each spec runs in a
+  BOUNDED child (``python -m shadow_tpu_torch.fuzz --child IN OUT --device
+  D``: killed with its whole process group and reported on overrun, never
+  a hang).
+* :class:`BatchedRunner` — ``simfuzz --batched``: the batchable modes of
+  a whole seed list as fleet lanes, the rest serially in the same process.
+
+Changes from the JAX package's runner: every surface takes the ``device``
+the run's device work goes to (``--device``, cuda unless the caller asks
+for the CPU); mesh modes (``tpu_devices > 1``) run their D shards on that
+one device (``parallel/mesh``), so none is skipped; a ``processes >= 2``
+mode builds the retransmit tally in this process before its shards spawn
+(utils/native_build.py); and the child's environment pins no backend and
+no compile cache: the subprocess runner builds the CUDA kernels in the
+parent before the first child instead (ops/_build.py), so no child spends
+its bound in nvcc.
 
 ``apply_fault`` implements the fuzz-level fault harness: a deliberately
 drifted oracle INPUT — perturbing the reported digest/events/supervision/rc
-of one named mode — that the oracle set must catch.  ``engine:*`` faults
-pass through to ``Options.fault_inject`` instead, driving REAL supervised
-recoveries.
+of one named mode — that the oracle set must catch, the shrinker minimize,
+and ``--repro`` replay.  ``engine:*`` faults pass through to
+``Options.fault_inject`` instead, driving REAL supervised recoveries.
 """
 
 from __future__ import annotations
 
 import io
+import json
 import os
 import time as _walltime
 import traceback
@@ -220,11 +231,13 @@ def parse_fault(spec_str: str) -> Dict:
     raise ValueError(f"unknown fuzz fault kind {kind!r}")
 
 
-def run_modes(spec: Dict, modes: Optional[List[Dict]] = None) -> List[Dict]:
+def run_modes(spec: Dict, modes: Optional[List[Dict]] = None,
+              device: str = "cuda") -> List[Dict]:
     """Run every mode of the spec in this process, fault drift applied."""
     results = []
     for mode in (modes if modes is not None else spec["modes"]):
-        results.append(apply_fault(spec, run_one_mode(spec, mode)))
+        results.append(apply_fault(spec, run_one_mode(spec, mode,
+                                                      device=device)))
     return results
 
 
@@ -245,3 +258,189 @@ def mode_batchable(spec: Dict, mode: Dict) -> bool:
             and mode.get("device_plane", "device") == "device"
             and mode.get("dataplane", "python") == "python"
             and mode.get("policy", "global") == "global")
+
+
+# ---------------------------------------------------------------------------
+# bounded subprocess execution
+# ---------------------------------------------------------------------------
+
+_REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+
+def child_env() -> Dict[str, str]:
+    """The child's environment: this process's, unchanged.  Nothing is
+    pinned: mesh modes run their D shards on the one device, so no virtual
+    device mesh is needed, and the kernels are built before the child
+    starts, so no compile cache is shared; ``CUDA_VISIBLE_DEVICES`` is
+    left as the caller set it."""
+    return os.environ.copy()
+
+
+def child_main(in_path: str, out_path: str, device: str = "cuda") -> int:
+    """``python -m shadow_tpu_torch.fuzz --child IN OUT --device D``: run
+    the spec file's modes on ``device``, write the result list as JSON.
+    rc 0 even on violations — the PARENT judges; a nonzero rc means the
+    harness itself broke."""
+    with open(in_path, "r") as f:
+        spec = json.load(f)
+    results = run_modes(spec, device=device)
+    tmp = out_path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump({"spec_seed": spec.get("seed"), "results": results}, f)
+    os.replace(tmp, out_path)
+    return 0
+
+
+def _child_result(rc, log_tail: str, wall_sec, timeout: bool = False
+                  ) -> List[Dict]:
+    """The one-row result of a child that returned no results."""
+    row = {"mode": "<child>", "repeat_of": None, "events_comparable": False,
+           "skipped": None, "rc": rc, "digest": None, "events": None,
+           "rounds": None, "supervision": None, "scrape": {},
+           "log_tail": log_tail, "wall_sec": wall_sec}
+    if timeout:
+        row["timeout"] = True
+    return [row]
+
+
+def _end_group(proc) -> None:
+    """Kill the child's whole process group (it leads its own session, so
+    the group holds the ``--processes`` shards it spawned too) and reap
+    it.  A descendant that left the group could keep the pipes open, so
+    the drain is bounded as well."""
+    import signal
+    import subprocess
+
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    try:
+        proc.communicate(timeout=30)
+    except subprocess.TimeoutExpired:
+        for pipe in (proc.stdout, proc.stderr):
+            pipe.close()
+        proc.wait()
+
+
+class SubprocessRunner:
+    """Run each spec's whole mode matrix in ONE bounded child process; a
+    wedged scenario is killed at ``timeout_sec`` with its process group
+    and reported as a timeout result, never a hang.  On cuda the kernels
+    are built here, before the first child, so a child's bound is spent
+    on its runs."""
+
+    def __init__(self, timeout_sec: float = 240.0, device: str = "cuda"):
+        self.timeout_sec = float(timeout_sec)
+        self.device = device
+        self._built = False
+
+    def _build_kernels(self) -> None:
+        if self._built or self.device != "cuda":
+            return
+        from ..ops import _build
+        missing = [n for n in _build.KERNELS
+                   if not os.path.exists(_build.library_path(n))]
+        if missing:
+            _build.build(missing)
+        self._built = True
+
+    def run(self, spec: Dict) -> List[Dict]:
+        import subprocess
+        import sys
+        import tempfile
+
+        self._build_kernels()
+        with tempfile.TemporaryDirectory(prefix="simfuzz-") as td:
+            in_path = os.path.join(td, "spec.json")
+            out_path = os.path.join(td, "results.json")
+            with open(in_path, "w") as f:
+                json.dump(spec, f)
+            cmd = [sys.executable, "-m", "shadow_tpu_torch.fuzz", "--child",
+                   in_path, out_path, "--device", self.device]
+            proc = subprocess.Popen(cmd, env=child_env(), cwd=_REPO,
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True,
+                                    start_new_session=True)
+            try:
+                out, err = proc.communicate(timeout=self.timeout_sec)
+            except subprocess.TimeoutExpired:
+                _end_group(proc)
+                return _child_result(
+                    None, f"child (pid {proc.pid}) exceeded the "
+                          f"{self.timeout_sec:.0f}s bound and was killed "
+                          "with its process group",
+                    self.timeout_sec, timeout=True)
+            if proc.returncode != 0 or not os.path.exists(out_path):
+                return _child_result(proc.returncode, (out + err)[-2000:],
+                                     None)
+            with open(out_path, "r") as f:
+                return json.load(f)["results"]
+
+
+class InProcessRunner:
+    """Same contract as SubprocessRunner, no child (tests/corpus)."""
+
+    def __init__(self, device: str = "cuda"):
+        self.device = device
+
+    def run(self, spec: Dict) -> List[Dict]:
+        return run_modes(spec, device=self.device)
+
+
+class BatchedRunner:
+    """``simfuzz --batched``: the whole seed list's mode matrices in ONE
+    process over the fleet plane.
+
+    Two phases.  Phase 1 fans every spec's *batchable* modes (see
+    :func:`mode_batchable`) out as fleet lanes — N concurrent engines
+    whose device dispatches merge into batched launches on ``device``.
+    Phase 2 runs the remaining modes (mesh/procs/threaded/native/fault
+    drills) sequentially in this process, each with the process-wide
+    logger (a lane's thread-local logger ends with its lane).  Per-spec
+    result lists come back in mode order with fault drift applied — the
+    shape SubprocessRunner returns, so the oracle set and the shrinker are
+    reused unchanged."""
+
+    def __init__(self, lanes: int = 8, use_numpy: bool = False,
+                 device: str = "cuda"):
+        from ..fleet.driver import FleetDriver
+        from ..fleet.plane import FleetPlane
+        self.device = device
+        self.driver = FleetDriver(lanes=lanes, plane=FleetPlane(
+            use_numpy=use_numpy, device=device))
+        self.batched_modes = 0
+        self.serial_modes = 0
+
+    def plane_stats(self) -> Dict:
+        return self.driver.plane.metrics()
+
+    def run_specs(self, specs: List[Dict]) -> List[List[Dict]]:
+        jobs = []
+        slots = []
+        table: List[List[Optional[Dict]]] = [
+            [None] * len(spec["modes"]) for spec in specs]
+        for si, spec in enumerate(specs):
+            for mi, mode in enumerate(spec["modes"]):
+                if mode_batchable(spec, mode):
+                    jobs.append(lambda lane, s=spec, m=mode:
+                                run_one_mode(s, m, lane=lane,
+                                             device=self.device))
+                    slots.append((si, mi))
+        for (si, mi), result in zip(slots, self.driver.run(jobs)):
+            table[si][mi] = result
+        self.batched_modes += len(jobs)
+        for si, spec in enumerate(specs):
+            for mi, mode in enumerate(spec["modes"]):
+                if table[si][mi] is None:
+                    table[si][mi] = run_one_mode(spec, mode,
+                                                 device=self.device)
+                    self.serial_modes += 1
+        return [[apply_fault(spec, r) for r in rows]
+                for spec, rows in zip(specs, table)]
+
+    def run(self, spec: Dict) -> List[Dict]:
+        """Single-spec entry (shrink candidates, --repro, --corpus):
+        the same two-phase path at fleet width 1."""
+        return self.run_specs([spec])[0]

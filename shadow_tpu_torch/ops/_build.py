@@ -21,7 +21,7 @@ import os
 import re
 import shutil
 import subprocess
-import time
+import time as _walltime
 from typing import Dict, Iterable, List, Optional
 
 import torch
@@ -100,7 +100,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
                                  source_path(name)],
                                 stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
-        jobs[name] = (proc, tmp, lib, time.perf_counter())
+        jobs[name] = (proc, tmp, lib, _walltime.perf_counter())
     out, failed = {}, []
     for name, (proc, tmp, lib, t0) in jobs.items():
         log, _ = proc.communicate()
@@ -109,7 +109,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
                           f"(exit {proc.returncode}):\n{log}")
             continue
         os.replace(tmp, lib)
-        out[name] = {"seconds": time.perf_counter() - t0, "log": log}
+        out[name] = {"seconds": _walltime.perf_counter() - t0, "log": log}
     if failed:
         raise RuntimeError("\n".join(failed))
     return out

@@ -961,6 +961,36 @@ def attach(engine) -> Optional[NativePlane]:
                              f"native dataplane off: {reason}")
         return None
     plane = NativePlane(engine)
+    # The extension's Plane holds its callbacks strongly and is invisible
+    # to the garbage collector, so callbacks bound to the plane would keep
+    # the plane, its engine and every host alive forever.  Re-register
+    # them through a weak reference: the Plane then holds nothing that
+    # leads back, and an engine that ran on the C plane is freed as soon
+    # as it is unreachable.
+    import weakref
+    ref = weakref.ref(plane)
+
+    def _status(kind, hid, t, a, b):
+        return ref()._callback(kind, hid, t, a, b)
+
+    def _cont(cid, t):
+        return ref()._deliver_cont(cid, t)
+    plane.c.set_callback(_status)
+    plane.c.set_cont_callback(_cont)
+    if engine.shard_count > 1:
+        def _xshard(t, dst_hid, src_hid, _unused, seq, wire):
+            pl = ref()
+            eng = pl.engine
+            try:
+                dst = eng.hosts[dst_hid]
+                eng.shard_outboxes[eng.shard_of(dst)].append(
+                    (t, dst_hid, src_hid, seq, wire))
+            except BaseException as e:
+                # as NativePlane.__init__'s: the round executor's guard
+                # must propagate a simulation-side failure
+                pl.sim_exc = e
+                raise
+        plane.c.set_xshard_callback(_xshard)
     policy = NativeGlobalPolicy(plane)
     policy.hosts = engine.scheduler.policy.hosts
     engine.scheduler.policy = policy

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import argparse
 import json
-import time
+import time as _walltime
 
 DELAYS = (0.0, 0.25, 0.5, 1.0, 1.5, 2.0, 3.0)
 
@@ -28,15 +28,15 @@ def one_trace() -> dict:
         activities=[torch.profiler.ProfilerActivity.CUDA])
     launched = []
     with prof:
-        t0 = time.perf_counter()
+        t0 = _walltime.perf_counter()
         for d in DELAYS:
-            while time.perf_counter() - t0 < d:
-                time.sleep(0.01)
+            while _walltime.perf_counter() - t0 < d:
+                _walltime.sleep(0.01)  # simlint: disable=SIM005 -- spaces the probe's launches in wall time; no simulation runs here
             torch.cuda.synchronize()
-            launched.append(time.perf_counter() - t0)
+            launched.append(_walltime.perf_counter() - t0)
             torch.cuda._sleep(1000)
             torch.cuda.synchronize()
-        time.sleep(0.2)
+        _walltime.sleep(0.2)  # simlint: disable=SIM005 -- keeps the profiler open past the last launch; no simulation runs here
     kept = sorted(e.time_range.start * 1e-6 for e in prof.events()
                   if e.device_type == DeviceType.CUDA and "spin" in e.name)
     # a trace loses its earliest events, so the kept ones are the last
@@ -55,12 +55,12 @@ def main(argv=None) -> int:
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("trace_probe needs a GPU")
-    t_start = time.monotonic()
-    while time.monotonic() - t_start < args.minutes * 60:
+    t_start = _walltime.monotonic()
+    while _walltime.monotonic() - t_start < args.minutes * 60:
         row = one_trace()
-        row["t_min"] = (time.monotonic() - t_start) / 60
+        row["t_min"] = (_walltime.monotonic() - t_start) / 60
         print(json.dumps(row), flush=True)
-        time.sleep(args.gap)
+        _walltime.sleep(args.gap)  # simlint: disable=SIM005 -- the wall-time gap between traces is the probe's parameter; no simulation runs here
     return 0
 
 

@@ -42,15 +42,20 @@ VERBATIM = [
     "scale/__init__", "scale/memprof", "scale/hosttable", "scale/genscen",
     "tools/workloads", "tools/mkscenario", "tools/trace_report",
     "tools/parse_log", "tools/plot_log",
-    "fuzz/__init__", "fuzz/gen",
+    "fuzz/__init__", "fuzz/gen", "fuzz/oracles", "fuzz/shrink",
+    "fuzz/__main__",
     "fleet/__init__", "fleet/__main__", "fleet/driver",
     "parallel/mesh/partition", "parallel/procs",
 ]
 # copies that differ from their original only in the named top-level
 # functions: the C data plane's loader builds and loads the port's own
-# extension (utils/native_build.py), never the JAX package's binaries
+# extension (utils/native_build.py), never the JAX package's binaries, and
+# its attach registers the C callbacks weakly so that an engine that ran
+# on the C plane can be freed; simfuzz's CLI takes --device and builds its
+# runners with it
 CHANGED_FUNCTIONS = {
-    "parallel/native_plane": ("_load_module", "_try_import"),
+    "parallel/native_plane": ("_load_module", "_try_import", "attach"),
+    "fuzz/cli": ("build_parser", "main"),
 }
 
 
@@ -267,3 +272,16 @@ def test_port_calibration_leaves_the_jax_records_alone(tmp_path):
         assert res.returncode == 0, res.stdout + res.stderr
     assert '"loads_on_this_box": true' in res.stdout
     assert [_sha256(p) for p in records] == before
+
+
+def test_fuzz_corpus_is_a_byte_copy():
+    """The port replays its own copy of the regression corpus, file for
+    file and byte for byte the JAX package's."""
+    port_dir = os.path.join(PORT, "fuzz", "corpus")
+    ref_dir = os.path.join(REF, "fuzz", "corpus")
+    names = sorted(os.listdir(ref_dir))
+    assert len(names) == 7
+    assert sorted(os.listdir(port_dir)) == names
+    for name in names:
+        assert _sha256(os.path.join(port_dir, name)) == \
+            _sha256(os.path.join(ref_dir, name)), name

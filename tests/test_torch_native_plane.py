@@ -262,3 +262,20 @@ def test_app_exception_propagates_not_demotes():
         eng.run()
     assert eng.supervision.native_round_demotions == 0
     assert not eng.scheduler.policy.round_demoted
+
+
+def test_an_engine_run_on_the_c_plane_is_freed():
+    """The extension's Plane holds its callbacks and is invisible to the
+    garbage collector; ``attach`` registers them through a weak reference,
+    so an engine that ran on the C plane is freed once nothing refers to
+    it.  The metrics registry keeps the latest engine until the next run
+    registers, hence the second run."""
+    import gc
+    import weakref
+    xml = PARITY["tcp-echo-lossless"][0]()
+    first = _port(xml, "native", 120)
+    assert first.native_plane is not None
+    first = weakref.ref(first)
+    assert _port(xml, "native", 120).native_plane is not None
+    gc.collect()
+    assert first() is None
