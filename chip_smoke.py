@@ -132,6 +132,28 @@ N3. plugins: tests/native_src/testapp.c compiled with ``cc``; a two-host
     ``global`` and ``tpu`` on cuda, every binary exiting 0, equal to
     EXPECTED_PLUGINS, the ``tpu`` hops through ``packet_hop``.
 
+The analyzers (right after 2):
+
+A1. analyzers: ``python -m shadow_tpu_torch.analysis.{simlint,simrace,
+    simtwin,simjit}`` (``--json``; simtwin with ``native/``), ``simgen
+    --check`` and ``simjit --sync-sites`` over this checkout, one process
+    each, all at once: each exits 0 with no unsuppressed finding; the
+    files and suppressed findings of each are printed.  Then the runtime
+    twin of SIM302: a probe (an ``.item()`` and an ``Event.synchronize``
+    in a window opened by hand must both be recorded), and the tor10k
+    slice of 7 (not traced) under ``torch.cuda.set_sync_debug_mode
+    ("warn")``, equal to EXPECTED10K, with every synchronizing call
+    recorded at the innermost frame of the port that made it: the implicit
+    ones from the debug mode's warnings, the explicit ones
+    (``Event.synchronize``, ``Stream.synchronize``,
+    ``torch.cuda.synchronize``, which it does not flag) by wrapping them,
+    each marked by whether a device-plane dispatch was in flight (from its
+    launch to its collect; the windows counted must equal the
+    dispatches).  A sync in a window at a site the static pass does not
+    know as designed (a SIM302 pragma, a read of an in-flight handle's
+    attribute, an explicit ``.synchronize()``) fails the phase.  Each site
+    is printed with its count, kind and window, and the run's wall.
+
 The mesh (D shards on one card; run in this order among the phases above:
 mesh kernels and times after 4, the tor1k matrix slice after 6, the tor10k
 mesh slice and its trace after 8):
@@ -1277,6 +1299,249 @@ def check_tor10k(run: dict) -> None:
           f"{run['dispatches']} dispatches = {run['span_launches']} span + "
           f"{run['pack_launches']} pack launches, {run['hop_launches']} hop "
           "launches", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# The analyzers: the port's static analysis over this checkout, and the
+# runtime twin of SIM302, a sync audit of the tor10k slice
+# ---------------------------------------------------------------------------
+
+ANALYZERS = (("simlint", ()), ("simrace", ()),
+             ("simtwin", ("shadow_tpu_torch", "native")), ("simjit", ()))
+ANALYZER_TIMEOUT_S = 300
+SYNC_WARNING = "synchronizing CUDA operation"
+
+
+def run_static_analyzers() -> dict:
+    """python -m shadow_tpu_torch.analysis.{simlint,simrace,simtwin,simjit}
+    --json, simgen --check and simjit --sync-sites over this checkout, one
+    process each, all started together.  Each must exit 0 with no
+    unsuppressed finding.  Returns {tool: report} and the designed sync
+    sites."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    mod = "shadow_tpu_torch.analysis."
+    cmds = {tool: [sys.executable, "-m", mod + tool, "--json", *paths]
+            for tool, paths in ANALYZERS}
+    cmds["simgen"] = [sys.executable, "-m", mod + "simgen", "--check"]
+    cmds["sync-sites"] = [sys.executable, "-m", mod + "simjit",
+                          "--sync-sites"]
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(c, cwd=HERE, env=env, text=True,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE)
+             for k, c in cmds.items()}
+    outs = {}
+    for k, proc in procs.items():
+        try:
+            out, err = proc.communicate(timeout=ANALYZER_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            for q in procs.values():
+                q.kill()
+                q.communicate()
+            fail(f"analyzers: {k} ran past {ANALYZER_TIMEOUT_S} s")
+        if proc.returncode != 0:
+            fail(f"analyzers: {' '.join(cmds[k][2:])} exited "
+                 f"{proc.returncode}:\n{out[-4000:]}{err[-4000:]}")
+        outs[k] = out
+    reports = {}
+    for tool, _paths in ANALYZERS:
+        rep = json.loads(outs[tool])
+        if rep["findings"]:
+            fail(f"analyzers: {tool} has {len(rep['findings'])} "
+                 f"unsuppressed findings: {rep['findings'][:3]}")
+        reports[tool] = {"files": rep["files"],
+                         "suppressed": rep["summary"]["suppressed"],
+                         "findings": rep["summary"]["findings"]}
+        print(f"{tool}: {rep['files']} files, 0 findings, "
+              f"{rep['summary']['suppressed']} suppressed", flush=True)
+    gen_line = outs["simgen"].strip().splitlines()[-1]
+    reports["simgen"] = {"summary": gen_line}
+    print(gen_line, flush=True)
+    sites = json.loads(outs["sync-sites"])
+    reports["wall_s"] = time.perf_counter() - t0
+    print(f"static analyzers: {reports['wall_s']:.2f} s (one process each, "
+          f"in parallel); {len(sites)} designed sync sites", flush=True)
+    return {"reports": reports, "sites": sites}
+
+
+class SyncAudit:
+    """What :func:`sync_audit` records: ``counts[(path, line, kind,
+    in_window)]`` and the dispatch windows it saw open."""
+
+    def __init__(self):
+        self.counts: dict = {}
+        self.window = False
+        self.windows = 0
+        self.explicit = 0
+
+
+@contextlib.contextmanager
+def sync_audit():
+    """Record the port's synchronizing calls while the block runs: every
+    implicit sync torch flags under ``set_sync_debug_mode("warn")`` and
+    every explicit one (``Event.synchronize``, ``Stream.synchronize``,
+    ``torch.cuda.synchronize``, which the debug mode may not flag), each at
+    the innermost frame of shadow_tpu_torch that made it, and whether a
+    device-plane dispatch was in flight (from a dispatch's launch to its
+    collect).  Yields the :class:`SyncAudit`."""
+    import warnings
+    import torch
+    from shadow_tpu_torch.parallel.device_plane import DeviceTrafficPlane
+    if not hasattr(torch.cuda, "set_sync_debug_mode"):
+        fail("sync audit: torch.cuda.set_sync_debug_mode is missing")
+    port = os.path.join(os.path.realpath(HERE), "shadow_tpu_torch") + os.sep
+    skip = os.path.join(port, "analysis") + os.sep
+    audit = SyncAudit()
+    paths: dict = {}
+
+    def record(kind: str) -> None:
+        site = ("(outside the port)", 0)
+        frame = sys._getframe(1)
+        while frame is not None:
+            fn = frame.f_code.co_filename
+            rel = paths.get(fn)
+            if rel is None:
+                real = os.path.realpath(fn)
+                rel = paths[fn] = (
+                    os.path.relpath(real, os.path.realpath(HERE)).replace(
+                        os.sep, "/")
+                    if real.startswith(port) and not real.startswith(skip)
+                    else "")
+            if rel:
+                site = (rel, frame.f_lineno)
+                break
+            frame = frame.f_back
+        key = (*site, kind, audit.window)
+        audit.counts[key] = audit.counts.get(key, 0) + 1
+
+    shown = warnings.showwarning
+
+    def on_warning(message, category, filename, lineno, file=None,
+                   line=None):
+        if SYNC_WARNING in str(message):
+            if not audit.explicit:
+                record("implicit")
+            return
+        shown(message, category, filename, lineno, file, line)
+
+    def explicit(orig):
+        def wrapped(*args, **kwargs):
+            record("explicit")
+            audit.explicit += 1
+            try:
+                return orig(*args, **kwargs)
+            finally:
+                audit.explicit -= 1
+        return wrapped
+
+    def launched(orig):
+        def wrapped(self, *args, **kwargs):
+            out = orig(self, *args, **kwargs)
+            audit.window = True
+            audit.windows += 1
+            return out
+        return wrapped
+
+    def collecting(orig):
+        def wrapped(self, *args, **kwargs):
+            audit.window = False
+            return orig(self, *args, **kwargs)
+        return wrapped
+
+    patches = [(torch.cuda.Event, "synchronize", explicit),
+               (torch.cuda.Stream, "synchronize", explicit),
+               (torch.cuda, "synchronize", explicit),
+               (DeviceTrafficPlane, "_launch", launched),
+               (DeviceTrafficPlane, "consume", collecting)]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = on_warning
+        for obj, name, wrap in patches:
+            setattr(obj, name, wrap(getattr(obj, name)))
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield audit
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            for obj, name, orig in saved:
+                setattr(obj, name, orig)
+
+
+def audit_probe(audit: SyncAudit) -> None:
+    """The audit sees what it must: inside a window opened by hand, an
+    implicit sync (``.item()`` of a tensor on the card) and an explicit
+    one (``Event.synchronize``) are each recorded, in the window."""
+    import torch
+    audit.window = True
+    x = torch.ones(4, device="cuda").sum()
+    x.item()
+    ev = torch.cuda.Event()
+    ev.record()
+    ev.synchronize()
+    audit.window = False
+    seen = {(k[2], k[3]): n for k, n in audit.counts.items()}
+    if set(seen) != {("implicit", True), ("explicit", True)}:
+        fail(f"sync audit: the probe's two syncs were recorded as {seen}")
+    audit.counts.clear()
+
+
+def run_analyzers() -> dict:
+    """The analyzers phase: the static pass, then tor10k (the tor10k phase's
+    config, tpu policy, on the card, not traced) under the sync audit: its
+    digest, events and completed flows equal to EXPECTED10K, and every
+    sync made while a dispatch was in flight at a site the static pass
+    knows as designed (simjit's SIM302 pragmas, reads of an in-flight
+    handle's attributes, explicit syncs)."""
+    t0 = time.perf_counter()
+    static = run_static_analyzers()
+    known = static["sites"]
+    with sync_audit() as audit:
+        audit_probe(audit)
+        run = run_tor10k()
+    check_tor10k(run)
+    counts, windows = audit.counts, audit.windows
+    if windows != run["dispatches"]:
+        fail(f"sync audit: saw {windows} dispatch windows for "
+             f"{run['dispatches']} dispatches")
+
+    def designed(path: str, line: int):
+        for s in known:
+            if s["path"] == path and s["line"] <= line <= s["end_line"]:
+                return s
+        return None
+
+    rows, unknown = [], []
+    for (path, line, kind, in_window), n in sorted(counts.items(),
+                                                   key=lambda kv: -kv[1]):
+        site = designed(path, line)
+        how = ("unlisted" if site is None else
+               "handle" if site["handle"] else "pragma")
+        rows.append({"site": f"{path}:{line}", "kind": kind,
+                     "in_window": in_window, "count": n, "designed": how})
+        if in_window and site is None:
+            unknown.append(f"{path}:{line} ({kind}, {n}x)")
+    for r in rows:
+        print(f"  sync {r['site']} {r['kind']} "
+              f"{'in the window' if r['in_window'] else 'outside it'}: "
+              f"{r['count']} ({r['designed']})", flush=True)
+    if unknown:
+        fail("sync audit: syncs inside the dispatch window at sites the "
+             f"static SIM302 pass does not know: {', '.join(unknown)}")
+    out = {"static": static["reports"], "syncs": rows, "windows": windows,
+           "tor10k_wall_s": run["wall_s"], "digest": run["digest"],
+           "events": run["events"], "completed": run["completed"],
+           "wall_s": time.perf_counter() - t0}
+    print(f"sync audit: tor10k under set_sync_debug_mode('warn'): wall "
+          f"{run['wall_s']:.3f} s, digest {run['digest'][:16]}... events "
+          f"{run['events']} completed {run['completed']} == JAX; "
+          f"{sum(r['count'] for r in rows)} syncs at {len(rows)} sites, "
+          f"{sum(r['count'] for r in rows if r['in_window'])} in the "
+          f"{windows} dispatch windows, all at designed sites; phase wall "
+          f"{out['wall_s']:.2f} s",
+          flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4711,7 +4976,7 @@ def run_superwindow(path: str) -> dict:
     return runs
 
 
-PHASES = ("build", "kernels", "times", "mesh-kernels", "mesh-times",
+PHASES = ("build", "analyzers", "kernels", "times", "mesh-kernels", "mesh-times",
           "tor1k", "tor1k-trace", "tor1k-matrix", "tor10k", "tor10k-trace",
           "native", "procs", "plugins",
           "mesh10k", "mesh10k-trace", "costmodel", "fleet-kernels",
@@ -4749,6 +5014,10 @@ def main(argv=None) -> int:
     if "build" in want:
         phase("build")
         build()
+    if "analyzers" in want:
+        phase("analyzers: simlint, simrace, simtwin, simjit and simgen "
+              "--check over this checkout; tor10k under a sync audit")
+        res["analyzers"] = run_analyzers()
     if args.pairs_against:
         phase(f"pairs: saturate and admit_sorted against "
               f"{args.pairs_against}, {PAIRS} pairs in turns")

@@ -461,6 +461,7 @@ class FleetPlane:
             if self._use_numpy:
                 from ..ops.torcells_device import (
                     torcells_step_span_batched_numpy)
+                # simjit: disable=SIM302 -- the numpy twin: the batched step runs on the host, so the lanes' state comes to it first
                 out = torcells_step_span_batched_numpy(
                     t0, *(a.cpu().numpy() for a in state), tvec, idle,
                     *(a.cpu().numpy() for a in tables),
@@ -475,6 +476,7 @@ class FleetPlane:
                     ring_len=cls.ring_len, tables=span_tables)
             # the one copy back: every lane's flush (t_stop and forwards
             # are in its header); waits for the launch to finish
+            # simjit: disable=SIM302 -- the fleet's designed collect: a fleet launch returns with its lanes' flush, one copy back a launch
             flush = out[9].cpu().numpy()
         with self._cv:
             cls.width = width

@@ -38,7 +38,9 @@ from ..core import defs, stime
 from ..device import resolve_device
 from ._build import check_tensor, entry
 
+# >>> simgen:begin region=token-bucket-kernel spec=293c930bb679 body=ae8bb8568cdc
 REFILL_NS = 1000000   # == defs.INTERFACE_REFILL_INTERVAL_NS (1 ms)
+# <<< simgen:end region=token-bucket-kernel
 ADMIT_TILE = 768      # csrc/admit_sorted.cu TILE: the lanes a block owns
 ADMIT_LANES_MAX = 4096  # csrc/admit_sorted.cu LANES_MAX: above, the tiles
 

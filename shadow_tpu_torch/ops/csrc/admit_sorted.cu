@@ -98,12 +98,15 @@ constexpr int LANE_THREADS = 256;
 constexpr int64_t NARROW_REF = int64_t(1) << 31;
 constexpr int64_t WIDE_START = int64_t(1) << 62;
 constexpr unsigned FULL = 0xffffffffu;
+// >>> simgen:begin region=cuda-refill spec=293c930bb679 body=257e50842f8f
 constexpr int64_t REFILL_NS = 1000000;   // the 1 ms refill tick
-// floor(x / 10^6) = umulhi(x, REFILL_MAGIC) >> 18 for every x < 2^64:
-// REFILL_MAGIC = ceil(2^82 / 10^6), and REFILL_MAGIC * 10^6 - 2^82 <= 2^18
-// (Granlund and Montgomery, theorem 4.2)
+// floor(x / REFILL_NS) = umulhi(x, REFILL_MAGIC) >> REFILL_SHIFT for every
+// x < 2^64: REFILL_MAGIC = ceil(2^(64 + REFILL_SHIFT) / REFILL_NS), and
+// REFILL_MAGIC * REFILL_NS - 2^(64 + REFILL_SHIFT) <= 2^REFILL_SHIFT
+// (Granlund and Montgomery, theorem 4.2; simgen checks it)
 constexpr uint64_t REFILL_MAGIC = 0x431BDE82D7B634DBull;
 constexpr int REFILL_SHIFT = 18;
+// <<< simgen:end region=cuda-refill
 
 // floor(a / 10^6) for any int64 a (a < 0 through ~a = -a - 1)
 __device__ __forceinline__ int64_t floor_refill(int64_t a) {

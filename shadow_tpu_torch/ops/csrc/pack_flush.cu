@@ -91,7 +91,10 @@ constexpr int LANES = 4;  // contiguous lanes a thread
 constexpr int64_t TILE = THREADS * LANES;
 constexpr int WARPS = THREADS / 32;
 constexpr int HEADER = 5;
-constexpr int64_t PACK_CELL_WIRE_BYTES = 512 + 66;  // core/defs.py
+// >>> simgen:begin region=cuda-cell-header spec=293c930bb679 body=25753cd8da65
+constexpr int64_t HDR_TCP = 66;  // a cell's TCP+IP+ETH header bytes
+// <<< simgen:end region=cuda-cell-header
+constexpr int64_t PACK_CELL_WIRE_BYTES = 512 + HDR_TCP;  // a cell's bytes
 
 struct Dims {
   int64_t c, h;     // chain and node lanes of one flush

@@ -123,7 +123,9 @@ struct Narrow {
 
   __device__ __forceinline__ void tick(bool arr) {
     const bool admit = arr && queue < q1;
+    // simtwin: disable=SIM204 -- admit is the tick's 0/1 admission flag, not a time; dropped <= ticks < 2^31 on this path (guard: saturate.cu:201-203)
     dropped += (int32_t)(arr && !admit);
+    // simtwin: disable=SIM204 -- admit is the tick's 0/1 admission flag, not a time; queue <= qcap + 1 < 2^31 on this path (guard: saturate.cu:201-203)
     queue += (int32_t)admit;
     const int32_t n1 = min(queue, w);
     queue -= n1;

@@ -95,7 +95,10 @@ constexpr int MAX_THREADS = 1024;
 constexpr int MAX_WARPS = MAX_THREADS / 32;
 constexpr unsigned FULL = 0xffffffffu;
 // 512 B cell + the TCP/IP/Ethernet header (core/defs.py)
-constexpr int64_t CELL_WIRE_BYTES = 512 + 66;
+// >>> simgen:begin region=cuda-cell-header spec=293c930bb679 body=25753cd8da65
+constexpr int64_t HDR_TCP = 66;  // a cell's TCP+IP+ETH header bytes
+// <<< simgen:end region=cuda-cell-header
+constexpr int64_t CELL_WIRE_BYTES = 512 + HDR_TCP;
 // meta.w flag bits; meta.w >> 2 is the flow's offset in its node's run
 constexpr int SEG_HEAD = 1;
 constexpr int NODE_TAIL = 2;

@@ -481,6 +481,7 @@ class PacketHopKernel:
             deliver, keep = packet_hop_packed(
                 self.latency, self.reliability, packed, self.key_lo,
                 self.key_hi, self.bootstrap_end_ns)
+            # simjit: disable=SIM302 -- the CPU device (no pinned pool): the plain hop ran on host tensors, nothing is in flight
             return HopHandle(n, result=(deliver.numpy()[:n],
                                         keep.numpy()[:n]))
         bufs = self._pool.acquire(b)
@@ -856,6 +857,7 @@ class ShardedPacketHopKernel(PacketHopKernel):
             cols = tuple(torch.from_numpy(c) for c in self.padded_batch(
                 src_rows, dst_rows, uids, send_times, b))
             deliver, keep = self._run(cols, barrier_ns)
+            # simjit: disable=SIM302 -- the CPU device (no pinned pool): the plain hop ran on host tensors, nothing is in flight
             return HopHandle(n, result=(deliver.numpy()[:n],
                                         keep.numpy()[:n]))
         bufs = self._pool.acquire(b)

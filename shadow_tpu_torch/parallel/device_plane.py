@@ -1119,6 +1119,7 @@ class DeviceTrafficPlane:
                     cap_nodes=caps[1] if caps else None,
                     tables=self._span_tables)
             if self._stream is None:
+                # simjit: disable=SIM302 -- the CPU plane (no stream): out lies on the host, nothing is in flight; on the card the copy back is the _FlushHandle's
                 return out, out[9].numpy()
             pin = self._pinned.acquire((out[9].shape[0],))
             pin.copy_(out[9], non_blocking=True)

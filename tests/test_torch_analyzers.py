@@ -1,69 +1,47 @@
-"""simlint and simrace over the port: 0 unsuppressed findings.
+"""simlint and simrace of the port (shadow_tpu_torch/analysis/) over the
+port: 0 unsuppressed findings; and over the JAX package: its own findings.
 
 The repository's analyzer settings (pyproject.toml's ``[tool.simlint]``,
-``[tool.simlint.allow]``, ``[tool.simjit]`` and ``[tool.simjit.allow]``)
-name the JAX package's paths.  The test writes the same settings into a
-scratch directory with every ``shadow_tpu/`` pattern mapped to
-``shadow_tpu_torch/``, links the port beside them (the analyzers report
-and allowlist paths relative to their config file), and runs each
-analyzer's ``main`` over the port: every finding is fixed or carries a
-reasoned pragma.  simjit, simtwin and simgen model JAX programs and the
-JAX package's protocol tables, so they stay with the JAX package.
+``[tool.simlint.allow]``, ``[tool.simjit*]`` and ``[tool.simtwin.map]``)
+name the JAX package's paths.  The port's ``simlint.load_config`` reads
+them with every ``shadow_tpu/`` turned into ``shadow_tpu_torch/`` and the
+port's ``analysis/port.toml`` merged over them (analysis/settings.py), so
+the port's tools run over the port from the repository's root with no
+settings of their own to copy.  simtwin, simgen and simjit of the port have
+their own test files (test_torch_simtwin.py, test_torch_simgen.py,
+test_torch_simjit.py).
 """
 
 import json
 import os
-import tomllib
 
 import pytest
 
-from shadow_tpu.analysis import simlint, simrace
+from shadow_tpu.analysis import simlint as jax_simlint
+from shadow_tpu.analysis import simrace as jax_simrace
+from shadow_tpu_torch.analysis import simlint, simrace
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SECTIONS = (("tool", "simlint"), ("tool", "simlint", "allow"),
-            ("tool", "simjit"), ("tool", "simjit", "allow"))
+PYPROJECT = os.path.join(REPO, "pyproject.toml")
 
 
-def _toml_array(values) -> str:
-    return "[" + ", ".join(json.dumps(v) for v in values) + "]"
-
-
-def port_config(tmp_path) -> str:
-    """The analyzer settings re-pointed at the port, and the port linked
-    beside them; returns the config's path."""
-    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
-        doc = tomllib.load(f)
-    lines = []
-    for keys in SECTIONS:
-        table = doc
-        for k in keys:
-            table = table[k]
-        lines.append("[" + ".".join(keys) + "]")
-        for key, value in table.items():
-            if isinstance(value, list):
-                value = [v.replace("shadow_tpu/", "shadow_tpu_torch/")
-                         for v in value]
-                lines.append(f"{key} = {_toml_array(value)}")
-        lines.append("")
-    cfg = tmp_path / "pyproject.toml"
-    cfg.write_text("\n".join(lines))
-    os.symlink(os.path.join(REPO, "shadow_tpu_torch"),
-               tmp_path / "shadow_tpu_torch")
-    return str(cfg)
-
-
-def test_port_config_maps_every_pattern(tmp_path):
-    text = open(port_config(tmp_path)).read()
+def test_port_config_maps_every_pattern():
+    config = simlint.load_config(PYPROJECT)
+    text = config.text
     assert '"shadow_tpu_torch/obs/*", "shadow_tpu_torch/prof/*"' in text
     assert "shadow_tpu/" not in text
+    assert config.allow["SIM001"] == ["shadow_tpu_torch/obs/*",
+                                      "shadow_tpu_torch/prof/*"]
+    # read as written, the settings are the JAX package's
+    ref = simlint.load_config(PYPROJECT, port=False)
+    assert ref.allow == jax_simlint.load_config(PYPROJECT).allow
+    assert ref.exclude == jax_simlint.load_config(PYPROJECT).exclude
 
 
 @pytest.mark.parametrize("tool", [simlint, simrace],
                          ids=["simlint", "simrace"])
-def test_analyzer_finds_nothing_in_the_port(tool, tmp_path, capsys):
-    cfg = port_config(tmp_path)
-    rc = tool.main(["--json", "--config", cfg,
-                    str(tmp_path / "shadow_tpu_torch")])
+def test_analyzer_finds_nothing_in_the_port(tool, capsys):
+    rc = tool.main(["--json", os.path.join(REPO, "shadow_tpu_torch")])
     report = json.loads(capsys.readouterr().out)
     assert report["files"] > 100, report["files"]
     assert report["findings"] == [], report["findings"]
@@ -71,3 +49,15 @@ def test_analyzer_finds_nothing_in_the_port(tool, tmp_path, capsys):
     # the pragmas the port carries are still used (a stale one would be
     # a SIM000 finding above)
     assert report["summary"]["suppressed"] > 0
+
+
+@pytest.mark.parametrize("port,ref", [
+    (simlint.lint_paths, jax_simlint.lint_paths),
+    (simrace.race_paths, jax_simrace.race_paths)],
+    ids=["simlint", "simrace"])
+def test_analyzer_gives_the_jax_packages_findings_on_its_tree(port, ref):
+    paths = [os.path.join(REPO, "shadow_tpu")]
+    got = port(paths, simlint.load_config(PYPROJECT, port=False))
+    want = ref(paths, jax_simlint.load_config(PYPROJECT))
+    assert got.to_json() == want.to_json()
+    assert want.files > 100 and want.to_json()["summary"]["suppressed"] > 0

@@ -46,16 +46,24 @@ VERBATIM = [
     "fuzz/__main__",
     "fleet/__init__", "fleet/__main__", "fleet/driver",
     "parallel/mesh/partition", "parallel/procs",
+    "ops/protocol_tables",
+    "analysis/__init__", "analysis/genmark", "analysis/rules",
+    "analysis/race_rules", "analysis/logic_ir",
+    "analysis/protocol", "analysis/cspec",
 ]
 # copies that differ from their original only in the named top-level
 # functions: the C data plane's loader builds and loads the port's own
 # extension (utils/native_build.py), never the JAX package's binaries, and
 # its attach registers the C callbacks weakly so that an engine that ran
 # on the C plane can be freed; simfuzz's CLI takes --device and builds its
-# runners with it
+# runners with it; the analyzers read the port's settings (the
+# repository's re-pointed at the port, analysis/port.toml merged over
+# them) and default to the port's paths
 CHANGED_FUNCTIONS = {
     "parallel/native_plane": ("_load_module", "_try_import", "attach"),
     "fuzz/cli": ("build_parser", "main"),
+    "analysis/simlint": ("load_config", "main"),
+    "analysis/simrace": ("main",),
 }
 
 
@@ -198,6 +206,31 @@ def test_changed_copy_equals_original_but_for_its_functions(module):
         f"shadow_tpu_torch/{module}.py drifted from shadow_tpu/{module}.py "
         f"outside {', '.join(names)}")
     assert port != ref
+
+
+def test_analysis_imports_nothing_of_shadow_tpu():
+    """shadow_tpu_torch/analysis/ stands alone: every module imports with
+    jax and shadow_tpu blocked, and none names them in an import."""
+    names = sorted(m for m in _port_modules()
+                   if m.startswith("shadow_tpu_torch.analysis"))
+    # the JAX package's 14 files, cuspec and settings
+    assert len(names) == 16, names
+    res = _run_python(f"""
+        import sys
+        for blocked in ("jax", "jaxlib", "shadow_tpu"):
+            sys.modules[blocked] = None   # importing it now raises
+        import importlib
+        for m in {names!r}:
+            importlib.import_module(m)
+        print("OK")
+    """)
+    assert res.returncode == 0, res.stderr
+    for name in names:
+        path = os.path.join(REPO, *name.split(".")) + ".py"
+        if not os.path.exists(path):
+            path = os.path.join(REPO, *name.split("."), "__init__.py")
+        assert not set(_imported_roots(path)) & {"jax", "jaxlib",
+                                                  "shadow_tpu"}, path
 
 
 # the model workloads' modules: each imports with jax and shadow_tpu

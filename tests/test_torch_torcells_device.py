@@ -391,15 +391,18 @@ def test_tile_restatement_with_a_queue_below_zero(inst, geometry):
 
 def test_kernel_cell_size_matches_the_model():
     """The span kernels' tick body (csrc/span_tile.cuh) compiles in the
-    wire size of a cell, its chunk and its meta flags; they must be the
+    wire size of a cell (a payload and the header bytes of its generated
+    HDR_TCP region), its chunk and its meta flags; they must be the
     model's CELL_WIRE_BYTES and the wrapper's CHUNK_FLOWS, SEG_HEAD and
     NODE_TAIL."""
     path = os.path.join(os.path.dirname(ttd.__file__), "csrc",
                         "span_tile.cuh")
     with open(path, encoding="utf-8") as f:
         src = f.read()
-    m = re.search(r"CELL_WIRE_BYTES = (\d+) \+ (\d+);", src)
-    assert m and int(m.group(1)) + int(m.group(2)) == ttd.CELL_WIRE_BYTES
+    m = re.search(r"CELL_WIRE_BYTES = (\d+) \+ HDR_TCP;", src)
+    hdr = re.search(r"constexpr int64_t HDR_TCP = (\d+);", src)
+    assert m and hdr
+    assert int(m.group(1)) + int(hdr.group(1)) == ttd.CELL_WIRE_BYTES
     const = {k: int(v) for k, v in re.findall(
         r"constexpr int (\w+) = (\d+);", src)}
     assert const["THREADS"] * const["FPT"] == ttd.CHUNK_FLOWS
