@@ -2318,6 +2318,7 @@ def _wrappers() -> dict:
     from shadow_tpu_torch.ops import round_step as rs
     from shadow_tpu_torch.ops import saturate_device as sd
     from shadow_tpu_torch.ops import torcells_device as td
+    from shadow_tpu_torch.parallel.mesh import cards as cm
     from shadow_tpu_torch.parallel.mesh import exchange as ex
     return {"span": td.torcells_span, "pack": td.pack_flush,
             "span_b": td.torcells_span_batched,
@@ -2327,7 +2328,7 @@ def _wrappers() -> dict:
             "torcells_run": td.torcells_run,
             "admit_sorted": bw.admit_sorted, "mesh_span": ex.mesh_span,
             "mesh_pack": ex.mesh_pack_flush,
-            "hop_s": rs.packet_hop_sharded}
+            "hop_s": rs.packet_hop_sharded, "mesh_card": cm.mesh_span_card}
 
 
 def _reset_counts():
@@ -4643,6 +4644,569 @@ def run_tor1k_matrix() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The mesh over cards (parallel/mesh/cards.py): each card runs its own
+# group of shards, the card entry of csrc/mesh_span.cu one launch a card a
+# lookahead window, the cells that cross cards moved between the windows by
+# peer copies ordered by CUDA events; the flush packed on the lead card.
+# Here the cards are aliases of the one H100 (every allocation, launch,
+# window, copy and event of the per-card program runs; what aliases cannot
+# show is NVLink and two physical cards at once), and distinct cards where
+# the machine has them.
+# ---------------------------------------------------------------------------
+
+MESH_CARDS = (2, 4)          # aliased cards for the card entry's checks
+MESH10K_CARDS = 2            # the tor10k mesh over cards
+MATRIX_CARDS = 4             # the row-sharded hop over cards
+TOR100_MATRIX = {"n_relays": 100, "stoptime": 64, "seed": 1, "shards": 4}
+CARD_HOP_SIZES = (4096, 65536)
+PEER_COPY_BYTES = 64 << 20
+
+
+def mesh_card_sets():
+    """(label, cards): the aliased sets, and the host's distinct cards
+    (at most 4) where it has two or more."""
+    import torch
+    sets = [(f"{k} aliased", [torch.device("cuda", 0)] * k)
+            for k in MESH_CARDS]
+    n = torch.cuda.device_count()
+    if n >= 2:
+        sets.append((f"{min(n, 4)} distinct",
+                     [torch.device("cuda", i) for i in range(min(n, 4))]))
+    return sets
+
+
+def _cards_step(plane, lay, cards, max_window=None):
+    from shadow_tpu_torch.parallel.mesh import device_mesh
+    from shadow_tpu_torch.parallel.mesh import exchange as ex
+    return ex.make_mesh_span_flush(
+        device_mesh(MESH10K_SHARDS, device=_card(), cards=cards), "flows",
+        plane.ring_len, lay, lay["inv"][plane.last_flow], lay["node_src"],
+        plane.n_nodes, max_window=max_window)
+
+
+def _cards_run(step, state, inject, inject_target, targets, idle,
+               plain=False):
+    """One dispatch over cards (the card entry, or its plain version);
+    returns (the raw 10-tuple, its numpy global arrays)."""
+    import numpy as np
+    import torch
+    from shadow_tpu_torch.parallel.mesh import cards as cm
+    if plain:
+        out = cm.mesh_span_cards_flush_torch(
+            state[0], state[1:8], inject, inject_target, targets, idle,
+            np.asarray(step.layout["refill"]),
+            np.asarray(step.layout["capacity"]), step.layout, step.cards,
+            step.tables)
+    else:
+        out = step(state[0], *state[1:8], inject, inject_target, targets,
+                   idle)
+    torch.cuda.synchronize()
+    return out, [np.asarray(o.cpu() if torch.is_tensor(o) else o)
+                 for o in out]
+
+
+def check_mesh_cards(plane) -> dict:
+    """The card entry against its plain version and against the one-card
+    mesh kernels, bit for bit on all ten outputs: the tor10k table at D =
+    MESH10K_SHARDS, over each set of mesh_card_sets (and at W = 1 over 2
+    aliased cards), for the span cases (a mid-span halt, an idle fold, an
+    injection on a boundary), each followed by a second dispatch from the
+    state the first left on the cards.  Returns the largest |difference|
+    (0) and the sets' shapes."""
+    import numpy as np
+    from shadow_tpu_torch.parallel.mesh import cards as cm
+    from shadow_tpu_torch.parallel.mesh.partition import pad_state
+    cases = [c for c in span_cases(plane) if c[6] is None][:3]
+    lay = mesh_layout(plane, MESH10K_SHARDS)
+    statics = _mesh_statics(lay)
+    one_step, _ = _mesh_step(plane, lay, MESH10K_SHARDS, "fused")
+    max_err, shapes = 0, []
+    runs = [(label, cards, None) for label, cards in mesh_card_sets()]
+    runs.insert(1, (runs[0][0] + ", W = 1", runs[0][1], 1))
+    for label, cards, max_w in runs:
+        t0 = time.perf_counter()
+        step = _cards_step(plane, lay, cards, max_w)
+        tb = step.tables
+        for name, st, inj, inj_t, tv, idle, _c in cases:
+            first = (pad_mesh_state(lay, st), pad_state(lay, inj),
+                     pad_state(lay, inj_t), tv, idle)
+            l0 = cm.mesh_span_card.launches
+            kern_raw, kern = _cards_run(step, *first)
+            plan = cm.card_launch_plan(first[0][0], tv, tb.window)
+            if cm.mesh_span_card.launches - l0 != len(plan) * len(cards):
+                fail(f"mesh cards {label} {name}: "
+                     f"{cm.mesh_span_card.launches - l0} card launches for "
+                     f"{len(plan)} launches a card")
+            plain_raw, plain = _cards_run(step, *first, plain=True)
+            one = _mesh_run(one_step, *first, statics)
+            t_stop = int(kern[0])
+            tv2 = t_stop + 6 * np.arange(1, 9)
+            zp = np.zeros(len(lay["src"]), dtype=np.int64)
+            kern2 = _cards_run(step, (t_stop, *kern_raw[1:8]), zp, zp, tv2,
+                               0)[1]
+            plain2 = _cards_run(step, (int(plain[0]), *plain_raw[1:8]), zp,
+                                zp, tv2, 0, plain=True)[1]
+            one2 = _mesh_run(one_step, (t_stop, *kern[1:8]), zp, zp, tv2, 0,
+                             statics)
+            for tag, a, b in (("plain", kern, plain), ("one card", kern, one),
+                              ("plain, 2nd", kern2, plain2),
+                              ("one card, 2nd", kern2, one2)):
+                err = _max_err(zip(a, b))
+                max_err = max(max_err, err)
+                if err:
+                    bad = [i for i in range(10)
+                           if not np.array_equal(a[i], b[i])]
+                    fail(f"mesh cards {label} {name}: the card entry differs "
+                         f"from the {tag} version in outputs {bad} (max "
+                         f"|diff| {err})")
+            if int(kern[9][-1]) == 0:
+                fail(f"mesh cards {label} {name}: no cell crossed shards")
+        shapes.append({"cards": label, "window": tb.window, "pw": tb.pw,
+                       "seg": tb.seg, "cross_card_cells_a_tick":
+                       tb.cross_card_cells_a_tick,
+                       "rows": [hi - lo for lo, hi in step.cards.rows]})
+        print(f"mesh over {label} cards ({', '.join(map(str, cards))}): "
+              f"window W = {tb.window} ticks, {tb.cross_card_cells_a_tick} "
+              f"cross-card edges (pw {tb.pw}); card entry == plain version "
+              f"== one-card mesh kernels, bit-exact, in "
+              f"{len(cases)} cases and their second dispatches "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    return {"err": max_err, "sets": shapes}
+
+
+def peer_copy_rate(cards) -> float:
+    """Bytes a second of one PEER_COPY_BYTES copy from card 0's buffer to
+    card 1's (the exchange's copy_, non-blocking; on aliased cards a copy
+    inside the one card), by CUDA events, median of 5."""
+    import torch
+    n = PEER_COPY_BYTES // 8
+    src = torch.ones(n, dtype=torch.int64, device=cards[0])
+    dst = torch.empty(n, dtype=torch.int64, device=cards[1])
+    times = []
+    with torch.cuda.device(cards[0]):
+        for _ in range(6):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            dst.copy_(src, non_blocking=True)
+            e1.record()
+            torch.cuda.synchronize(cards[0])
+            torch.cuda.synchronize(cards[1])
+            times.append(e0.elapsed_time(e1))
+    times = sorted(times[1:])
+    return PEER_COPY_BYTES / (times[len(times) // 2] * 1e-3)
+
+
+def cards_bound(plane, step, ticks: int, rate: float) -> dict:
+    """The card entry's least time for a dispatch of ``ticks`` ticks: the
+    busiest card's share of the span's bound (span_bound, by its share of
+    the rows), plus the window's cross-card cells (8 B each, copied once)
+    over the peer-copy rate measured in the same call."""
+    base = span_bound(plane, ticks)
+    cl = step.cards
+    share = max(hi - lo for lo, hi in cl.rows) / cl.f
+    xbytes = ticks * step.tables.cross_card_cells_a_tick * 8
+    t_cross = xbytes / rate * 1e3
+    row = {"bytes": int(base["bytes"] * share) + xbytes,
+           "ops": int(base["ops"] * share), "cross_bytes": xbytes,
+           "peer_bytes_per_s": rate,
+           "bound_ms": base["bound_ms"] * share + t_cross}
+    row["bound_by"] = base["bound_by"] if base["bound_ms"] * share >= \
+        t_cross else "bytes"
+    return row
+
+
+def time_mesh_cards(plane) -> dict:
+    """One dispatch over MESH10K_CARDS aliased cards at D =
+    MESH10K_SHARDS, MESH_TIME_TICKS[-1] ticks, no completion: the card
+    entry's windows, copies and the lead's flush by CUDA events on the
+    caller's stream (which the dispatch joins at both ends; the card kept
+    busy while the host enqueues), the state restored outside the timed
+    interval, in turns with the one-card mesh dispatch on the same state
+    (one card, cards, cards, one card); the plain version once (host
+    clock); the peer-copy rate; the bound."""
+    import numpy as np
+    import torch
+    from shadow_tpu_torch.parallel.mesh import cards as cm
+    rng = np.random.default_rng(23)
+    st = list(busy_state(plane, rng, 30000))
+    st[5] = np.zeros(plane.n_flows, dtype=np.int64)   # no target: no halt
+    lay = mesh_layout(plane, MESH10K_SHARDS)
+    cards = [torch.device("cuda", 0)] * MESH10K_CARDS
+    step = _cards_step(plane, lay, cards)
+    one_step, _ = _mesh_step(plane, lay, MESH10K_SHARDS, "fused")
+    statics = _mesh_statics(lay)
+    mst = pad_mesh_state(lay, st)
+    ticks = MESH_TIME_TICKS[-1]
+    tv = np.array([30000 + ticks])
+    zp = torch.zeros(len(lay["src"]), dtype=torch.int64, device=_card())
+    cl = step.cards
+    kinds = ("flow", "flow", "node", "flow", "flow", "flow", "node")
+    saved = [cl.split(a, k) for a, k in zip(mst[1:], kinds)]
+    live = [cl.split(a, k) for a, k in zip(mst[1:], kinds)]
+    one_saved = [torch.as_tensor(a, device=_card()) for a in mst[1:]]
+    one_live = [a.clone() for a in one_saved]
+    zsplit = cl.split(np.zeros(len(lay["src"]), dtype=np.int64))
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+
+    def timed(launch, restore, reps=5):
+        total = 0.0
+        for r in range(reps + 1):
+            restore()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(50_000_000)
+            e0.record()
+            launch()
+            e1.record()
+            torch.cuda.synchronize()
+            if r:
+                total += e0.elapsed_time(e1)
+        return total / reps
+
+    def restore_cards():
+        for a, b in zip(live, saved):
+            for x, y in zip(a.parts, b.parts):
+                x.copy_(y)
+
+    def restore_one():
+        for a, b in zip(one_live, one_saved):
+            a.copy_(b)
+
+    def cards_launch():
+        step(30000, *live, zsplit, zsplit, tv, 0)
+
+    def one_launch():
+        one_step(30000, *one_live, zp, zp, tv, 0, *statics)
+    o1 = timed(one_launch, restore_one)
+    c1 = timed(cards_launch, restore_cards)
+    c2 = timed(cards_launch, restore_cards)
+    o2 = timed(one_launch, restore_one)
+    w0 = cm.mesh_span_card.launches
+    cards_launch()
+    launches = cm.mesh_span_card.launches - w0
+    _, plain_ms = _host_ms(lambda: _cards_run(
+        step, (30000, *mst[1:]), np.zeros(len(lay["src"]), dtype=np.int64),
+        np.zeros(len(lay["src"]), dtype=np.int64), tv, 0, plain=True))
+    rate = peer_copy_rate(cards)
+    row = {"ticks": ticks, "ms": (c1 + c2) / 2, "turns_ms": [c1, c2],
+           "one_card_ms": (o1 + o2) / 2, "one_card_turns_ms": [o1, o2],
+           "plain_ms": plain_ms, "window": step.tables.window,
+           "launches_a_dispatch": launches,
+           "cross_card_cells_a_tick": step.tables.cross_card_cells_a_tick}
+    row.update(cards_bound(plane, step, ticks, rate))
+    print(f"mesh_span card entry over {MESH10K_CARDS} aliased cards, D = "
+          f"{MESH10K_SHARDS}: {row['ms']:.4f} ms for {ticks} ticks "
+          f"(turns {c1:.4f}, {c2:.4f}; W = {row['window']}, "
+          f"{launches} launches), beside the one-card mesh dispatch "
+          f"{row['one_card_ms']:.4f} ms (turns {o1:.4f}, {o2:.4f}); plain "
+          f"{plain_ms:.1f} ms; peer-copy rate {rate / 1e9:.1f} GB/s (one "
+          f"card's copy into itself); bound {row['bound_ms'] * 1e3:.3f} us "
+          f"({row['bound_by']}; {row['cross_bytes']} B across cards)",
+          flush=True)
+    return row
+
+
+def check_sharded_hop_cards() -> dict:
+    """The sharded hop over cards (MATRIX_CARDS and 2 aliased cards, and
+    the distinct cards where present), both layouts, at tor1k's A = 183
+    and B in CARD_HOP_SIZES: each card's launch on the round in
+    page-locked memory against the plain versions and packet_hop on the
+    valid lanes; one launch a card a batch; no card's row slice holds A
+    rows.  Times a batch's launches and wait (host clock, median of 30)
+    at the largest B over MATRIX_CARDS aliased cards."""
+    import numpy as np
+    import torch
+    from shadow_tpu_torch.ops import round_step as rs
+    sets = [(f"{k} aliased", [torch.device("cuda", 0)] * k)
+            for k in (MATRIX_CARDS, 2)]
+    sets += [s for s in mesh_card_sets() if "distinct" in s[0]]
+    max_err, times = 0, {}
+    for b in CARD_HOP_SIZES:
+        n = b - b // 8
+        lat, rel, cols, barrier = _hop_inputs(n, 900 + b)
+        one = rs.PacketHopKernel.from_arrays(lat, rel, DROP_KEY,
+                                             BOOTSTRAP_END, _card())
+        od, ok = one.step(*cols, barrier)
+        for label, cards in sets:
+            for d, matrix in ((8, False), (4, True), (8, True)):
+                if d < len(cards):
+                    continue
+                kern = rs.ShardedPacketHopKernel.from_arrays(
+                    lat, rel, DROP_KEY, BOOTSTRAP_END, _card(), n_devices=d,
+                    shard_matrix=matrix, cards=cards)
+                if matrix and any(t.shape[0] >= A for t in kern.lat_rows):
+                    fail(f"hop over {label}: a card's row slice holds "
+                         f"{max(t.shape[0] for t in kern.lat_rows)} of A = "
+                         f"{A} rows")
+                s0 = rs.packet_hop_sharded.launches
+                sd, sk = kern.step(*cols, barrier)
+                if rs.packet_hop_sharded.launches - s0 != len(cards):
+                    fail(f"hop over {label}: "
+                         f"{rs.packet_hop_sharded.launches - s0} launches "
+                         f"for a batch over {len(cards)} cards")
+                pcols = tuple(torch.as_tensor(c) for c in kern.padded_batch(
+                    *cols, kern.bucket(n)))
+                keys = (kern.key_lo, kern.key_hi, BOOTSTRAP_END, barrier)
+                lt, rt = torch.as_tensor(lat), torch.as_tensor(rel)
+                if matrix:
+                    per = -(-A // d)
+                    lp = torch.nn.functional.pad(lt, (0, 0, 0, per * d - A))
+                    rp = torch.nn.functional.pad(rt, (0, 0, 0, per * d - A))
+                    want = rs.matrix_sharded_hop_reference(
+                        [lp[s * per:(s + 1) * per] for s in range(d)],
+                        [rp[s * per:(s + 1) * per] for s in range(d)], A,
+                        pcols, *keys)
+                else:
+                    want = rs.batch_sharded_hop_reference(lt, rt, pcols, d,
+                                                          *keys)
+                err = _max_err(zip((sd, sk), (want[0][:n], want[1][:n])))
+                max_err = max(max_err, err)
+                if err or not (np.array_equal(sd, od)
+                               and np.array_equal(sk, ok)):
+                    fail(f"hop over {label} D={d} matrix={matrix} B={b}: "
+                         f"differs from its plain version ({err}) or from "
+                         "packet_hop")
+                if b == max(CARD_HOP_SIZES) and label.startswith(
+                        f"{MATRIX_CARDS} aliased"):
+                    walls = []
+                    for _ in range(31):
+                        t0 = time.perf_counter()
+                        kern.step(*cols, barrier)
+                        walls.append(time.perf_counter() - t0)
+                    walls = sorted(walls[1:])
+                    key = "matrix" if matrix else "batch"
+                    dev = _card()
+                    dcols = tuple(c.to(dev) for c in pcols)
+                    if matrix:
+                        _, plain_ms = _host_ms(
+                            lambda: rs.matrix_sharded_hop_reference(
+                                [lp[s * per:(s + 1) * per].to(dev)
+                                 for s in range(d)],
+                                [rp[s * per:(s + 1) * per].to(dev)
+                                 for s in range(d)], A, dcols, *keys))
+                    else:
+                        _, plain_ms = _host_ms(
+                            lambda: rs.batch_sharded_hop_reference(
+                                lt.to(dev), rt.to(dev), dcols, d, *keys))
+                    times.setdefault(key, {})[d] = {
+                        "plain_ms": plain_ms,
+                        "ms": walls[len(walls) // 2] * 1e3, "bucket": b,
+                        "cards": len(cards),
+                        **sharded_hop_bound(kern.bucket(n),
+                                            len(set(zip(cols[0].tolist(),
+                                                        cols[1].tolist()))))}
+        print(f"sharded hop over cards B={b} n={n} ({', '.join(s[0] for s in sets)}): "
+              f"batch and row layouts == plain versions == packet_hop, "
+              f"bit-exact; one launch a card a batch; no card holds all "
+              f"{A} rows", flush=True)
+    for key, by_d in times.items():
+        for d, row in by_d.items():
+            print(f"  hop over {MATRIX_CARDS} aliased cards, {key} D={d}: "
+                  f"{row['ms'] * 1e3:.1f} us a batch of {row['bucket']} "
+                  f"(launches and wait, host clock); bound "
+                  f"{row['bound_ms'] * 1e6:.1f} ns", flush=True)
+    return {"err": max_err, "times": times}
+
+
+def run_tor10k_cards(cards, audit: bool = False) -> dict:
+    """The tor10k mesh slice (--tpu-devices MESH10K_SHARDS) over ``cards``
+    through Controller.run, the counts set to 0 just before it, under the
+    sync audit when asked; the per-card figures beside the run's."""
+    import torch
+    from shadow_tpu_torch.core.checkpoint import state_digest
+    from shadow_tpu_torch.core.controller import Controller
+    from shadow_tpu_torch.core.logger import SimLogger, set_logger
+    from shadow_tpu_torch.parallel.mesh import cards as cm
+    set_logger(SimLogger(level="warning"))
+    opts = tor10k_options()
+    opts.tpu_devices = MESH10K_SHARDS
+    opts.mesh_cards = tuple(cards)
+    ctl = Controller(opts, tor10k_config())
+    _reset_counts()
+    ctx = sync_audit() if audit else contextlib.nullcontext()
+    with ctx as aud:
+        t0 = time.perf_counter()
+        rc = ctl.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = _counts()
+    eng = ctl.engine
+    plane = eng.device_plane
+    st = plane.stats()
+    kern = eng.scheduler.policy._kernel
+    cl = plane._cards
+    out = {"slice": f"tor10k mesh over {len(cards)} cards", "rc": rc,
+           "cards": [str(c) for c in cards], "digest": state_digest(eng),
+           "events": eng.events_executed, "rounds": eng.rounds_executed,
+           "completed": st["completed"], "forwards": st["forwards"],
+           "dispatches": st["dispatches"], "steps": st["steps"],
+           "mode": st["mode"], "recoveries": st["recoveries"],
+           "demoted": st["demoted"], "hop_calls": kern.device_calls,
+           "host_calls": kern.host_calls, "shards": plane._shard["n_shards"],
+           "hop_shards": kern.n_devices,
+           "hop_cards": len(getattr(kern, "cards", ())),
+           "plane_cards": cl.n_cards if cl is not None else 1,
+           "counts": counts, "card_launches": counts["mesh_card"],
+           "window": cl.window if cl is not None else None,
+           "windows": cl.windows if cl is not None else 0,
+           "cross_card_edges": cl.cross_card_edges if cl else 0,
+           "cross_card_cells": int(cl.xcard_cells) if cl is not None
+           and cl.xcard_cells is not None else 0,
+           "peer_copy_bytes": cl.copy_bytes if cl is not None else 0,
+           "wall_s": wall, "events_per_s": eng.events_executed / wall}
+    out.update({k: v for k, v in eng.metrics.scrape().items()
+                if k.startswith("mesh.")})
+    if audit:
+        out["syncs_in_window"] = sum(n for k, n in aud.counts.items()
+                                     if k[3])
+        out["syncs"] = sum(aud.counts.values())
+        out["audit_windows"] = aud.windows
+        out["in_window_sites"] = sorted({f"{k[0]}:{k[1]}"
+                                         for k in aud.counts if k[3]})
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def check_tor10k_cards(run: dict) -> None:
+    n = len(run["cards"])
+    label = run["slice"]
+    if run["rc"] != 0:
+        fail(f"{label}: exit code {run['rc']}")
+    if run["mode"] != "device" or run["recoveries"] != 0 or run["demoted"]:
+        fail(f"{label}: plane mode {run['mode']}, recoveries "
+             f"{run['recoveries']}, demoted {run['demoted']}")
+    if run["plane_cards"] != n or run["hop_cards"] != n:
+        fail(f"{label}: the plane over {run['plane_cards']} cards, the hop "
+             f"over {run['hop_cards']}")
+    for key, want in EXPECTED10K.items():
+        if run[key] != want:
+            fail(f"{label} {key}: {run[key]} != JAX run's {want}")
+    if run["mesh.host_bounces"] != 0:
+        fail(f"{label}: {run['mesh.host_bounces']} host bounces")
+    for key, want in EXPECTED_MESH10K.items():
+        if run[key] != want:
+            fail(f"{label} {key}: {run[key]} != JAX run's {want}")
+    c = run["counts"]
+    if c["mesh_span"] or c["mesh_pack"] != run["dispatches"]:
+        fail(f"{label}: {c['mesh_span']} one-card mesh span launches, "
+             f"{c['mesh_pack']} mesh flushes for {run['dispatches']} "
+             "dispatches")
+    if run["card_launches"] != (run["windows"] + run["dispatches"]) * n:
+        fail(f"{label}: {run['card_launches']} card entry launches for "
+             f"{run['windows']} windows and {run['dispatches']} dispatches "
+             f"over {n} cards")
+    if c["hop_s"] != run["hop_calls"] * n or run["host_calls"]:
+        fail(f"{label}: {c['hop_s']} sharded hop launches for "
+             f"{run['hop_calls']} batches over {n} cards")
+    others = {k: v for k, v in c.items()
+              if k not in ("mesh_card", "mesh_pack", "hop_s") and v}
+    if others:
+        fail(f"{label}: other kernels launched: {others}")
+    if run.get("syncs_in_window"):
+        fail(f"{label}: {run['syncs_in_window']} syncs inside the dispatch "
+             f"windows, at {run['in_window_sites']}")
+    if "audit_windows" in run and run["audit_windows"] != run["dispatches"]:
+        fail(f"{label}: the audit saw {run['audit_windows']} dispatch "
+             f"windows for {run['dispatches']} dispatches")
+    print(f"{label} parity: digest {run['digest'][:16]}... events "
+          f"{run['events']} rounds {run['rounds']} completed "
+          f"{run['completed']} forwards {run['forwards']} == JAX; "
+          f"cross-shard cells {run['mesh.cross_shard_cells']} == JAX's D = "
+          f"8; host bounces 0; W = {run['window']} ticks, {run['windows']} "
+          f"windows in {run['dispatches']} dispatches, "
+          f"{run['card_launches']} card entry launches, "
+          f"{run['cross_card_edges']} edges across cards carried "
+          f"{run['cross_card_cells']} cells, {run['peer_copy_bytes']} B of "
+          f"inbox copies; {c['mesh_pack']} flushes on the lead card; "
+          f"{c['hop_s']} sharded hop launches ({n} a batch); "
+          + (f"sync audit: {run['syncs']} syncs, none in the "
+             f"{run['audit_windows']} dispatch windows; "
+             if "syncs" in run else "")
+          + f"wall {run['wall_s']:.3f} s", flush=True)
+
+
+def tor100_matrix(cards=None) -> dict:
+    """tor_network(100, device_data=True) under tpu with --tpu-devices 4
+    --tpu-shard-matrix on cuda (the plane sharded as well), over ``cards``
+    (None: the host's), the counts set to 0 just before it."""
+    import torch
+    from shadow_tpu_torch.core import configuration
+    from shadow_tpu_torch.core.checkpoint import state_digest
+    from shadow_tpu_torch.core.controller import Controller
+    from shadow_tpu_torch.core.logger import SimLogger, set_logger
+    from shadow_tpu_torch.core.options import Options
+    from shadow_tpu_torch.tools import workloads
+    set_logger(SimLogger(level="warning"))
+    m = TOR100_MATRIX
+    xml = workloads.tor_network(m["n_relays"], stoptime=m["stoptime"],
+                                device_data=True)
+    cfg = configuration.parse_xml(xml)
+    cfg.stop_time_sec = m["stoptime"]
+    opts = Options(scheduler_policy="tpu", device="cuda", seed=m["seed"],
+                   stop_time_sec=m["stoptime"], log_level="warning",
+                   tpu_devices=m["shards"], tpu_shard_matrix=True,
+                   mesh_cards=tuple(cards) if cards else None)
+    ctl = Controller(opts, cfg)
+    _reset_counts()
+    t0 = time.perf_counter()
+    rc = ctl.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    eng = ctl.engine
+    kern = eng.scheduler.policy._kernel
+    st = eng.device_plane.stats()
+    return {"rc": rc, "digest": state_digest(eng),
+            "events": eng.events_executed, "rounds": eng.rounds_executed,
+            "completed": st["completed"], "counts": _counts(),
+            "hop_calls": kern.device_calls,
+            "rows": [int(t.shape[0]) for t in kern.lat_rows],
+            "cards": len(kern.cards), "wall_s": wall}
+
+
+def run_mesh_cards(plane_checks: dict) -> dict:
+    """The end-to-end part of the phase: tor10k over MESH10K_CARDS aliased
+    cards under the sync audit (and over the distinct cards where
+    present); the row-sharded tor100 one-card and over MATRIX_CARDS
+    aliased cards, equal digests."""
+    import torch
+    out = {}
+    aliased = [torch.device("cuda", 0)] * MESH10K_CARDS
+    out["tor10k"] = run_tor10k_cards(aliased, audit=True)
+    check_tor10k_cards(out["tor10k"])
+    if torch.cuda.device_count() >= 2:
+        distinct = [torch.device("cuda", i)
+                    for i in range(min(torch.cuda.device_count(), 4))]
+        out["tor10k_distinct"] = run_tor10k_cards(distinct)
+        check_tor10k_cards(out["tor10k_distinct"])
+    one = tor100_matrix()
+    over = tor100_matrix([torch.device("cuda", 0)] * MATRIX_CARDS)
+    for r in (one, over):
+        if r["rc"] != 0:
+            fail(f"tor100 matrix exit code {r['rc']}")
+    if (one["digest"], one["events"], one["rounds"], one["completed"]) != (
+            over["digest"], over["events"], over["rounds"],
+            over["completed"]):
+        fail(f"tor100 matrix over {MATRIX_CARDS} aliased cards: digest "
+             f"{over['digest'][:16]} events {over['events']} != one card's "
+             f"{one['digest'][:16]} {one['events']}")
+    if over["counts"]["hop_s"] != over["hop_calls"] * MATRIX_CARDS \
+            or any(r >= A for r in over["rows"]):
+        fail(f"tor100 matrix over cards: {over['counts']['hop_s']} hop "
+             f"launches for {over['hop_calls']} batches, rows "
+             f"{over['rows']}")
+    out["tor100_one"], out["tor100_cards"] = one, over
+    print(f"tor100 row-sharded (--tpu-devices 4 --tpu-shard-matrix): one "
+          f"card digest {one['digest'][:16]}... events {one['events']} in "
+          f"{one['wall_s']:.2f} s; over {MATRIX_CARDS} aliased cards the "
+          f"same digest and events in {over['wall_s']:.2f} s, rows a card "
+          f"{over['rows']}, {over['counts']['hop_s']} hop launches "
+          f"({MATRIX_CARDS} a batch), {over['counts']['mesh_pack']} flushes",
+          flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # The cost model (shadow_tpu_torch/prof/): a calibration of this card, its
 # check, and the runs that read it
 # ---------------------------------------------------------------------------
@@ -4690,6 +5254,11 @@ def run_calibration(path: str) -> dict:
               f"cross-free twin ({r['cross_free_flows_padded']} padded): "
               f"single {r['single_cf_us']}, mesh {r['cross_free_us']}; "
               f"differences {r['diff_us']}", flush=True)
+        for mode, x in (r.get("cards_exchange") or {}).items():
+            print(f"    over cards {x['cards']} ({mode}, W = {x['window']}, "
+                  f"pw {x['pw']}): a window's outbox-to-inbox copies "
+                  f"{x['window_us']} us (min {x['min_us']}, max "
+                  f"{x['max_us']}), {x['bytes']} B", flush=True)
     print(f"  exchange tables: {json.dumps(row['collectives'])}", flush=True)
     print(f"  transfer: {row['transfer']} (median, min, max: "
           f"{meas['transfer']})", flush=True)
@@ -4977,9 +5546,10 @@ def run_superwindow(path: str) -> dict:
 
 
 PHASES = ("build", "analyzers", "kernels", "times", "mesh-kernels", "mesh-times",
-          "tor1k", "tor1k-trace", "tor1k-matrix", "tor10k", "tor10k-trace",
-          "native", "procs", "plugins",
-          "mesh10k", "mesh10k-trace", "costmodel", "fleet-kernels",
+          "mesh-cards-kernels", "tor1k", "tor1k-trace", "tor1k-matrix",
+          "tor10k", "tor10k-trace", "native", "procs", "plugins",
+          "mesh10k", "mesh10k-trace", "mesh-cards", "costmodel",
+          "fleet-kernels",
           "fleet-times",
           "fleet-smoke", "simfuzz", "sweep", "sweep-trace", "model-kernels",
           "model-times", "models", "models-trace")
@@ -5023,7 +5593,8 @@ def main(argv=None) -> int:
               f"{args.pairs_against}, {PAIRS} pairs in turns")
         res["pairs"] = run_pairs(os.path.abspath(args.pairs_against))
     plane = None
-    if want & {"kernels", "times", "mesh-kernels", "mesh-times"}:
+    if want & {"kernels", "times", "mesh-kernels", "mesh-times",
+               "mesh-cards-kernels"}:
         t0 = time.perf_counter()
         plane = tor10k_plane()
         print(f"tor10k plane table: F {plane.n_flows} C {plane.n_chains} H "
@@ -5062,6 +5633,17 @@ def main(argv=None) -> int:
         phase("mesh times: a mesh dispatch beside the single-table span, "
               "the sharded hop beside packet_hop")
         res["mesh_times"] = time_mesh(plane)
+    if "mesh-cards-kernels" in want:
+        phase("mesh over cards: the card entry of mesh_span against its "
+              "plain version and the one-card mesh (tor10k table, D = 8, "
+              "over 2 and 4 aliased cards); the sharded hop over cards; "
+              "their times")
+        t0 = time.perf_counter()
+        res["mesh_cards_checked"] = check_mesh_cards(plane)
+        res["hop_cards_checked"] = check_sharded_hop_cards()
+        res["mesh_cards_times"] = time_mesh_cards(plane)
+        print(f"mesh-cards-kernels phase: {time.perf_counter() - t0:.1f} s",
+              flush=True)
     plane = None
     # a slice and its trace in one run, traced, when both are asked for
     # (the profiler costs the host ~3%; the checks of both are made on it)
@@ -5192,6 +5774,14 @@ def main(argv=None) -> int:
               f"{tr['mesh_pack_kernels']} x "
               f"{tr['mesh_pack_kernel_mean_us']:.2f} us; sharded hop "
               f"{tr['hop_s_kernels']} x {tr['hop_s_kernel_mean_us']:.3f} us",
+              flush=True)
+    if "mesh-cards" in want:
+        phase("mesh over cards: tor10k at --tpu-devices 8 over 2 aliased "
+              "cards under the sync audit; tor100 row-sharded over 4 aliased "
+              "cards against one card")
+        t0 = time.perf_counter()
+        res["mesh_cards"] = run_mesh_cards(res)
+        print(f"mesh-cards phase: {time.perf_counter() - t0:.1f} s",
               flush=True)
     if "costmodel" in want:
         phase("costmodel: calibrate this card, check the model, tor10k "
@@ -5424,6 +6014,47 @@ def main(argv=None) -> int:
         "library_ms": None, "caps": mc.get("caps"),
         "main_path": "none: the plane turns its caps off before it shards "
                      "(launches read from the mesh10k run)"})
+    # the mesh over cards: the card entry, and the two kernels it reuses
+    # over cards (the mesh flush on the lead card, the sharded hop one
+    # launch a card), with their launches in the over-cards runs
+    mct = res.get("mesh_cards_times") or {}
+    hct = (res.get("hop_cards_checked") or {}).get("times") or {}
+    hcb = (hct.get("batch") or {}).get(MESH10K_SHARDS) or {}
+    hcm = (hct.get("matrix") or {}).get(TOR100_MATRIX["shards"]) or {}
+    c10 = get("mesh_cards", "tor10k", "counts") or {}
+    c100 = get("mesh_cards", "tor100_cards", "counts") or {}
+    herr = (res.get("hop_cards_checked") or {}).get("err")
+    merr = (res.get("mesh_cards_checked") or {}).get("err")
+    for name, source, replaces, launches, err, row in (
+            ("mesh_span_card", "mesh_span.cu",
+             "shadow_tpu/parallel/mesh/exchange.py:247", c10.get("mesh_card"),
+             merr, mct),
+            ("pack_flush_mesh[cards]", "pack_flush.cu",
+             "shadow_tpu/parallel/mesh/exchange.py:473", c10.get("mesh_pack"),
+             merr, mp),
+            ("packet_hop_sharded[cards, batch]", "packet_hop_sharded.cu",
+             "shadow_tpu/ops/round_step.py:403", c10.get("hop_s"), herr, hcb),
+            ("packet_hop_sharded[cards, rows]", "packet_hop_sharded.cu",
+             "shadow_tpu/ops/round_step.py:272", c100.get("hop_s"), herr,
+             hcm)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"shadow_tpu_torch/ops/csrc/{source}",
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": row.get("ms"), "plain_ms": row.get("plain_ms"),
+            "bound_ms": row.get("bound_ms"), "bound_by": row.get("bound_by"),
+            "library_ms": None})
+    kernels[-4].update(
+        cards=MESH10K_CARDS, window=mct.get("window"),
+        ms_is_per=f"a {mct.get('ticks')}-tick dispatch over "
+        f"{MESH10K_CARDS} aliased cards (CUDA events)",
+        one_card_ms=mct.get("one_card_ms"),
+        peer_bytes_per_s=mct.get("peer_bytes_per_s"))
+    kernels[-3]["ms_is_per"] = ("the mesh flush on the lead card, the same "
+                                "kernel and shapes as pack_flush_mesh")
+    kernels[-2]["ms_is_per"] = ("a batch over the cards: launches and wait, "
+                                "host clock")
+    kernels[-1]["ms_is_per"] = kernels[-2]["ms_is_per"]
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     if args.out:

@@ -101,6 +101,10 @@ class Options:
     tpu_max_inflight: int = 1 << 16      # padded packet-batch capacity
     tpu_devices: int = 0                 # 0 = all local devices
     tpu_shard_matrix: bool = False       # row-shard path matrices over the mesh
+    mesh_cards: Optional[tuple] = None   # the mesh's cards (torch devices
+                                         # or names, repeats allowed): no
+                                         # flag; None = the host's cards
+                                         # (parallel/mesh device_mesh)
     tpu_device_threshold: int = 0        # >0: batches below N bypass to numpy
     tpu_chunk: int = 0                   # mid-round async launch size (0=off)
     device_plane: str = "device"         # device | numpy (bit-identical twin)

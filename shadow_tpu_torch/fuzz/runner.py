@@ -15,8 +15,11 @@ Three execution surfaces over ONE code path (:func:`run_one_mode`):
 
 Changes from the JAX package's runner: every surface takes the ``device``
 the run's device work goes to (``--device``, cuda unless the caller asks
-for the CPU); mesh modes (``tpu_devices > 1``) run their D shards on that
-one device (``parallel/mesh``), so none is skipped; a ``processes >= 2``
+for the CPU); mesh modes (``tpu_devices > 1``) run their D shards over
+the host's cards (``parallel/mesh`` device_mesh: one card, or several
+with a group of shards each) or over the ``cards`` a runner is given, so
+none is skipped where the JAX package skips a mesh mode on fewer than 2
+devices; a ``processes >= 2``
 mode builds the retransmit tally in this process before its shards spawn
 (utils/native_build.py); and the child's environment pins no backend and
 no compile cache: the subprocess runner builds the CUDA kernels in the
@@ -47,7 +50,8 @@ _SCRAPE_KEYS = ("plane.circuits", "plane.completed", "plane.forwards",
                 "scale.materialized_hosts", "scale.table_rows")
 
 
-def _mode_options(spec: Dict, mode: Dict, device: str = "cuda"):
+def _mode_options(spec: Dict, mode: Dict, device: str = "cuda",
+                  cards=None):
     from ..core.options import Options
     opts = Options(
         device=device,
@@ -67,6 +71,8 @@ def _mode_options(spec: Dict, mode: Dict, device: str = "cuda"):
         tpu_devices=int(mode.get("tpu_devices", 1)),
         heartbeat_interval_sec=0,
         log_level="warning")
+    if cards and opts.tpu_devices > 1:
+        opts.mesh_cards = tuple(cards)
     fault = spec.get("fault_inject") or {}
     if fault.get("kind") == "engine":
         opts.fault_inject = fault["spec"]
@@ -118,7 +124,7 @@ def _run_resume_mode(spec: Dict, opts, out: Dict) -> None:
 
 
 def run_one_mode(spec: Dict, mode: Dict, lane=None,
-                 device: str = "cuda") -> Dict:
+                 device: str = "cuda", cards=None) -> Dict:
     """Run the spec under one mode.  Never raises: harness errors land in
     the result as rc=-1 + traceback (the rc/log oracle fails them).
 
@@ -128,7 +134,8 @@ def run_one_mode(spec: Dict, mode: Dict, lane=None,
     logger so concurrent lanes keep separate tails.  Everything else —
     digest, events, supervision, scrape — is the identical code path,
     which is what makes batched verdicts digest-identical to the
-    subprocess path."""
+    subprocess path.  ``cards`` (torch devices, repeats allowed) places
+    a mesh mode's shards over them (None: the host's cards)."""
     from ..core.checkpoint import state_digest
     from ..core.controller import Controller
     from ..core.logger import SimLogger, set_logger, set_thread_logger
@@ -150,7 +157,7 @@ def run_one_mode(spec: Dict, mode: Dict, lane=None,
     t0 = _walltime.perf_counter()
     try:
         cfg = build_config(spec)
-        opts = _mode_options(spec, mode, device)
+        opts = _mode_options(spec, mode, device, cards)
         if lane is not None:
             opts._fleet_lane = lane
         if mode.get("resume"):
@@ -232,12 +239,12 @@ def parse_fault(spec_str: str) -> Dict:
 
 
 def run_modes(spec: Dict, modes: Optional[List[Dict]] = None,
-              device: str = "cuda") -> List[Dict]:
+              device: str = "cuda", cards=None) -> List[Dict]:
     """Run every mode of the spec in this process, fault drift applied."""
     results = []
     for mode in (modes if modes is not None else spec["modes"]):
-        results.append(apply_fault(spec, run_one_mode(spec, mode,
-                                                      device=device)))
+        results.append(apply_fault(spec, run_one_mode(
+            spec, mode, device=device, cards=cards)))
     return results
 
 
@@ -382,11 +389,12 @@ class SubprocessRunner:
 class InProcessRunner:
     """Same contract as SubprocessRunner, no child (tests/corpus)."""
 
-    def __init__(self, device: str = "cuda"):
+    def __init__(self, device: str = "cuda", cards=None):
         self.device = device
+        self.cards = cards
 
     def run(self, spec: Dict) -> List[Dict]:
-        return run_modes(spec, device=self.device)
+        return run_modes(spec, device=self.device, cards=self.cards)
 
 
 class BatchedRunner:

@@ -14,6 +14,7 @@ is no ``nvcc`` or card there.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -21,6 +22,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time as _walltime
 from typing import Dict, Iterable, List, Optional
 
@@ -137,9 +139,46 @@ def entry(name: str, symbol: str, argtypes):
 
 def check_tensor(name: str, t: torch.Tensor, dtype, shape, dev) -> None:
     """Raise ValueError unless ``t`` is a contiguous ``dtype`` tensor of
-    ``shape`` on ``dev``: what a kernel takes, it takes exactly."""
+    ``shape`` on ``dev``: what a kernel takes, it takes exactly.  A CUDA
+    tensor must also lie on the current device: each launcher sizes its
+    grid for, and launches on, the current device (``cudaGetDevice``), and
+    a launch on another card's memory would run through peer access."""
     if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
             or not t.is_contiguous():
         raise ValueError(
             f"{name}: expected contiguous {dtype} {shape} on {dev}, got "
             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if dev.type == "cuda" and dev.index != torch.cuda.current_device():
+        raise ValueError(
+            f"{name}: the tensor lies on {dev} but the current device is "
+            f"cuda:{torch.cuda.current_device()} (launch through on_card)")
+
+
+_CURRENT = threading.local()
+
+
+@contextlib.contextmanager
+def on_card(card: torch.device, stream=None, slot: Optional[int] = None):
+    """The context every per-card launch runs in: ``card`` the current
+    device and ``stream`` (default: the card's current stream) its current
+    stream, so the launcher sizes its grid for that card and launches on
+    it.  ``slot`` is the card's index in its mesh (cards may repeat a
+    device); :func:`current_card` reports ``(slot, card)`` inside.  On the
+    CPU only the record is kept."""
+    prev = getattr(_CURRENT, "card", None)
+    _CURRENT.card = (slot, card)
+    try:
+        if card.type == "cuda":
+            with torch.cuda.device(card), torch.cuda.stream(
+                    stream if stream is not None
+                    else torch.cuda.current_stream(card)):
+                yield
+        else:
+            yield
+    finally:
+        _CURRENT.card = prev
+
+
+def current_card():
+    """``(slot, card)`` of the innermost :func:`on_card`, else None."""
+    return getattr(_CURRENT, "card", None)

@@ -36,6 +36,16 @@
 // copies the table into shared memory while its column loads are in
 // flight.
 //
+// Over several cards (ops/round_step.py ShardedPacketHopKernel with a
+// mesh that spans cards) each card holds its own shards' row slices only:
+// `shard_lo` is the first of them, the table lists the card's d slices, and
+// a lane whose src row another card owns is left to that card (no write).
+// Every lane has one owner, so the cards' writes into the round's
+// page-locked buffers (read and written in place through the card's
+// mapping, one launch a card) never overlap, and no reduction is needed.
+// The batch layout over cards gives each card its own slices of the lanes.
+// On one card shard_lo is 0 and every lane's owner is in the table.
+//
 // Bound: per lane 25 B of columns plus one 12 B gather and 9 B of output;
 // the cipher is ~100 integer operations.  Launch-bound at the batch sizes
 // of a round, like csrc/packet_hop.cu.
@@ -58,7 +68,8 @@ __device__ __forceinline__ int clamp_row(int r, int a) {
 
 __global__ void __launch_bounds__(THREADS) packet_hop_sharded_kernel(
     const int64_t* __restrict__ table, int d, int rows_per, int a,
-    const int32_t* __restrict__ src_rows, const int32_t* __restrict__ dst_rows,
+    int shard_lo, const int32_t* __restrict__ src_rows,
+    const int32_t* __restrict__ dst_rows,
     const uint32_t* __restrict__ uid_lo, const uint32_t* __restrict__ uid_hi,
     const int64_t* __restrict__ send, const uint8_t* __restrict__ valid,
     int w, uint32_t key_lo, uint32_t key_hi, int64_t bootstrap_end,
@@ -83,8 +94,10 @@ __global__ void __launch_bounds__(THREADS) packet_hop_sharded_kernel(
   }
   __syncthreads();
   if (!live) return;
-  const int owner = src / rows_per;  // < d: d * rows_per >= a > src
-  const int64_t at = (int64_t)(src - owner * rows_per) * a + dst;
+  const int owner = src / rows_per - shard_lo;  // this card's slice
+  if (owner < 0 || owner >= d) return;           // another card's lane
+  const int64_t at =
+      (int64_t)(src - (owner + shard_lo) * rows_per) * a + dst;
   const int64_t lat = ((const int64_t*)rows[owner])[at];
   const float rel = ((const float*)rows[d + owner])[at];
   const uint32_t x0 = threefry2x32_x0(key_lo, key_hi, lo, hi);
@@ -99,20 +112,22 @@ __global__ void __launch_bounds__(THREADS) packet_hop_sharded_kernel(
 
 // Launch on `stream` (a cudaStream_t passed as a pointer): the b = slices
 // * w lanes of the six columns, `table` the device table of the d row
-// slices' pointers.  Does not synchronise.  Returns cudaGetLastError(): 0
+// slices' pointers, the first of them shard shard_lo of the mesh (the
+// wrapper, ops/round_step.py ShardRows, checks that the slices of a whole
+// mesh cover A).  Does not synchronise.  Returns cudaGetLastError(): 0
 // when the launch was accepted.
 extern "C" int packet_hop_sharded_launch(
-    const void* table, int d, int rows_per, int a, const void* src,
-    const void* dst, const void* uid_lo, const void* uid_hi,
+    const void* table, int d, int rows_per, int a, int shard_lo,
+    const void* src, const void* dst, const void* uid_lo, const void* uid_hi,
     const void* send, const void* valid, int slices, int w, uint32_t key_lo,
     uint32_t key_hi, int64_t bootstrap_end, int64_t barrier, void* deliver,
     void* keep, void* stream) {
   if (d < 1 || d > MAX_SHARDS || rows_per < 1 || a < 1 || w < 1 ||
-      slices < 1 || slices > 65535 || (int64_t)d * rows_per < a)
+      slices < 1 || slices > 65535 || shard_lo < 0)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((w + THREADS - 1) / THREADS), (unsigned)slices);
   packet_hop_sharded_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const int64_t*)table, d, rows_per, a, (const int32_t*)src,
+      (const int64_t*)table, d, rows_per, a, shard_lo, (const int32_t*)src,
       (const int32_t*)dst, (const uint32_t*)uid_lo, (const uint32_t*)uid_hi,
       (const int64_t*)send, (const uint8_t*)valid, w, key_lo, key_hi,
       bootstrap_end, barrier, (int64_t*)deliver, (uint8_t*)keep);

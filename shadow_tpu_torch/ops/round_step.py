@@ -382,7 +382,20 @@ class PacketHopKernel:
         assert lat.dtype == torch.int64 and rel.dtype == torch.float32
         self.latency = lat
         self.reliability = rel
-        self.device = lat.device
+        self._init_host(lat_np, rel_np, lat.device, drop_key,
+                        bootstrap_end_ns, device_threshold)
+        self.stream = self._pool = None
+        if self.device.type == "cuda":
+            self.stream = torch.cuda.Stream(self.device)
+            # the matrices were uploaded on the current stream
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
+            self._pool = self._new_pool()
+
+    def _init_host(self, lat_np, rel_np, device, drop_key,
+                   bootstrap_end_ns, device_threshold) -> None:
+        """The host side: the kernel's device, the matrices' host copies,
+        the drop key, the counters, the threshold's check."""
+        self.device = device
         # host-side copies for the small-batch path (CPU device only) and
         # the tests' numpy oracle
         self.latency_np = lat_np
@@ -404,12 +417,6 @@ class PacketHopKernel:
         # distinct padded batch shapes seen (the engine heartbeat reports
         # it; here it sizes the pinned pool, the kernel compiles once)
         self.buckets_seen: set = set()
-        self.stream = self._pool = None
-        if self.device.type == "cuda":
-            self.stream = torch.cuda.Stream(self.device)
-            # the matrices were uploaded on the current stream
-            self.stream.wait_stream(torch.cuda.current_stream(self.device))
-            self._pool = self._new_pool()
 
     def _new_pool(self) -> _PinnedPool:
         """The card's round buffers: :class:`MappedRound` sets."""
@@ -585,13 +592,15 @@ def batch_sharded_hop_reference(latency, reliability, cols, n_shards: int,
 
 def matrix_sharded_hop_reference(lat_rows, rel_rows, a: int, cols,
                                  key_lo: int, key_hi: int, bootstrap_end: int,
-                                 barrier: int):
+                                 barrier: int, first: int = 0):
     """Plain torch version of the JAX package's
     ``_make_matrix_sharded_hop_step``: shard s holds rows s*rows_per ..
     of the [A_pad, A] matrices (``lat_rows[s]``, ``rel_rows[s]``); each
     shard gathers the entries whose src row it owns (zeros elsewhere) and
     the sum over the shards (the psum) assembles them, then the hop is
-    finished.  Adding f32 zeros is exact for reliabilities >= 0."""
+    finished.  Adding f32 zeros is exact for reliabilities >= 0.  With
+    ``first``, the slices are shards ``first ..`` of a larger mesh (a
+    card's): only the lanes whose src row they own are finished right."""
     src, dst, uid_lo, uid_hi, send, valid = cols
     s_ = src.to(torch.int64).clamp(0, a - 1)
     t_ = dst.to(torch.int64).clamp(0, a - 1)
@@ -599,7 +608,7 @@ def matrix_sharded_hop_reference(lat_rows, rel_rows, a: int, cols,
     lat = torch.zeros(src.shape[0], dtype=torch.int64, device=src.device)
     rel = torch.zeros(src.shape[0], dtype=torch.float32, device=src.device)
     for s, (lr, rr) in enumerate(zip(lat_rows, rel_rows)):
-        local = s_ - s * rows_per
+        local = s_ - (first + s) * rows_per
         mine = (local >= 0) & (local < rows_per)
         idx = local.clamp(0, rows_per - 1)
         lat = lat + torch.where(mine, lr[idx, t_], torch.zeros_like(lat))
@@ -614,7 +623,7 @@ def _check_cols(name: str, cols, b: int, dev) -> None:
         check_tensor(f"{name}: {col}", c, dtype, (b,), dev)
 
 
-_SHARDED_ARGTYPES = ([_VP] + [ctypes.c_int] * 3 + [_VP] * 6
+_SHARDED_ARGTYPES = ([_VP] + [ctypes.c_int] * 4 + [_VP] * 6
                      + [ctypes.c_int] * 2
                      + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int64,
                         ctypes.c_int64, _VP, _VP, _VP])
@@ -628,18 +637,23 @@ class ShardRows:
     on the card, the device table of their pointers that
     csrc/packet_hop_sharded.cu reads (int64 [2D]: the latency rows'
     addresses, then the reliability rows'): built once, so no launch
-    carries a pointer block."""
+    carries a pointer block.  Over several cards a card's ShardRows holds
+    its own shards' slices, ``first`` the first of them, of the mesh's
+    ``total`` (the slices of the whole mesh cover A)."""
 
-    def __init__(self, lat_rows, rel_rows, a: int):
+    def __init__(self, lat_rows, rel_rows, a: int, first: int = 0,
+                 total: Optional[int] = None):
         d = len(lat_rows)
         if not 1 <= d <= MAX_SHARDS or len(rel_rows) != d:
             raise ValueError(f"packet_hop_sharded: 1 to {MAX_SHARDS} "
                              f"shards, got {d} latency and {len(rel_rows)} "
                              "reliability slices")
         rows_per = lat_rows[0].shape[0]
-        if d * rows_per < a:
-            raise ValueError(f"packet_hop_sharded: {d} x {rows_per} rows do "
-                             f"not cover A = {a}")
+        total = d if total is None else int(total)
+        if total * rows_per < a or not 0 <= first <= total - d:
+            raise ValueError(f"packet_hop_sharded: slices {first} to "
+                             f"{first + d - 1} of {total} x {rows_per} rows "
+                             f"for A = {a}")
         dev = lat_rows[0].device
         if dev.type == "cuda":
             from ._build import check_tensor
@@ -652,6 +666,7 @@ class ShardRows:
         self.rel = list(rel_rows)
         self.a = int(a)
         self.d = d
+        self.first = int(first)
         self.rows_per = int(rows_per)
         self.table = None if dev.type != "cuda" else torch.tensor(
             [t.data_ptr() for t in self.lat + self.rel], dtype=torch.int64,
@@ -691,7 +706,7 @@ def packet_hop_sharded(rows: ShardRows, cols, key_lo: int, key_hi: int,
     keep = torch.empty(b, dtype=torch.bool, device=dev)
     rc = entry("packet_hop_sharded", "packet_hop_sharded_launch",
                _SHARDED_ARGTYPES)(
-        rows.table.data_ptr(), rows.d, rows.rows_per, rows.a,
+        rows.table.data_ptr(), rows.d, rows.rows_per, rows.a, rows.first,
         *(c.data_ptr() for c in cols), slices, b // slices,
         int(key_lo) & _M32, int(key_hi) & _M32, int(bootstrap_end),
         int(barrier), deliver.data_ptr(), keep.data_ptr(),
@@ -732,6 +747,117 @@ def column_views(buf: torch.Tensor, b: int) -> tuple:
     return (i32[0], i32[1], i32[2], i32[3], send, valid)
 
 
+class CardRound:
+    """One sharded round's page-locked host buffers, read and written in
+    place by every card of a mesh that spans cards: ``cols`` (the six
+    padded columns in one byte buffer, :func:`column_views`), ``deliver``
+    int64 [b] and ``keep`` bool [b].  Checked once per card, here: each
+    buffer must be host memory that ``cudaPointerGetAttributes``, with the
+    card current, reports mapped into it (unified addressing); ``ptrs[c]``
+    holds card c's device pointers.  Anything else is refused with a
+    ValueError naming the buffer and the card."""
+
+    __slots__ = ("cols", "deliver", "keep", "b", "ptrs")
+
+    def __init__(self, cols: torch.Tensor, deliver: torch.Tensor,
+                 keep: torch.Tensor, cards):
+        b = deliver.shape[0]
+        named = (("columns", cols), ("deliver", deliver), ("keep", keep))
+        for name, t in named:
+            if t.device.type != "cpu" or not t.is_pinned() \
+                    or not t.is_contiguous():
+                raise ValueError(f"packet_hop_sharded: the round's {name} "
+                                 "must be contiguous page-locked host memory")
+        from ._build import entry
+        query = entry("packet_hop", "packet_hop_map_host",
+                      [_VP, ctypes.POINTER(ctypes.c_int),
+                       ctypes.POINTER(_VP)])
+        self.ptrs = []
+        for card in cards:
+            got = []
+            with torch.cuda.device(card):
+                for name, t in named:
+                    kind, ptr = ctypes.c_int(0), _VP(None)
+                    rc = query(t.data_ptr(), ctypes.byref(kind),
+                               ctypes.byref(ptr))
+                    if rc != 0:
+                        raise RuntimeError(
+                            f"packet_hop_sharded: cudaPointerGetAttributes "
+                            f"failed on the round's {name} for {card}: CUDA "
+                            f"error {rc}")
+                    if kind.value != _HOST_MEMORY or not ptr.value:
+                        raise ValueError(
+                            f"packet_hop_sharded: the round's {name} is not "
+                            f"page-locked host memory mapped into {card} "
+                            f"(memory type {kind.value}, device pointer "
+                            f"{ptr.value})")
+                    got.append(ptr.value)
+            self.ptrs.append(tuple(got))
+        self.cols, self.deliver, self.keep, self.b = cols, deliver, keep, b
+
+    @classmethod
+    def allocate(cls, b: int, cards) -> "CardRound":
+        return cls(torch.empty(b * _ColumnPool.COL_BYTES, dtype=torch.uint8,
+                               pin_memory=True),
+                   torch.empty(b, dtype=torch.int64, pin_memory=True),
+                   torch.empty(b, dtype=torch.bool, pin_memory=True), cards)
+
+    def lane_ptrs(self, c: int, lane0: int) -> tuple:
+        """Card c's device pointers of the columns (COLUMNS order), deliver
+        and keep, each at lane ``lane0``."""
+        cols, dv, kp = self.ptrs[c]
+        b = self.b
+        return (cols + 8 * b + 4 * lane0, cols + 12 * b + 4 * lane0,
+                cols + 16 * b + 4 * lane0, cols + 20 * b + 4 * lane0,
+                cols + 8 * lane0, cols + 24 * b + lane0, dv + 8 * lane0,
+                kp + lane0)
+
+
+class _Events:
+    """Several cards' events, waited on together (a HopHandle's)."""
+
+    __slots__ = ("events",)
+
+    def __init__(self, events):
+        self.events = events
+
+    def synchronize(self) -> None:
+        for e in self.events:
+            e.synchronize()
+
+
+def packet_hop_sharded_mapped(rows: ShardRows, ptrs, lanes: int,
+                              slices: int, key_lo: int, key_hi: int,
+                              bootstrap_end: int, barrier: int) -> None:
+    """csrc/packet_hop_sharded.cu once on the current stream of the card
+    ``rows`` lie on (which must be current), over ``lanes`` lanes of a
+    round held in page-locked host memory (``ptrs``: CardRound.lane_ptrs),
+    cut into ``slices`` slices; results written in place, no
+    synchronisation.  Counts ``packet_hop_sharded.launches``."""
+    from ._build import check_tensor, entry
+    if rows.table is None:
+        raise ValueError("packet_hop_sharded: the row slices are not on a "
+                         "card")
+    dev = rows.table.device
+    check_tensor("packet_hop_sharded: row table", rows.table, torch.int64,
+                 (2 * rows.d,), dev)
+    if lanes < 1 or lanes % slices:
+        raise ValueError(f"packet_hop_sharded: {slices} slices of {lanes} "
+                         "lanes")
+    rc = entry("packet_hop_sharded", "packet_hop_sharded_launch",
+               _SHARDED_ARGTYPES)(
+        rows.table.data_ptr(), rows.d, rows.rows_per, rows.a, rows.first,
+        *ptrs[:6], slices, lanes // slices, int(key_lo) & _M32,
+        int(key_hi) & _M32, int(bootstrap_end), int(barrier), ptrs[6],
+        ptrs[7], torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"packet_hop_sharded kernel launch failed on "
+                           f"{dev}: CUDA error {rc} (lanes={lanes}, "
+                           f"A={rows.a}, slices {rows.first} to "
+                           f"{rows.first + rows.d - 1})")
+    packet_hop_sharded.launches += 1
+
+
 class ShardedPacketHopKernel(PacketHopKernel):
     """Sharded kernel: same ``launch``/``step`` API as PacketHopKernel, over
     a mesh of ``n_devices`` shards on one device (``--tpu-devices N``).
@@ -752,7 +878,17 @@ class ShardedPacketHopKernel(PacketHopKernel):
 
     def __init__(self, topology, drop_key: int, bootstrap_end_ns: int,
                  n_devices: int, shard_matrix: bool = False, device="cuda",
-                 device_threshold: Optional[int] = None):
+                 device_threshold: Optional[int] = None, cards=None):
+        from ..parallel.mesh import device_mesh
+        mesh = device_mesh(n_devices, axis_names=("pkt",), device=device,
+                           cards=cards)
+        if mesh.n_cards > 1:
+            self._init_cards(np.asarray(topology.latency_ns),
+                             np.asarray(topology.reliability,
+                                        dtype=np.float32),
+                             mesh, drop_key, bootstrap_end_ns, shard_matrix,
+                             device_threshold)
+            return
         super().__init__(topology, drop_key, bootstrap_end_ns, device,
                          device_threshold)
         self._shard_init(n_devices, shard_matrix)
@@ -761,13 +897,134 @@ class ShardedPacketHopKernel(PacketHopKernel):
     def from_arrays(cls, latency_ns, reliability, drop_key: int,
                     bootstrap_end_ns: int, device, n_devices: int = 2,
                     shard_matrix: bool = False,
-                    device_threshold: Optional[int] = None
+                    device_threshold: Optional[int] = None, cards=None
                     ) -> "ShardedPacketHopKernel":
+        from ..parallel.mesh import device_mesh
+        mesh = device_mesh(n_devices, axis_names=("pkt",), device=device,
+                           cards=cards)
+        if mesh.n_cards > 1:
+            self = cls.__new__(cls)
+            self._init_cards(np.ascontiguousarray(latency_ns, dtype=np.int64),
+                             np.ascontiguousarray(reliability,
+                                                  dtype=np.float32),
+                             mesh, drop_key, bootstrap_end_ns, shard_matrix,
+                             device_threshold)
+            return self
         self = super().from_arrays(latency_ns, reliability, drop_key,
                                    bootstrap_end_ns, device,
                                    device_threshold)
         self._shard_init(n_devices, shard_matrix)
         return self
+
+    # -- over several cards ------------------------------------------------
+    def _init_cards(self, lat_np, rel_np, mesh, drop_key, bootstrap_end_ns,
+                    shard_matrix: bool, device_threshold) -> None:
+        """The hop over the cards of ``mesh``, built from the host matrices:
+        batch-sharded, each card holds the whole [A, A] matrices and takes
+        its shards' slices of a batch; row-sharded, each card holds its own
+        shards' row slices only (no card ever holds the whole matrix) and
+        writes the lanes whose src row it owns.  On the card a round's
+        columns and results stay in page-locked host memory that every
+        card reads and writes through its mapping (:class:`CardRound`)."""
+        self._init_host(lat_np, rel_np, mesh.device, drop_key,
+                        bootstrap_end_ns, device_threshold)
+        self.mesh = mesh
+        self.cards = tuple(mesh.cards)
+        self.n_devices = mesh.n_shards
+        self.shard_matrix = bool(shard_matrix)
+        self.a = int(lat_np.shape[0])
+        self.latency = self.reliability = None
+        on_gpu = self.device.type == "cuda"
+        from ._build import on_card
+        d, a = self.n_devices, self.a
+        per = -(-a // d)
+        if shard_matrix:
+            lat_p = np.zeros((per * d, a), dtype=np.int64)
+            rel_p = np.zeros((per * d, a), dtype=np.float32)
+            lat_p[:a], rel_p[:a] = lat_np, rel_np
+        self.card_rows, self.lat_rows, self.rel_rows = [], [], []
+        self.streams = []
+        for c, card in enumerate(self.cards):
+            shards = mesh.shards_of(c)
+            with on_card(card, slot=c):
+                if shard_matrix:
+                    lat = [torch.as_tensor(lat_p[s * per:(s + 1) * per],
+                                           device=card) for s in shards]
+                    rel = [torch.as_tensor(rel_p[s * per:(s + 1) * per],
+                                           device=card) for s in shards]
+                    rows = ShardRows(lat, rel, a, first=shards.start,
+                                     total=d)
+                    self.lat_rows += lat
+                    self.rel_rows += rel
+                else:
+                    rows = ShardRows([torch.as_tensor(lat_np, device=card)],
+                                     [torch.as_tensor(rel_np, device=card)],
+                                     a)
+                self.card_rows.append(rows)
+            self.streams.append(torch.cuda.Stream(card) if on_gpu else None)
+        self.rows = None
+        self.stream = None
+        self._pool = _PinnedPool(functools.partial(
+            CardRound.allocate, cards=self.cards)) if on_gpu else None
+
+    def _card_lanes(self, c: int, b: int) -> Tuple[int, int]:
+        """The lanes card c computes of a batch of ``b``: its shards'
+        slices (batch layout) or every lane (row layout, where it writes
+        the ones it owns)."""
+        if self.shard_matrix:
+            return 0, b
+        w = b // self.n_devices
+        r = self.mesh.shards_of(c)
+        return r.start * w, r.stop * w
+
+    def _run_cards_cpu(self, cols, barrier_ns: int):
+        """The plain versions card by card on CPU "cards": each card's
+        lanes (batch layout), or the lanes its rows own (row layout)."""
+        b = cols[0].shape[0]
+        deliver = torch.zeros(b, dtype=torch.int64)
+        keep = torch.zeros(b, dtype=torch.bool)
+        keys = (self.key_lo, self.key_hi, self.bootstrap_end_ns, barrier_ns)
+        for c, rows in enumerate(self.card_rows):
+            lo, hi = self._card_lanes(c, b)
+            sub = tuple(x[lo:hi] for x in cols)
+            if self.shard_matrix:
+                dv, kp = matrix_sharded_hop_reference(
+                    rows.lat, rows.rel, rows.a, sub, *keys, first=rows.first)
+                owner = sub[0].to(torch.int64).clamp(0, rows.a - 1) \
+                    // rows.rows_per
+                mine = (owner >= rows.first) & (owner < rows.first + rows.d)
+                deliver[lo:hi] = torch.where(mine, dv, deliver[lo:hi])
+                keep[lo:hi] = torch.where(mine, kp, keep[lo:hi])
+            else:
+                n_local = len(self.mesh.shards_of(c))
+                dv, kp = batch_sharded_hop_reference(
+                    rows.lat[0], rows.rel[0], sub, n_local, *keys)
+                deliver[lo:hi], keep[lo:hi] = dv, kp
+        return deliver, keep
+
+    def _launch_cards(self, n: int, bufs: "CardRound", b: int,
+                      barrier_ns: int) -> HopHandle:
+        """One launch a card on the round in page-locked memory, each on
+        its card's stream, and the events that mark their ends."""
+        from ._build import on_card
+        events = []
+        for c, card in enumerate(self.cards):
+            lo, hi = self._card_lanes(c, b)
+            rows = self.card_rows[c]
+            slices = 1 if self.shard_matrix \
+                else len(self.mesh.shards_of(c))
+            with on_card(card, self.streams[c], slot=c):
+                packet_hop_sharded_mapped(
+                    rows, bufs.lane_ptrs(c, lo), hi - lo, slices,
+                    self.key_lo, self.key_hi, self.bootstrap_end_ns,
+                    barrier_ns)
+                ev = torch.cuda.Event()
+                ev.record(self.streams[c])
+            events.append(ev)
+        return HopHandle(n, event=_Events(events),
+                         outs=(bufs.deliver, bufs.keep),
+                         release=functools.partial(self._pool.release, b,
+                                                   bufs))
 
     def _shard_init(self, n_devices: int, shard_matrix: bool) -> None:
         from ..parallel.mesh import device_mesh
@@ -775,6 +1032,8 @@ class ShardedPacketHopKernel(PacketHopKernel):
                                 device=self.device)
         self.n_devices = int(n_devices)
         self.shard_matrix = bool(shard_matrix)
+        self.card_rows = None
+        self.cards = tuple(self.mesh.cards)
         self.a = self.latency.shape[0]
         if shard_matrix:
             rows = self.a
@@ -834,6 +1093,8 @@ class ShardedPacketHopKernel(PacketHopKernel):
     def _run(self, cols, barrier_ns: int):
         """One batch's launch on ``cols`` (tensors on the kernel's
         device): deliver, keep."""
+        if self.card_rows is not None:
+            return self._run_cards_cpu(cols, barrier_ns)
         return packet_hop_sharded(
             self.rows, cols, self.key_lo, self.key_hi, self.bootstrap_end_ns,
             barrier_ns, slices=1 if self.shard_matrix else self.n_devices)
@@ -861,6 +1122,10 @@ class ShardedPacketHopKernel(PacketHopKernel):
             return HopHandle(n, result=(deliver.numpy()[:n],
                                         keep.numpy()[:n]))
         bufs = self._pool.acquire(b)
+        if self.card_rows is not None:
+            self.padded_batch(src_rows, dst_rows, uids, send_times, b,
+                              out=column_views(bufs.cols, b))
+            return self._launch_cards(n, bufs, b, barrier_ns)
         cols_pin, deliver_pin, keep_pin = bufs
         self.padded_batch(src_rows, dst_rows, uids, send_times, b,
                           out=column_views(cols_pin, b))

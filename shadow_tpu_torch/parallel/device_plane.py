@@ -374,6 +374,7 @@ class DeviceTrafficPlane:
         self._shard = None           # layout dict when sharded
         self._sharded_step = None
         self._mesh_make_step = None
+        self._cards = None           # mesh/cards.CardLayout over cards
         self.specs = specs
         for i, s in enumerate(specs):
             s.circuit = i
@@ -444,13 +445,19 @@ class DeviceTrafficPlane:
         self._active_leg_bits = 0
         self._sharded_variants: Dict[int, object] = {}
         # the mesh: shard the flow table over D shards (the same
-        # --tpu-devices axis the scheduler policy shards its hop on), all
-        # on the plane's one device.  Exact — see parallel/mesh/ (partition
-        # + BvN exchange); state/API stay in the ORIGINAL flow space,
-        # translated at the dispatch boundary.  --tpu-devices 0 (all
-        # devices in the JAX package) means one device, no mesh, here.
+        # --tpu-devices axis the scheduler policy shards its hop on), over
+        # the host's cards (parallel/mesh device_mesh).  Exact — see
+        # parallel/mesh/ (partition + BvN exchange); state/API stay in the
+        # ORIGINAL flow space, translated at the dispatch boundary.
+        # --tpu-devices 0 means all local devices, as in the JAX package:
+        # every card (one card: no mesh; the CPU: one device).
         if mode == "device":
-            n_dev = int(getattr(engine.options, "tpu_devices", 1) or 0) or 1
+            n_dev = int(getattr(engine.options, "tpu_devices", 1) or 0)
+            if n_dev == 0:
+                cards = getattr(engine.options, "mesh_cards", None)
+                n_dev = len(cards) if cards else (
+                    torch.cuda.device_count()
+                    if self.device.type == "cuda" else 1)
             if n_dev > 1:
                 # the mesh path's launch cut is the exchange-leg mask;
                 # flush compaction stays single-table
@@ -752,10 +759,16 @@ class DeviceTrafficPlane:
         self._zero_inject_cached = None
         self._chain_done = np.full(self.n_chains, -1, dtype=np.int64)
 
-    def _to_device(self, state) -> tuple:
+    def _to_device(self, state, kinds=("flow", "flow", "node", "flow",
+                                       "flow", "flow", "node")) -> tuple:
         """A numpy state tuple as the plane's tensors: t stays a host
         int64, the arrays go to the plane's device (uploaded on the
-        current stream, which the plane's stream then waits for)."""
+        current stream, which the plane's stream then waits for).  On a
+        mesh over several cards each array is split over the cards
+        (``kinds``: each array's last axis, flow rows or node slots)."""
+        if self._cards is not None:
+            return (np.int64(state[0]),) + tuple(
+                self._cards.split(a, k) for a, k in zip(state[1:], kinds))
         out = (np.int64(state[0]),) + tuple(
             torch.as_tensor(np.ascontiguousarray(a), device=self.device)
             for a in state[1:])
@@ -837,6 +850,7 @@ class DeviceTrafficPlane:
         if n_new < 2:
             self._mesh = None
             self._shard = None
+            self._cards = None
             self._sharded_step = None
             self._mesh_make_step = None
             self._chain_leg_bits = None
@@ -920,7 +934,8 @@ class DeviceTrafficPlane:
             args = tuple(lay[k] for k in (
                 "flow_node_local", "succ_global", "seg_start_local",
                 "refill", "capacity", "arr_lat", "shard_base"))
-            if self.mode == "device":
+            if self.mode == "device" and self._cards is None:
+                # (over cards the step holds each card's statics itself)
                 args = self._to_device((0,) + args)[1:]
             self._flow_args_cached = args
         if self._flow_args_cached is None:
@@ -946,7 +961,7 @@ class DeviceTrafficPlane:
                 else self.n_flows
             z = np.zeros(f, dtype=np.int64)
             if self.mode == "device":
-                z = self._to_device((0, z))[1]
+                z = self._to_device((0, z), ("flow",))[1]
             self._zero_inject_cached = z
         return self._zero_inject_cached
 
@@ -1038,7 +1053,7 @@ class DeviceTrafficPlane:
                 (0, zp, np.zeros((self.ring_len, fp), dtype=RING_DTYPE),
                  lay["capacity"], zp, zp, np.full(fp, -1, dtype=np.int64),
                  np.zeros(hp, dtype=np.int64)))
-            zero = self._to_device((0, zp))[1]
+            zero = self._to_device((0, zp), ("flow",))[1]
             args = self._flow_args()
             with self._on_stream():
                 out = self._sharded_step(*state, zero, zero,
@@ -1089,8 +1104,13 @@ class DeviceTrafficPlane:
                     up[0].numpy()[:] = inject
                     up[1].numpy()[:] = inject_target
                     held.append(up)
-                    dev = up.to(self.device, non_blocking=True)
-                    inject, inject_target = dev[0], dev[1]
+                    if self._cards is not None:
+                        # uploaded per card by the step, from the pinned
+                        # rows
+                        inject, inject_target = up[0], up[1]
+                    else:
+                        dev = up.to(self.device, non_blocking=True)
+                        inject, inject_target = dev[0], dev[1]
                 else:
                     inject = torch.from_numpy(inject)
                     inject_target = torch.from_numpy(inject_target)
@@ -1724,6 +1744,7 @@ class DeviceTrafficPlane:
             "backend demoted for the rest of the run")
         self._mesh = None
         self._shard = None
+        self._cards = None
         self._sharded_step = None
         self._sharded_variants.clear()
         self._chain_leg_bits = None

@@ -489,7 +489,8 @@ def exchange_routes(layout: dict, mode: str, active: List[int]):
 
 
 def mesh_tile_tables(layout: dict, send_to: np.ndarray, ring_len: int,
-                     tile_flows: int = TILE_FLOWS):
+                     tile_flows: int = TILE_FLOWS,
+                     shards: Optional[range] = None):
     """The tile tables of csrc/span_tile.cuh for the padded global layout:
     each shard's rows cut on their own by :func:`span_tile_tables` (so a
     tile never crosses a shard) and the results made global.  Returns
@@ -497,25 +498,65 @@ def mesh_tile_tables(layout: dict, send_to: np.ndarray, ring_len: int,
     ``node_off[g]:node_off[g+1]``; a padding row runs with its shard's last
     node slot), ``meta`` int32 [D*pad, 4] (global node
     slot, ``send_to``, arrival latency, flags) and ``tiles`` int32 [T+1, 4]
-    with T = D * ceil(pad / tile_flows)."""
+    with T = D * ceil(pad / tile_flows).  With ``shards`` (a range of the
+    mesh's shards, a card's) the tables cover those shards alone, their
+    rows and node slots numbered from the range's first shard."""
     d, pad, hp = (int(layout[k]) for k in ("n_shards", "pad", "h_pad"))
+    shards = range(d) if shards is None else shards
     node = np.asarray(layout["flow_node_local"], dtype=np.int64)
     seg = np.asarray(layout["seg_start_local"], dtype=np.int64)
     al = np.asarray(layout["arr_lat"], dtype=np.int64)
     offs, metas, tiles = [], [], []
-    for s in range(d):
+    for s in shards:
         rows = slice(s * pad, (s + 1) * pad)
         off, meta, tl = span_tile_tables(node[rows], al[rows], send_to[rows],
                                          seg[rows], hp, ring_len, tile_flows)
-        meta[:, 0] += s * hp
-        tl[:-1, 0] += s * hp
-        tl[:-1, 1] += s * pad
-        offs.append(off[:-1] + s * pad)
+        ls = s - shards.start
+        meta[:, 0] += ls * hp
+        tl[:-1, 0] += ls * hp
+        tl[:-1, 1] += ls * pad
+        offs.append(off[:-1] + ls * pad)
         metas.append(meta)
         tiles.append(tl[:-1])
-    tiles.append(np.array([[d * hp, d * pad, 0, 0]], dtype=np.int32))
-    return (np.concatenate(offs + [np.array([d * pad])]).astype(np.int64),
+    n = len(shards)
+    tiles.append(np.array([[n * hp, n * pad, 0, 0]], dtype=np.int32))
+    return (np.concatenate(offs + [np.array([n * pad])]).astype(np.int64),
             np.concatenate(metas), np.concatenate(tiles))
+
+
+def check_mesh_layout(layout: dict, ring_len: int) -> None:
+    """Refuse a padded layout the mesh kernels cannot run (ValueError):
+    each shard's flows sorted by node with every real row's segment its
+    node's whole run, every arrival latency in [1, ring_len) where a row
+    feeds (0 elsewhere), and padding rows outside every chain."""
+    d = int(layout["n_shards"])
+    pad = int(layout["pad"])
+    hp = int(layout["h_pad"])
+    node = np.asarray(layout["flow_node_local"], dtype=np.int64)
+    seg = np.asarray(layout["seg_start_local"], dtype=np.int64)
+    succ = np.asarray(layout["succ_global"], dtype=np.int64)
+    al = np.asarray(layout["arr_lat"], dtype=np.int64)
+    keep = np.asarray(layout["keep"], dtype=bool)
+    for s in range(d):
+        nd = node[s * pad:(s + 1) * pad]
+        if np.any(np.diff(nd) < 0) or nd.min() < 0 or nd.max() >= hp:
+            raise ValueError(f"mesh_span: shard {s}'s flow_node_local "
+                             "must be sorted and in [0, h_pad)")
+        off = np.searchsorted(nd, np.arange(hp + 1), side="left")
+        real = keep[s * pad:(s + 1) * pad]
+        if not np.array_equal(seg[s * pad:(s + 1) * pad][real],
+                              off[nd[real]]):
+            raise ValueError(f"mesh_span: shard {s}: every real row's "
+                             "segment must be its node's whole run")
+    has_pred = np.zeros(d * pad, dtype=bool)
+    has_pred[succ[succ >= 0]] = True
+    if np.any(has_pred & ((al < 1) | (al >= ring_len))) \
+            or np.any(~has_pred & (al != 0)):
+        raise ValueError("mesh_span: every arrival latency must be in "
+                         "[1, ring_len), and 0 where no row feeds")
+    if np.any(~keep & ((succ >= 0) | has_pred)):
+        raise ValueError("mesh_span: padding rows must be outside "
+                         "every chain")
 
 
 class MeshTables:
@@ -553,31 +594,7 @@ class MeshTables:
         hp = int(layout["h_pad"])
         fp = d * pad
         mode, active = resolve_mode(sched, mode, leg_mask)
-        node = np.asarray(layout["flow_node_local"], dtype=np.int64)
-        seg = np.asarray(layout["seg_start_local"], dtype=np.int64)
-        succ = np.asarray(layout["succ_global"], dtype=np.int64)
-        al = np.asarray(layout["arr_lat"], dtype=np.int64)
-        keep = np.asarray(layout["keep"], dtype=bool)
-        for s in range(d):
-            nd = node[s * pad:(s + 1) * pad]
-            if np.any(np.diff(nd) < 0) or nd.min() < 0 or nd.max() >= hp:
-                raise ValueError(f"mesh_span: shard {s}'s flow_node_local "
-                                 "must be sorted and in [0, h_pad)")
-            off = np.searchsorted(nd, np.arange(hp + 1), side="left")
-            real = keep[s * pad:(s + 1) * pad]
-            if not np.array_equal(seg[s * pad:(s + 1) * pad][real],
-                                  off[nd[real]]):
-                raise ValueError(f"mesh_span: shard {s}: every real row's "
-                                 "segment must be its node's whole run")
-        has_pred = np.zeros(fp, dtype=bool)
-        has_pred[succ[succ >= 0]] = True
-        if np.any(has_pred & ((al < 1) | (al >= ring_len))) \
-                or np.any(~has_pred & (al != 0)):
-            raise ValueError("mesh_span: every arrival latency must be in "
-                             "[1, ring_len), and 0 where no row feeds")
-        if np.any(~keep & ((succ >= 0) | has_pred)):
-            raise ValueError("mesh_span: padding rows must be outside "
-                             "every chain")
+        check_mesh_layout(layout, ring_len)
         send_to, xin, xlen = exchange_routes(layout, mode, active)
         if ring_len * fp >= 2 ** 31 or fp + xlen >= 2 ** 31:
             raise ValueError(f"mesh_span: F = {fp}, L = {ring_len} and "
@@ -747,7 +764,8 @@ def make_mesh_span_flush(mesh, axis: str, ring_len: int, layout: dict,
                          n_nodes: int, mode: Optional[str] = None,
                          leg_mask: Optional[Tuple[bool, ...]] = None,
                          cap_chains: Optional[int] = None,
-                         cap_nodes: Optional[int] = None):
+                         cap_nodes: Optional[int] = None,
+                         card_layout=None, max_window: Optional[int] = None):
     """Mesh superwindow step + packed flush in ONE dispatch: the engine's
     sharded step (DeviceTrafficPlane._sharded_step contract — the JAX
     package's argument list and 10-tuple; the flush grows ONE trailing
@@ -762,11 +780,20 @@ def make_mesh_span_flush(mesh, axis: str, ring_len: int, layout: dict,
     :func:`mesh_span_flush_torch`; on CUDA tensors one launch of
     csrc/mesh_span.cu and one of the mesh entry of csrc/pack_flush.cu on
     the current stream, the carried state updated in place, nothing else.  ``mesh`` names the device (its shards) and
-    ``axis`` the sharded axis, as in the JAX package."""
+    ``axis`` the sharded axis, as in the JAX package.  A mesh that spans
+    several cards runs the step of parallel/mesh/cards.py (its state as
+    CardSplits; ``card_layout`` shares one cards.CardLayout between a
+    plane's variants, ``max_window`` caps its lookahead window)."""
     sched = layout["exchange"]
     if mesh.n_shards != sched.n_shards:
         raise ValueError(f"a {mesh.n_shards}-shard mesh for a "
                          f"{sched.n_shards}-shard layout")
+    if mesh.n_cards > 1:
+        from .cards import make_cards_step
+        return make_cards_step(mesh, ring_len, layout, last_flow_pad,
+                               node_src, n_nodes, mode, leg_mask,
+                               card_layout, max_window, cap_chains,
+                               cap_nodes)
     lf = np.asarray(last_flow_pad, dtype=np.int64)
     nsrc = np.asarray(node_src, dtype=np.int64)
     tables: List[MeshTables] = []

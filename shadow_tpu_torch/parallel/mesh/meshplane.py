@@ -114,7 +114,9 @@ def attach_mesh(plane, n_dev: int) -> None:
     contract."""
     from ...ops.torcells_device import flush_len
 
-    mesh = device_mesh(n_dev, axis_names=("flows",), device=plane.device)
+    mesh = device_mesh(n_dev, axis_names=("flows",), device=plane.device,
+                       cards=getattr(plane.engine.options, "mesh_cards",
+                                     None))
     shard_of_node, cross_hops = chain_partition(
         plane.flow_node, plane.flow_succ, n_dev)
     lay = build_mesh_layout(
@@ -124,6 +126,12 @@ def attach_mesh(plane, n_dev: int) -> None:
     sched = lay["exchange"]
     plane._mesh = mesh
     plane._shard = lay
+    # over several cards: where each card's rows live (one stream a card),
+    # shared by the step variants; the plane keeps its state per card
+    plane._cards = None
+    if mesh.n_cards > 1:
+        from .cards import CardLayout
+        plane._cards = CardLayout(mesh, lay)
     # the exchange scheduling decision: the measured per-box
     # cost model picks fused-all_to_all vs (multi-leg) ppermute from
     # data; --exchange-mode forces it; an uncalibrated box falls back to
@@ -169,7 +177,7 @@ def attach_mesh(plane, n_dev: int) -> None:
             steps[key] = make_mesh_span_flush(
                 mesh, "flows", plane.ring_len, lay,
                 lay["inv"][plane.last_flow], lay["node_src"], plane.n_nodes,
-                mode=ex_mode, leg_mask=leg_mask)
+                mode=ex_mode, leg_mask=leg_mask, card_layout=plane._cards)
         return steps[key]
 
     plane._mesh_make_step = make_step
@@ -190,4 +198,8 @@ def attach_mesh(plane, n_dev: int) -> None:
         f"(pad {lay['pad']} flows/shard, {lay['h_pad']} nodes/shard, "
         f"{sched.cross_edges}/{edges_total} cross-shard hops over "
         f"{sched.legs} exchange legs; exchange={ex_mode} "
-        f"[{source}], predicted {predicted_us} us/tick)")
+        f"[{source}], predicted {predicted_us} us/tick)"
+        + (f"; over {mesh.n_cards} cards, lookahead window "
+           f"{plane._cards.window} ticks, "
+           f"{plane._cards.cross_card_edges} edges across cards"
+           if plane._cards is not None else ""))

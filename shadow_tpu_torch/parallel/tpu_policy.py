@@ -157,22 +157,27 @@ class _TPUBatchMixin:
             topo = engine.topology
             opts = engine.options
             n_dev = getattr(opts, "tpu_devices", 0)
-            if n_dev == 0:
-                # 0 = all local devices in the JAX package; the port's hop
-                # runs on one card, unsharded
-                get_logger().message(
-                    "tpu", "--tpu-devices 0: the packet hop runs on one "
-                    "device")
             device = resolve_device(getattr(opts, "device", "cuda"))
+            cards = getattr(opts, "mesh_cards", None)
+            if n_dev == 0:
+                # 0 = all local devices, as in the JAX package: every card
+                # of the host (the cards given, on the CPU one device)
+                import torch
+                n_dev = len(cards) if cards else (
+                    torch.cuda.device_count() if device.type == "cuda"
+                    else 1)
+                get_logger().message(
+                    "tpu", f"--tpu-devices 0: the packet hop on {n_dev} "
+                    f"device{'s' if n_dev > 1 else ''}")
             threshold = getattr(opts, "tpu_device_threshold", 0)
             if n_dev > 1:
                 # the round batch (or, with --tpu-shard-matrix, the path
-                # matrices) sharded over a mesh of n_dev shards, all on
-                # this one device
+                # matrices) sharded over a mesh of n_dev shards, over the
+                # host's cards (parallel/mesh device_mesh)
                 self._kernel = ShardedPacketHopKernel(
                     topo, engine._drop_key, engine.bootstrap_end, n_dev,
                     shard_matrix=getattr(opts, "tpu_shard_matrix", False),
-                    device=device, device_threshold=threshold)
+                    device=device, device_threshold=threshold, cards=cards)
             else:
                 self._kernel = PacketHopKernel(
                     topo, engine._drop_key, engine.bootstrap_end, device,

@@ -40,7 +40,14 @@ goes to the status row, not into the model.
   share gets one entry, equal for both).  So
   ``CostModel.exchange_tick_us`` gives back (mode - single) for the
   measured schedule.  A difference below zero (noise) is 0 in the table;
-  the raw ticks and differences stay in the status row;
+  the raw ticks and differences stay in the status row.  Beside them,
+  the exchange between cards (:func:`_cards_exchange_case`): the mesh
+  over cards (parallel/mesh/cards.py) moves a lookahead window's
+  cross-card cells from each card's outbox into the other cards' inboxes;
+  one window's copies per mode are timed over the host's distinct cards
+  where it has two or more, else over two aliases of the one card (on
+  the CPU, two CPU "cards").  The JAX model has no field for it, so it
+  goes to the status row only;
 * **transfer** (:func:`measure_transfer`) — the plane's own copies: the
   inject upload (a pinned [2, F] buffer to the card) and the flush
   read-back (the card to a pinned buffer, then the host array) at flush
@@ -377,6 +384,47 @@ def _mesh_case(c: Dict, lay: dict, mode: str, steps: int,
     return launch, reset
 
 
+def _cards_exchange_case(c: Dict, lay: dict, mode: str, dev
+                         ) -> Tuple[Callable, Dict]:
+    """(launch, shape) of one lookahead window's exchange over cards in
+    ``mode`` on instance ``c`` laid out as ``lay``: each card's outbox
+    segment for every other card copied into that card's inbox
+    (``Tensor.copy_``, non-blocking, on the source card's current stream),
+    then every card synchronised.  The cards: the host's distinct ones
+    where it has two or more, else two aliases of ``dev``."""
+    import torch
+    from ..ops._build import on_card
+    from ..parallel.mesh import device_mesh
+    from ..parallel.mesh.cards import CardLayout, CardTables
+    d = int(lay["n_shards"])
+    n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
+    cards = [torch.device("cuda", i) for i in range(min(n_dev, d))] \
+        if n_dev >= 2 else [dev, dev]
+    cl = CardLayout(device_mesh(d, device=dev, cards=cards), lay)
+    tb = CardTables(lay, cl, c["inst"].ring_len,
+                    lay["inv"][c["last_flow"]], lay["node_src"], c["h"],
+                    mode)
+    n, seg = len(cards), tb.seg
+    out = [torch.ones(n * seg, dtype=torch.int64, device=x) for x in cards]
+    inb = [torch.zeros(n * seg, dtype=torch.int64, device=x) for x in cards]
+    phys = list(dict.fromkeys(cards))
+
+    def launch():
+        for a, card in enumerate(cards):
+            with on_card(card, slot=a):
+                for b in range(n):
+                    if b != a:
+                        inb[b][a * seg:(a + 1) * seg].copy_(
+                            out[a][b * seg:(b + 1) * seg], non_blocking=True)
+        if dev.type == "cuda":
+            for x in phys:
+                torch.cuda.synchronize(x)
+    shape = {"cards": [str(x) for x in cards], "window": tb.window,
+             "pw": tb.pw, "bytes": n * (n - 1) * seg * 8,
+             "cross_card_cells_a_tick": tb.cross_card_cells_a_tick}
+    return launch, shape
+
+
 def measure_collectives(devices, n_circ: int, steps: int,
                         deadline: Optional[float], dev
                         ) -> Tuple[Dict, Dict, bool]:
@@ -442,6 +490,22 @@ def measure_collectives(devices, n_circ: int, steps: int,
             out[kind].update(table)
         row["diff_us"] = {k: round(v, 4)
                           for k, v in _exchange_diffs(ticks).items()}
+        # the exchange between cards: one window's copies, by the host
+        # clock around copies and synchronisation (median of the rounds)
+        cards: Dict = {}
+        for mode in ("fused", "ppermute"):
+            launch, shape = _cards_exchange_case(c, lay, mode, dev)
+            launch()
+            walls = []
+            for _ in range(EXCHANGE_REPS):
+                t0 = _walltime.perf_counter()
+                launch()
+                walls.append((_walltime.perf_counter() - t0) * 1e6)
+            cards[mode] = {**shape,
+                           "window_us": round(statistics.median(walls), 3),
+                           "min_us": round(min(walls), 3),
+                           "max_us": round(max(walls), 3)}
+        row["cards_exchange"] = cards
         raw[str(d)] = row
     return out, raw, truncated
 

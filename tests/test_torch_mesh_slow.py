@@ -9,7 +9,9 @@ minutes each, outside the tier-1 gate).
 * tor10k at ``--tpu-devices 8`` under ``tpu`` (chip_smoke.py's tor10k
   mesh slice): the JAX package's run gives EXPECTED10K (as its sharded run
   equals its single-device run) and EXPECTED_MESH10K; the port's CPU run
-  gives the same.  This is how those constants are remade:
+  gives the same, on one device and over 2 CPU "cards" (the mesh over
+  cards, parallel/mesh/cards.py, that chip_smoke.py's mesh-cards phase
+  runs over 2 aliased cards).  This is how those constants are remade:
   ``python -m pytest -m slow tests/test_torch_mesh_slow.py``.
 """
 
@@ -34,13 +36,17 @@ def test_tor200_sharded_equals_jax_and_single(k):
                                  superwindow_rounds=k)["digest"]
 
 
-@pytest.mark.parametrize("pkg", ["jax", "torch"])
+@pytest.mark.parametrize("pkg", ["jax", "torch", "torch-cards"])
 def test_tor10k_mesh_matches_chip_smoke_constants(pkg):
+    cards = pkg == "torch-cards"
+    pkg = pkg.split("-")[0]
     conf, ctl, opt, ckpt = PACKAGES[pkg]
     t = chip_smoke.TOR10K
     cfg = conf.parse_xml(workloads.tor_network(
         t["n_relays"], stoptime=t["stoptime"], device_data=True))
     extra = {"device": "cpu"} if pkg == "torch" else {"dataplane": "python"}
+    if cards:
+        extra["mesh_cards"] = ("cpu",) * chip_smoke.MESH10K_CARDS
     c = ctl.Controller(opt.Options(
         scheduler_policy="tpu", workers=0, seed=t["seed"],
         tpu_devices=chip_smoke.MESH10K_SHARDS, stop_time_sec=t["stoptime"],
@@ -57,3 +63,5 @@ def test_tor10k_mesh_matches_chip_smoke_constants(pkg):
     assert {k: scrape[k] for k in chip_smoke.EXPECTED_MESH10K} == \
         chip_smoke.EXPECTED_MESH10K
     assert scrape["mesh.host_bounces"] == 0
+    if cards:
+        assert e.device_plane._cards.n_cards == chip_smoke.MESH10K_CARDS

@@ -73,9 +73,10 @@ CUDA_EXPECT = {
          "floor_div", "floor_div_wide", "floor_refill", "init", "reset",
          "reset_lane", "step", "walk", "walk_span"}),
     "mesh_span.cu": (
-        {"MAX_TARGETS": 64},
+        {"MAX_TARGETS": 64, "HDR": 2, "N_SCALARS": 8},
         {"MeshParams", "block_sum", "floor_mod", "mesh_span_kernel",
-         "mesh_span_launch"}),
+         "mesh_span_launch", "CardParams", "card_tail",
+         "mesh_span_card_kernel", "mesh_span_card_launch"}),
     "pack_flush.cu": (
         {"THREADS": 256, "LANES": 4, "TILE": 1024, "WARPS": 8, "HEADER": 5,
          "HDR_TCP": 66, "PACK_CELL_WIRE_BYTES": 578},
