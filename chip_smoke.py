@@ -4646,12 +4646,13 @@ def run_tor1k_matrix() -> dict:
 # ---------------------------------------------------------------------------
 # The mesh over cards (parallel/mesh/cards.py): each card runs its own
 # group of shards, the card entry of csrc/mesh_span.cu one launch a card a
-# lookahead window, the cells that cross cards moved between the windows by
-# peer copies ordered by CUDA events; the flush packed on the lead card.
+# lookahead window, the cells that cross cards stored by the sending launch
+# straight into the receiving card's inbox (no copy between the windows),
+# the windows ordered by CUDA events; the flush packed on the lead card.
 # Here the cards are aliases of the one H100 (every allocation, launch,
-# window, copy and event of the per-card program runs; what aliases cannot
-# show is NVLink and two physical cards at once), and distinct cards where
-# the machine has them.
+# window, store and event of the per-card program runs; what aliases
+# cannot show is NVLink and two physical cards at once), and distinct cards
+# where the machine has them.
 # ---------------------------------------------------------------------------
 
 MESH_CARDS = (2, 4)          # aliased cards for the card entry's checks
@@ -4774,10 +4775,14 @@ def check_mesh_cards(plane) -> dict:
     return {"err": max_err, "sets": shapes}
 
 
-def peer_copy_rate(cards) -> float:
-    """Bytes a second of one PEER_COPY_BYTES copy from card 0's buffer to
-    card 1's (the exchange's copy_, non-blocking; on aliased cards a copy
-    inside the one card), by CUDA events, median of 5."""
+def peer_rate(cards) -> float:
+    """Bytes a second that card 1's memory takes from card 0: one
+    PEER_COPY_BYTES copy from card 0's buffer to card 1's (non-blocking;
+    over NVLink between distinct cards, on aliased cards a copy inside the
+    one card), by CUDA events, median of 5.  The card entry moves its
+    cross-card cells by stores from its kernel, which no PyTorch call
+    makes into another card's memory; the copy over the same link stands
+    in for their rate."""
     import torch
     n = PEER_COPY_BYTES // 8
     src = torch.ones(n, dtype=torch.int64, device=cards[0])
@@ -4800,8 +4805,9 @@ def peer_copy_rate(cards) -> float:
 def cards_bound(plane, step, ticks: int, rate: float) -> dict:
     """The card entry's least time for a dispatch of ``ticks`` ticks: the
     busiest card's share of the span's bound (span_bound, by its share of
-    the rows), plus the window's cross-card cells (8 B each, copied once)
-    over the peer-copy rate measured in the same call."""
+    the rows), plus the window's cross-card cells (8 B each, stored once
+    into the receiver's inbox and read once at its landing) over the peer
+    rate measured in the same call (peer_rate)."""
     base = span_bound(plane, ticks)
     cl = step.cards
     share = max(hi - lo for lo, hi in cl.rows) / cl.f
@@ -4816,15 +4822,101 @@ def cards_bound(plane, step, ticks: int, rate: float) -> dict:
     return row
 
 
+def boundary_trace(run, restore, launches: int) -> dict:
+    """One card-entry dispatch (``run``, from the state ``restore`` sets)
+    under torch.profiler, enqueued while the card sleeps (as
+    time_mesh_cards times it), read from the profiler's chrome trace: on
+    each card's stream the gap from the end of one card-entry launch to
+    the start of the next (what a window boundary costs the card), the
+    copies between the first and the last launch, the window launches and
+    the LAST launch (the final landing and the tail), and the dispatch's
+    span on the card beside the host's enqueue time."""
+    import tempfile
+    import torch
+    for take in range(1, TRACE_TAKES + 1):
+        restore()
+        torch.cuda.synchronize()
+        with card_trace(True) as prof:
+            torch.cuda._sleep(50_000_000)
+            t0 = time.perf_counter()
+            run()
+            enqueue_ms = (time.perf_counter() - t0) * 1e3
+        with tempfile.TemporaryDirectory(prefix="trace-") as td:
+            path = os.path.join(td, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path, encoding="utf-8") as f:
+                raw = json.load(f)
+        evs = raw["traceEvents"] if isinstance(raw, dict) else raw
+        dev = [e for e in evs if e.get("ph") == "X" and e.get("cat") in
+               ("kernel", "gpu_memcpy", "gpu_memset")]
+        spins = sorted(e["ts"] for e in dev if MARKER in e["name"])
+        body = [e for e in dev if len(spins) == 3
+                and spins[1] < e["ts"] < spins[2] and MARKER not in e["name"]]
+        card = [e for e in body if "mesh_span_card_kernel" in e["name"]]
+        if len(card) == launches:
+            break
+        print(f"trace: take {take} of the card entry's dispatch kept "
+              f"{len(card)} of its {launches} launches; taken again",
+              flush=True)
+    else:
+        fail(f"{TRACE_TAKES} traces of the card entry's dispatch dropped "
+             "launches")
+    streams = {}
+    for e in card:
+        streams.setdefault(e["args"].get("stream"), []).append(e)
+    gaps, windows, last, copies = [], [], [], []
+    for s, ks in streams.items():
+        ks.sort(key=lambda e: e["ts"])
+        gaps += [b["ts"] - (a["ts"] + a["dur"]) for a, b in zip(ks, ks[1:])]
+        windows += [k["dur"] for k in ks[:-1]]
+        last.append(ks[-1]["dur"])
+        copies += [e["dur"] for e in body if e["cat"] == "gpu_memcpy"
+                   and e["args"].get("stream") == s
+                   and ks[0]["ts"] < e["ts"] < ks[-1]["ts"]]
+    t_lo = min(e["ts"] for e in body)
+    t_hi = max(e["ts"] + e["dur"] for e in body)
+    per_card = len(card) // max(len(streams), 1)
+
+    def med(xs):
+        return statistics.median(xs) if xs else None
+    row = {"streams": len(streams), "launches_a_card": per_card,
+           "boundaries_a_card": per_card - 1,
+           "gap_us_median": med(gaps), "gap_us_mean":
+           statistics.fmean(gaps) if gaps else None,
+           "gap_us_max": max(gaps) if gaps else None,
+           "window_launch_us_median": med(windows),
+           "last_launch_us_median": med(last),
+           "copies": len(copies), "copy_us_median": med(copies),
+           "copy_us_total": sum(copies), "span_us": t_hi - t_lo,
+           "enqueue_ms": enqueue_ms}
+    print(f"  trace of one dispatch over {len(streams)} card streams: "
+          f"{per_card} launches a card; a boundary (end of one launch to "
+          f"the start of the next, same stream) median "
+          f"{row['gap_us_median']:.2f} us, mean {row['gap_us_mean']:.2f}, "
+          f"max {row['gap_us_max']:.2f}; {len(copies)} copies between "
+          f"launches"
+          + (f", median {row['copy_us_median']:.2f} us, "
+             f"{row['copy_us_total']:.2f} us in all" if copies else "")
+          + f"; a window launch median {row['window_launch_us_median']:.2f} "
+          f"us, the LAST launch (landing + tail) "
+          f"{row['last_launch_us_median']:.2f} us; the dispatch "
+          f"{row['span_us']:.2f} us on the card, enqueued in "
+          f"{enqueue_ms:.3f} ms on the host", flush=True)
+    return row
+
+
 def time_mesh_cards(plane) -> dict:
-    """One dispatch over MESH10K_CARDS aliased cards at D =
+    """One dispatch over k aliased cards, k in MESH_CARDS, at D =
     MESH10K_SHARDS, MESH_TIME_TICKS[-1] ticks, no completion: the card
-    entry's windows, copies and the lead's flush by CUDA events on the
-    caller's stream (which the dispatch joins at both ends; the card kept
-    busy while the host enqueues), the state restored outside the timed
+    entry's windows and the lead's flush by CUDA events on the caller's
+    stream (which the dispatch joins at both ends; the card kept busy
+    while the host enqueues), the state restored outside the timed
     interval, in turns with the one-card mesh dispatch on the same state
-    (one card, cards, cards, one card); the plain version once (host
-    clock); the peer-copy rate; the bound."""
+    (one card, 2 cards, 4 cards, 4 cards, 2 cards, one card); one dispatch
+    over each set traced (boundary_trace: what a window boundary costs
+    the card); the plain version once over MESH10K_CARDS (host clock); the
+    peer rate; the bound.  Returns MESH10K_CARDS's row, the others under
+    "sets"."""
     import numpy as np
     import torch
     from shadow_tpu_torch.parallel.mesh import cards as cm
@@ -4832,21 +4924,15 @@ def time_mesh_cards(plane) -> dict:
     st = list(busy_state(plane, rng, 30000))
     st[5] = np.zeros(plane.n_flows, dtype=np.int64)   # no target: no halt
     lay = mesh_layout(plane, MESH10K_SHARDS)
-    cards = [torch.device("cuda", 0)] * MESH10K_CARDS
-    step = _cards_step(plane, lay, cards)
     one_step, _ = _mesh_step(plane, lay, MESH10K_SHARDS, "fused")
     statics = _mesh_statics(lay)
     mst = pad_mesh_state(lay, st)
     ticks = MESH_TIME_TICKS[-1]
     tv = np.array([30000 + ticks])
     zp = torch.zeros(len(lay["src"]), dtype=torch.int64, device=_card())
-    cl = step.cards
     kinds = ("flow", "flow", "node", "flow", "flow", "flow", "node")
-    saved = [cl.split(a, k) for a, k in zip(mst[1:], kinds)]
-    live = [cl.split(a, k) for a, k in zip(mst[1:], kinds)]
     one_saved = [torch.as_tensor(a, device=_card()) for a in mst[1:]]
     one_live = [a.clone() for a in one_saved]
-    zsplit = cl.split(np.zeros(len(lay["src"]), dtype=np.int64))
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
 
@@ -4864,47 +4950,72 @@ def time_mesh_cards(plane) -> dict:
                 total += e0.elapsed_time(e1)
         return total / reps
 
-    def restore_cards():
-        for a, b in zip(live, saved):
-            for x, y in zip(a.parts, b.parts):
-                x.copy_(y)
+    def over(k):
+        """(step, launch, restore) of one dispatch over k aliased cards."""
+        step = _cards_step(plane, lay, [torch.device("cuda", 0)] * k)
+        cl = step.cards
+        saved = [cl.split(a, kd) for a, kd in zip(mst[1:], kinds)]
+        live = [cl.split(a, kd) for a, kd in zip(mst[1:], kinds)]
+        zsplit = cl.split(np.zeros(len(lay["src"]), dtype=np.int64))
+
+        def restore():
+            for a, b in zip(live, saved):
+                for x, y in zip(a.parts, b.parts):
+                    x.copy_(y)
+
+        def launch():
+            step(30000, *live, zsplit, zsplit, tv, 0)
+        return step, launch, restore
 
     def restore_one():
         for a, b in zip(one_live, one_saved):
             a.copy_(b)
 
-    def cards_launch():
-        step(30000, *live, zsplit, zsplit, tv, 0)
-
     def one_launch():
         one_step(30000, *one_live, zp, zp, tv, 0, *statics)
+    sets = {k: over(k) for k in MESH_CARDS}
     o1 = timed(one_launch, restore_one)
-    c1 = timed(cards_launch, restore_cards)
-    c2 = timed(cards_launch, restore_cards)
+    turns = {k: [] for k in MESH_CARDS}
+    for k in list(MESH_CARDS) + list(reversed(MESH_CARDS)):
+        turns[k].append(timed(sets[k][1], sets[k][2]))
     o2 = timed(one_launch, restore_one)
-    w0 = cm.mesh_span_card.launches
-    cards_launch()
-    launches = cm.mesh_span_card.launches - w0
-    _, plain_ms = _host_ms(lambda: _cards_run(
-        step, (30000, *mst[1:]), np.zeros(len(lay["src"]), dtype=np.int64),
-        np.zeros(len(lay["src"]), dtype=np.int64), tv, 0, plain=True))
-    rate = peer_copy_rate(cards)
-    row = {"ticks": ticks, "ms": (c1 + c2) / 2, "turns_ms": [c1, c2],
-           "one_card_ms": (o1 + o2) / 2, "one_card_turns_ms": [o1, o2],
-           "plain_ms": plain_ms, "window": step.tables.window,
-           "launches_a_dispatch": launches,
-           "cross_card_cells_a_tick": step.tables.cross_card_cells_a_tick}
-    row.update(cards_bound(plane, step, ticks, rate))
-    print(f"mesh_span card entry over {MESH10K_CARDS} aliased cards, D = "
-          f"{MESH10K_SHARDS}: {row['ms']:.4f} ms for {ticks} ticks "
-          f"(turns {c1:.4f}, {c2:.4f}; W = {row['window']}, "
-          f"{launches} launches), beside the one-card mesh dispatch "
-          f"{row['one_card_ms']:.4f} ms (turns {o1:.4f}, {o2:.4f}); plain "
-          f"{plain_ms:.1f} ms; peer-copy rate {rate / 1e9:.1f} GB/s (one "
-          f"card's copy into itself); bound {row['bound_ms'] * 1e3:.3f} us "
-          f"({row['bound_by']}; {row['cross_bytes']} B across cards)",
-          flush=True)
-    return row
+    one_ms = (o1 + o2) / 2
+    rate = peer_rate([torch.device("cuda", 0)] * 2)
+    rows = {}
+    for k, (step, launch, restore) in sets.items():
+        w0 = cm.mesh_span_card.launches
+        launch()
+        launches = cm.mesh_span_card.launches - w0
+        trace = boundary_trace(launch, restore, launches)
+        ms = sum(turns[k]) / len(turns[k])
+        row = rows[k] = {
+            "cards": k, "ticks": ticks, "ms": ms, "turns_ms": turns[k],
+            "one_card_ms": one_ms, "one_card_turns_ms": [o1, o2],
+            "ratio": ms / one_ms, "window": step.tables.window,
+            "launches_a_dispatch": launches, "trace": trace,
+            "cross_card_cells_a_tick": step.tables.cross_card_cells_a_tick}
+        row.update(cards_bound(plane, step, ticks, rate))
+        if k == MESH10K_CARDS:
+            _, row["plain_ms"] = _host_ms(lambda: _cards_run(
+                step, (30000, *mst[1:]),
+                np.zeros(len(lay["src"]), dtype=np.int64),
+                np.zeros(len(lay["src"]), dtype=np.int64), tv, 0,
+                plain=True))
+        print(f"mesh_span card entry over {k} aliased cards, D = "
+              f"{MESH10K_SHARDS}: {ms:.4f} ms for {ticks} ticks (turns "
+              f"{', '.join(f'{x:.4f}' for x in turns[k])}; W = "
+              f"{row['window']}, {launches} launches), beside the one-card "
+              f"mesh dispatch {one_ms:.4f} ms (turns {o1:.4f}, {o2:.4f}): "
+              f"{row['ratio']:.3f}x"
+              + (f"; plain {row['plain_ms']:.1f} ms" if "plain_ms" in row
+                 else "")
+              + f"; bound {row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}; "
+              f"{row['cross_bytes']} B across cards, peer rate "
+              f"{rate / 1e9:.1f} GB/s: one card's copy into itself)",
+              flush=True)
+    out = dict(rows[MESH10K_CARDS])
+    out["sets"] = {str(k): r for k, r in rows.items()}
+    return out
 
 
 def check_sharded_hop_cards() -> dict:
@@ -5053,7 +5164,7 @@ def run_tor10k_cards(cards, audit: bool = False) -> dict:
            "cross_card_edges": cl.cross_card_edges if cl else 0,
            "cross_card_cells": int(cl.xcard_cells) if cl is not None
            and cl.xcard_cells is not None else 0,
-           "peer_copy_bytes": cl.copy_bytes if cl is not None else 0,
+           "peer_bytes": cl.peer_bytes if cl is not None else 0,
            "wall_s": wall, "events_per_s": eng.events_executed / wall}
     out.update({k: v for k, v in eng.metrics.scrape().items()
                 if k.startswith("mesh.")})
@@ -5117,8 +5228,9 @@ def check_tor10k_cards(run: dict) -> None:
           f"windows in {run['dispatches']} dispatches, "
           f"{run['card_launches']} card entry launches, "
           f"{run['cross_card_edges']} edges across cards carried "
-          f"{run['cross_card_cells']} cells, {run['peer_copy_bytes']} B of "
-          f"inbox copies; {c['mesh_pack']} flushes on the lead card; "
+          f"{run['cross_card_cells']} cells, {run['peer_bytes']} B stored "
+          f"into other cards' inboxes; {c['mesh_pack']} flushes on the "
+          f"lead card; "
           f"{c['hop_s']} sharded hop launches ({n} a batch); "
           + (f"sync audit: {run['syncs']} syncs, none in the "
              f"{run['audit_windows']} dispatch windows; "
@@ -5254,11 +5366,6 @@ def run_calibration(path: str) -> dict:
               f"cross-free twin ({r['cross_free_flows_padded']} padded): "
               f"single {r['single_cf_us']}, mesh {r['cross_free_us']}; "
               f"differences {r['diff_us']}", flush=True)
-        for mode, x in (r.get("cards_exchange") or {}).items():
-            print(f"    over cards {x['cards']} ({mode}, W = {x['window']}, "
-                  f"pw {x['pw']}): a window's outbox-to-inbox copies "
-                  f"{x['window_us']} us (min {x['min_us']}, max "
-                  f"{x['max_us']}), {x['bytes']} B", flush=True)
     print(f"  exchange tables: {json.dumps(row['collectives'])}", flush=True)
     print(f"  transfer: {row['transfer']} (median, min, max: "
           f"{meas['transfer']})", flush=True)
@@ -6048,7 +6155,10 @@ def main(argv=None) -> int:
         cards=MESH10K_CARDS, window=mct.get("window"),
         ms_is_per=f"a {mct.get('ticks')}-tick dispatch over "
         f"{MESH10K_CARDS} aliased cards (CUDA events)",
-        one_card_ms=mct.get("one_card_ms"),
+        one_card_ms=mct.get("one_card_ms"), ratio=mct.get("ratio"),
+        boundary_us_median=(mct.get("trace") or {}).get("gap_us_median"),
+        ms_by_cards={k: r.get("ms") for k, r in
+                     (mct.get("sets") or {}).items()},
         peer_bytes_per_s=mct.get("peer_bytes_per_s"))
     kernels[-3]["ms_is_per"] = ("the mesh flush on the lead card, the same "
                                 "kernel and shapes as pack_flush_mesh")

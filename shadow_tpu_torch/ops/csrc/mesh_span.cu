@@ -317,19 +317,25 @@ extern "C" int mesh_span_launch(
 // card, and cut at every targets boundary.  Inside it the ticks run as in
 // the one-card kernel (span_tile.cuh with MESH, one grid sync a tick, the
 // card's own cross-shard cells through its double-buffered exchange
-// buffer, landed after the loop), and a cell for another card b is written
-// into the outbox segment for b, row (t - w0) of the window
-// (span_tile.cuh with CARDS).  Between launches the host copies each
-// segment into the receiving card's inbox (peer copies ordered by CUDA
-// events); the next launch lands the inbox first: cell (k, i) from card a
-// into column cin[a, i], ring row (prev_w0 + k) mod L, counted into
-// `cross`.  Its first read is at tick prev_w0 + k + arr_lat >= w0, and no
-// tick in between reads that row of that column (L > arr_lat).
+// buffer, landed after the loop), and a cell for another card b is stored
+// straight into b's inbox: the half of the window's parity, this card's
+// segment, row (t - w0) of the window (span_tile.cuh with CARDS; on
+// distinct cards a peer-mapped store over NVLink, on aliased cards the same
+// memory).  No copy runs between launches.  The host orders launch i of
+// every card after launch i - 1 of every other card (CUDA events), and
+// that launch is the last reader of inbox half i & 1, so the stores never
+// overwrite cells not yet landed.  The next launch lands its inbox's other
+// half first: cell (k, i) from card a into column cin[a, i], ring row
+// (prev_w0 + k) mod L, counted into `cross`.  Every cell the landing reads
+// was stored in the window before (a cross-card route's sender writes its
+// cell every tick, zero or not).  Its first read is at tick prev_w0 + k +
+// arr_lat >= w0, and no tick in between reads that row of that column (L >
+// arr_lat).
 //
 // The halt, as the JAX package reduces it (psum'd at the sub-window
 // boundaries): a window that ends at a boundary writes the card's "a
-// completion since the last boundary" word into the header of every
-// segment; the next launch (flag DECIDE) ORs its own word with the other
+// completion since the last boundary" word into the header of its segment
+// in every other card's inbox; the next launch (flag DECIDE) ORs its own word with the other
 // cards' and, if set, stops the card: t_stop is the boundary, and every
 // later launch of the dispatch returns at once, so the host enqueues all
 // the windows up front.  The launch with LAST lands the final window and
@@ -338,19 +344,22 @@ extern "C" int mesh_span_launch(
 //
 // Scalars (a card's, kept across the dispatch's launches): [0] t_stop, [1]
 // forwards, [2] cross, [3] a completion since the last boundary, [4]
-// stopped, [5] the cells landed from other cards.  The flush is the mesh entry of csrc/pack_flush.cu, run on the
-// lead card over every card's state copied there.
+// stopped, [5] the cells landed from other cards.  The flush is the mesh
+// entry of csrc/pack_flush.cu, run on the lead card over every card's
+// state copied there.
 //
 // Bound.  The card's share of the span (its flows and nodes once a tick)
-// plus the window's cross-card cells: 8 bytes each, written once into the
-// outbox, copied once, read once at landing.  Aliased cards (several card
+// plus the window's cross-card cells: 8 bytes each, stored once into the
+// receiver's inbox, read once at landing.  Aliased cards (several card
 // slots on one physical card) each take their share of its SMs
-// (grid_share), so their grids can be resident together.
+// (mesh_span_card_grid's grid_share), so their grids can be resident
+// together; the grid is sized once per card, not per launch.
 // ---------------------------------------------------------------------------
 
 namespace {
 
 constexpr int HDR = 2;  // segment header: ticks run, completion flag
+constexpr int MAX_CARDS = 64;
 enum { FIRST = 1, LAND = 2, DECIDE = 4, LAST = 8 };
 enum { S_TSTOP = 0, S_FWD = 1, S_CROSS = 2, S_DONE = 3, S_STOP = 4,
        S_XCARD = 5 };
@@ -378,12 +387,14 @@ struct CardParams {
   int64_t* done_snap;        // [F] done_tick at the dispatch's entry
   int64_t* sent_in;          // [H] node_sent at the dispatch's entry
   int64_t* xbuf;             // [2, X]
-  int64_t* outbox;           // [n_cards, seg]
+  // per card b, b's inbox half of this window's parity at this card's
+  // segment (a device pointer; unused at b == card)
+  int64_t* const* peer;      // [n_cards]
   const int64_t* inbox;      // [n_cards, seg]: the previous window's
   const int32_t* cin;        // [n_cards, pw]: landing columns, -1
   int64_t f, h, n_tiles, ring_len, t0, idle_ticks, xbuf_len, pw, seg, w0, w1,
       prev_w0, prev_len;
-  int n_cards, card, flags;
+  int n_cards, card, flags, shift;  // shift: dest's card field (Exchange)
 };
 
 // the padding node slots' refills for the ticks t0 .. t_stop - 1 (no flow
@@ -452,6 +463,10 @@ mesh_span_card_kernel(const CardParams p) {
       }
     }
   }
+  // the other cards' inbox segment bases, where the ticks store: in shared
+  // memory (the grid sync below orders them before their first use)
+  __shared__ int64_t* peer[MAX_CARDS];
+  if (threadIdx.x < p.n_cards) peer[threadIdx.x] = p.peer[threadIdx.x];
   // the halt at the boundary the previous window ended on: the OR over
   // the cards of a completion since the boundary before
   bool halt = false;
@@ -475,13 +490,13 @@ mesh_span_card_kernel(const CardParams p) {
                          p.target,   p.done_tick, p.node_sent, p.meta,
                          p.tiles,    p.node_off,  p.refill,    p.capacity,
                          f,          p.h,         p.n_tiles,   (int)L};
-    span::Exchange ex{p.xin, p.xbuf, 0, 0, -1, p.outbox, 0, x};
+    span::Exchange ex{p.xin, p.xbuf, 0, 0, -1, peer, 0, x, p.shift};
     int64_t t = p.w0;
     int row_t = (int)floor_mod(t, L);
     for (; t < p.w1; ++t) {
       ex.send_half = (t & 1) * x;
       ex.recv_half = x - ex.send_half;
-      ex.out_base = (t - p.w0) * p.pw - (f + x);
+      ex.out_base = HDR + (t - p.w0) * p.pw;
       bool any_new = false;
       for (int64_t ti = blockIdx.x; ti < p.n_tiles; ti += gridDim.x)
         span::span_tile<true, true>(tb, 0, (int)ti, t, row_t, &forwards,
@@ -503,13 +518,14 @@ mesh_span_card_kernel(const CardParams p) {
         cross += v;
       }
     }
-    // the segments' headers (every completion of the window is in)
+    // this card's segment headers in the other cards' inboxes (every
+    // completion of the window is in)
     if (tid == 0) {
       const int64_t done = *(volatile int64_t*)&p.scalars[S_DONE];
       for (int b = 0; b < p.n_cards; ++b)
         if (b != p.card) {
-          p.outbox[(int64_t)b * p.seg] = p.w1 - p.w0;
-          p.outbox[(int64_t)b * p.seg + 1] = done;
+          p.peer[b][0] = p.w1 - p.w0;
+          p.peer[b][1] = done;
         }
     }
   }
@@ -532,26 +548,75 @@ mesh_span_card_kernel(const CardParams p) {
 
 }  // namespace
 
+// The card entry's grid on the current card: every block that can be
+// resident, divided among the `grid_share` card slots that alias this
+// physical card, and no more than `n_tiles`.  Returns the block count (>=
+// 1), or minus the CUDA error.  Called once per card, when its tables are
+// uploaded.
+extern "C" int mesh_span_card_grid(int64_t n_tiles, int grid_share) {
+  if (n_tiles < 1 || grid_share < 1) return -(int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, mesh_span_card_kernel, THREADS, 0);
+  if (err != cudaSuccess) return -(int)err;
+  if (per_sm < 1) return -(int)cudaErrorCooperativeLaunchTooLarge;
+  int64_t want = n_tiles;
+  const int64_t cap = (int64_t)per_sm * sms / grid_share;
+  if (want > cap) want = cap;
+  return want < 1 ? 1 : (int)want;
+}
+
+// Let card `dev` store into card `peer`'s memory (the inboxes): 0 when
+// access is enabled (or was already), -1 when the pair has no peer access
+// (cudaDeviceCanAccessPeer), else the CUDA error.  Restores the current
+// device.
+extern "C" int mesh_span_enable_peer(int dev, int peer) {
+  int can = 0, cur = 0;
+  cudaError_t err = cudaDeviceCanAccessPeer(&can, dev, peer);
+  if (err != cudaSuccess) return (int)err;
+  if (!can) return -1;  // no CUDA error is negative
+  err = cudaGetDevice(&cur);
+  if (err == cudaSuccess) err = cudaSetDevice(dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceEnablePeerAccess(peer, 0);
+  if (err == cudaErrorPeerAccessAlreadyEnabled) {
+    cudaGetLastError();  // clear it: access is on, as asked
+    err = cudaSuccess;
+  }
+  const cudaError_t back = cudaSetDevice(cur);
+  return (int)(err != cudaSuccess ? err : back);
+}
+
 // One launch of the card entry on `stream` (the card must be the current
-// device).  Does not synchronise.  Returns 0 when the launch was accepted,
-// else the CUDA error.
+// device), `grid` blocks (mesh_span_card_grid).  `peers` is the card's
+// device table [2, n_cards] of the other cards' inbox segment bases, a row
+// per window parity; the launch stores into row `parity`.  `shift` splits
+// a cross-card destination into its card and cell (span_tile.cuh
+// Exchange).  Does not
+// synchronise.  Returns 0 when the launch was accepted, else the CUDA
+// error.
 extern "C" int mesh_span_card_launch(
     void* queued, void* ring, void* tokens, void* delivered, void* target,
     void* done_tick, void* node_sent, const void* inject,
     const void* inject_target, const void* meta, const void* tiles,
     const void* node_off, const void* xin, const void* refill,
     const void* capacity, void* scalars, void* done_snap, void* sent_in,
-    void* xbuf, void* outbox, const void* inbox, const void* cin, int64_t f,
-    int64_t h, int64_t n_tiles, int64_t ring_len, int64_t t0,
+    void* xbuf, const void* peers, const void* inbox, const void* cin,
+    int64_t f, int64_t h, int64_t n_tiles, int64_t ring_len, int64_t t0,
     int64_t idle_ticks, int64_t xbuf_len, int64_t pw, int64_t seg,
     int64_t w0, int64_t w1, int64_t prev_w0, int64_t prev_len, int n_cards,
-    int card, int flags, int grid_share, void* stream) {
+    int card, int flags, int parity, int shift, int grid, void* stream) {
   if (ring_len < 1 || n_tiles < 1 || xbuf_len < 1 || n_cards < 1 ||
-      card < 0 || card >= n_cards || grid_share < 1 || pw < 0 ||
-      seg < HDR || w1 < w0 || prev_len < 0 ||
-      (pw > 0 && prev_len >= ring_len) ||
+      n_cards > MAX_CARDS || card < 0 || card >= n_cards || grid < 1 ||
+      parity < 0 || parity > 1 || pw < 0 || seg < HDR || w1 < w0 ||
+      prev_len < 0 || (pw > 0 && prev_len >= ring_len) || shift < 0 ||
+      shift > 30 || (pw > 0 && pw > ((int64_t)1 << shift)) ||
       ring_len * f >= ((int64_t)1 << 31) ||
-      f + xbuf_len + n_cards * seg >= ((int64_t)1 << 31) ||
+      f + xbuf_len + ((int64_t)n_cards << shift) >= ((int64_t)1 << 31) ||
       h >= ((int64_t)1 << 31) ||
       (pw > 0 && (w1 - w0) * pw > seg - HDR))
     return (int)cudaErrorInvalidValue;
@@ -575,7 +640,7 @@ extern "C" int mesh_span_card_launch(
   p.done_snap = (int64_t*)done_snap;
   p.sent_in = (int64_t*)sent_in;
   p.xbuf = (int64_t*)xbuf;
-  p.outbox = (int64_t*)outbox;
+  p.peer = (int64_t* const*)peers + (int64_t)parity * n_cards;
   p.inbox = (const int64_t*)inbox;
   p.cin = (const int32_t*)cin;
   p.f = f;
@@ -594,25 +659,11 @@ extern "C" int mesh_span_card_launch(
   p.n_cards = n_cards;
   p.card = card;
   p.flags = flags;
-
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, mesh_span_card_kernel, THREADS, 0);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  // the card's share of the resident blocks, no more than its tiles
-  int64_t want = n_tiles;
-  const int64_t cap = (int64_t)per_sm * sms / grid_share;
-  if (want > cap) want = cap;
-  if (want < 1) want = 1;
+  p.shift = shift;
   void* args[] = {&p};
-  err = cudaLaunchCooperativeKernel((const void*)mesh_span_card_kernel,
-                                    dim3((unsigned)want), dim3(THREADS), args,
-                                    0, (cudaStream_t)stream);
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      (const void*)mesh_span_card_kernel, dim3((unsigned)grid), dim3(THREADS),
+      args, 0, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

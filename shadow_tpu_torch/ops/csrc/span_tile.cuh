@@ -61,8 +61,8 @@
 // reads their tokens, so their refills can wait for the end of the
 // launch).  With MESH = false the body is the single-table one, unchanged.
 // The card entry of csrc/mesh_span.cu (CARDS = true) adds a fourth kind of
-// destination, a cell of the outbox to another card (F + X and past); with
-// CARDS = false that branch is compiled out.
+// destination, a cell for another card (F + X and past), stored straight
+// into that card's inbox; with CARDS = false that branch is compiled out.
 
 #pragma once
 
@@ -109,16 +109,21 @@ struct Table {
 
 // The mesh's exchange, for one tick (MESH = true only).  Over several
 // cards (CARDS = true, csrc/mesh_span.cu's card entry) a destination at or
-// past F + X is a cell of the outbox: out[dest + out_base], out_base =
-// (the tick's index in the window) * pw - (F + X).
+// past F + X is cell i for card b, dest = F + X + (b << shift) + i (2^shift
+// >= pw, so a shift and a mask decode it): it is stored into card b's
+// inbox, this card's segment of the window's parity, at peer[b][i +
+// out_base], out_base = HDR + (the tick's index in the window) * pw (a
+// peer-mapped store where b is another physical card; `peer` is in shared
+// memory).
 struct Exchange {
   const int32_t* __restrict__ xin;  // [F] static: receive slot, -1, -2
   int64_t* xbuf;                    // [2, X]: a half a tick parity
   int64_t send_half, recv_half;     // (t & 1) * X, ((t - 1) & 1) * X
   int prev_row;                     // (t - 1) mod L, -1: nothing to receive
-  int64_t* out;                     // CARDS: the outbox [n_cards, seg]
+  int64_t* const* peer;             // CARDS: [n_cards] segment bases
   int64_t out_base;                 // CARDS: as above
   int64_t xlen;                     // CARDS: X
+  int shift;                        // CARDS: as above
 };
 
 struct Shared {
@@ -175,7 +180,7 @@ __device__ __forceinline__ int64_t seg_scan(int64_t v, bool f, int64_t carry,
 // costs two dependent memory round trips before its scans, not a chain.
 // With MESH, `ex` is the tick's exchange and *cross sums the cells
 // received (neither is read otherwise); with CARDS too, a successor on
-// another card is sent to the outbox.
+// another card is stored into that card's inbox.
 template <bool MESH = false, bool CARDS = false>
 __device__ __forceinline__ void span_tile(const Table& tb, int64_t w, int ti,
                                           int64_t t, int row_t,
@@ -319,9 +324,11 @@ __device__ __forceinline__ void span_tile(const Table& tb, int64_t w, int ti,
             *any_new = true;
           }
         } else if constexpr (MESH) {
-          if (CARDS && m[k].y >= f + ex->xlen)  // one on another card
-            ex->out[m[k].y + ex->out_base] = v;
-          else if (m[k].y >= f)                 // a cross-shard successor
+          if (CARDS && m[k].y >= f + ex->xlen) {  // one on another card
+            const int o = m[k].y - f - (int)ex->xlen;
+            ex->peer[o >> ex->shift]
+                    [(o & ((1 << ex->shift) - 1)) + ex->out_base] = v;
+          } else if (m[k].y >= f)                 // a cross-shard successor
             ex->xbuf[ex->send_half + m[k].y - f] = v;
           else if (m[k].y >= 0)                 // one on the same shard
             wrow[m[k].y] = (int32_t)v;

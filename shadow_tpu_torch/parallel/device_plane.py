@@ -68,9 +68,13 @@ and an event (:class:`_FlushHandle`).  ``--device cpu`` runs the plain
 torch versions.  As a fleet lane (fleet/plane.py) the plane's dispatches
 ride the fleet's batched launch instead, synchronously.  With
 ``--tpu-devices D`` (D >= 2) the flow table is sharded over a mesh of D
-shards on that one device (parallel/mesh/): each dispatch is one launch of
-the mesh span kernel and one of the mesh flush kernel, the state in the
-padded layout.  There is no hidden fallback: the numpy-twin recovery
+shards (parallel/mesh/), which spread over the host's cards (shard s on
+card ``s * n_cards // D``; all on the one card of a one-card host): on
+one card each dispatch is one launch of the mesh span kernel and one of
+the mesh flush kernel, the state in the padded layout; over several cards
+the state is held per card and each dispatch is the card entry's
+lookahead windows on every card, then the mesh flush on the lead card
+(parallel/mesh/cards.py).  There is no hidden fallback: the numpy-twin recovery
 ladder runs only for the injected ``--fault-inject
 device-dispatch[-hang]:N`` / ``demote-repromote:N`` drills, and the
 ``device-lost:ROUND`` drill re-shards onto D-1 shards; a real dispatch

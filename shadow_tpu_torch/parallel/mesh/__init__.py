@@ -12,8 +12,8 @@ one-table program into a D-shard one:
   exchange through an explicit slot buffer, and the wrapper that launches
   the hand-written kernels (csrc/mesh_span.cu and the mesh entry of
   csrc/pack_flush.cu) on CUDA tensors; over several cards, the card entry
-  of csrc/mesh_span.cu in lookahead windows with the cells that cross
-  cards moved between the windows by peer copies;
+  of csrc/mesh_span.cu in lookahead windows (:mod:`cards`), which stores
+  the cells that cross cards straight into the receiving card's inbox;
 * :mod:`meshplane` — the DeviceTrafficPlane attachment and its ``mesh.*``
   metrics.
 

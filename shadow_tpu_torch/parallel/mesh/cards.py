@@ -10,11 +10,13 @@ groups the shards by card (parallel/mesh ``device_mesh``: shard s on card
 launch of the card entry of csrc/mesh_span.cu over that card's shards
 alone.  The cells whose sender and receiver share a card go through that
 card's exchange buffer inside the launch, as on one card.  The cells that
-cross cards go into an outbox, one row a tick of the window; between
-windows each card's outbox segments are copied into the other cards'
-inboxes (``Tensor.copy_(non_blocking=True)``: ``cudaMemcpyPeerAsync``
-between distinct cards), ordered by CUDA events, and the next launch lands
-them first.
+cross cards are stored by the sending launch straight into the receiving
+card's inbox (a peer-mapped store between distinct cards: peer access is
+enabled once for each pair, and a pair without it is refused), one row a
+tick of the window, into the half of the window's parity; no copy runs
+between windows.  CUDA events order launch i of every card after launch
+i - 1 of every other card, the last reader of that half, and the next
+launch lands the cells first.
 
 The window.  The span reads ``ring[(t - arr_lat[j]) mod L, j]``
 (csrc/span_tile.cuh); a cell sent at tick s over the edge into column j is
@@ -27,7 +29,7 @@ into rows that no tick of the window reads (``L > arr_lat``).
 The halt.  The JAX package reduces its halt at the targets boundaries
 only, so a window also ends at every boundary, and the halt there is the
 OR over cards of "a completion since the last boundary": each card's flag
-rides in the header of every outbox segment.  A launch after a halt
+rides in the header of its segment in every other card's inbox.  A launch after a halt
 returns at once, so a dispatch's windows are all enqueued up front, with
 no host sync in the dispatch.
 
@@ -65,7 +67,7 @@ from .exchange import (check_mesh_layout, exchange_routes, global_sent_torch,
 # S_*)
 N_SCALARS = 8
 S_TSTOP, S_FWD, S_CROSS, S_DONE, S_STOP, S_XCARD = range(6)
-# an outbox segment's header words: the ticks the window ran, the sending
+# an inbox segment's header words: the ticks the window ran, the sending
 # card's completion flag
 HDR = 2
 # the card entry's launch flags (csrc/mesh_span.cu)
@@ -99,10 +101,10 @@ class CardLayout:
     """Where a padded mesh layout's rows live over a mesh's cards: card c
     holds shards ``mesh.shards_of(c)``, so the flow rows ``rows[c]`` and
     the node slots ``nodes[c]`` of every global array (contiguous).  One
-    stream a card (the card's launches and copies), the window ``W`` (the
-    least arrival latency over the columns whose predecessor is on another
-    card, None when none is), and :meth:`split` from the global layout to
-    per-card arrays."""
+    stream a card (its launches and the flush's copies), the window ``W``
+    (the least arrival latency over the columns whose predecessor is on
+    another card, None when none is), and :meth:`split` from the global
+    layout to per-card arrays."""
 
     def __init__(self, mesh, layout: dict):
         d, pad, hp = (int(layout[k]) for k in ("n_shards", "pad", "h_pad"))
@@ -132,10 +134,10 @@ class CardLayout:
             if crossing.any() else None
         self.cross_card_edges = int(crossing.sum())
         # what the dispatches moved (the chip smoke's per-card figures):
-        # windows enqueued, bytes of the inbox copies, and the cells landed
-        # from other cards (a 0-d tensor on the lead card, added to on its
-        # stream, never read in a dispatch)
-        self.windows = self.copy_bytes = 0
+        # windows enqueued, bytes the windows stored into other cards'
+        # inboxes, and the cells landed from other cards (a 0-d tensor on
+        # the lead card, added to on its stream, never read in a dispatch)
+        self.windows = self.peer_bytes = 0
         self.xcard_cells = None
 
     def card_of_rows(self, rows: np.ndarray) -> np.ndarray:
@@ -215,16 +217,17 @@ class CardTables:
       destination in ``meta`` is -1 (a last stage), -2 (a leg not
       exchanged), a ring column of the card, ``F_c + k`` slot k of the
       card's exchange buffer (a successor on another shard of the card),
-      or ``F_c + X_c + b * seg + HDR + i`` (a successor on card b: cell i
-      of the outbox segment for b, plus ``pw`` a tick of the window);
+      or ``F_c + X_c + (b << shift) + i`` (a successor on card b: cell i
+      of card c's segment in b's inbox, after the header, plus ``pw`` a
+      tick of the window; ``2 ** shift >= pw``);
     * ``cin`` int32 [n_cards, pw]: the column each inbox cell lands in
       (row a: from card a), -1 padding;
     * ``route`` (numpy, for the plain version): per row, ``("ring", col)``,
-      ``("slot", col)``, ``("out", b, i)`` or none;
+      ``("slot", col)``, ``("out", b, i)`` (cell i for card b) or none;
 
     and ``window`` (the layout's W, capped by ``max_window``; None where no
     cell crosses cards), ``pw`` (the most cells a card sends another in a
-    tick), ``seg = HDR + window * pw``."""
+    tick), ``seg = HDR + window * pw``, ``shift``."""
 
     def __init__(self, layout: dict, cl: CardLayout, ring_len: int,
                  last_flow_pad, node_src, n_nodes: int,
@@ -263,7 +266,9 @@ class CardTables:
             window = cl.window if max_window is None \
                 else min(cl.window, int(max_window))
         seg = HDR + (window * pw if pw else 0)
+        shift = max(pw - 1, 0).bit_length()
         self.mode, self.window, self.pw, self.seg = mode, window, pw, seg
+        self.shift = shift
         self.n_cards, self.ring_len = n, int(ring_len)
         self.cross_card_cells_a_tick = sum(len(v) for v in pairs.values())
         self.meta, self.tiles, self.node_off, self.xin, self.cin = \
@@ -298,15 +303,16 @@ class CardTables:
             for (a, b), v in pairs.items():
                 for i, (j, r) in enumerate(v):
                     if a == c:
-                        dest[j] = fc + xc + b * seg + HDR + i
+                        dest[j] = fc + xc + (b << shift) + i
                         route[j - lo] = ("out", b, i)
                     if b == c:
                         cin[a, i] = r - lo
-            if ring_len * fc >= 2 ** 31 or fc + xc + n * seg >= 2 ** 31:
+            if ring_len * fc >= 2 ** 31 \
+                    or fc + xc + (n << shift) >= 2 ** 31:
                 raise ValueError(f"mesh_span card {c}: F = {fc}, L = "
-                                 f"{ring_len}, {xc} slots and an outbox of "
-                                 f"{n * seg} overflow the kernel's 32-bit "
-                                 "offsets")
+                                 f"{ring_len}, {xc} slots and {n} cards' "
+                                 f"destinations of 2**{shift} cells overflow "
+                                 "the kernel's 32-bit offsets")
             off, meta, tiles = mesh_tile_tables(layout, dest, ring_len,
                                                 shards=cl.shards[c])
             self.node_off.append(off)
@@ -328,11 +334,18 @@ class CardTables:
 
     def on_cards(self, cl: CardLayout) -> "CardTables":
         """Upload the tables to the cards (once) and allocate the window
-        buffers: per card its exchange buffer, outbox, double inbox and
-        scalars, two events; on the lead the flush's gather buffers."""
+        buffers: per card its exchange buffer, double inbox and scalars,
+        two events, the table of the other cards' inbox segments it
+        stores into (``peers`` [2, n_cards]: row p, column b the address
+        of card b's inbox half p at this card's segment, 0 at b = c) and
+        its grid; on the lead the flush's gather buffers.  Between
+        distinct CUDA cards, peer access is enabled once for each pair; a
+        pair without it raises ValueError naming it."""
         if self._dev is not None:
             return self
+        _enable_peers(cl)
         dev = []
+        seg, n = self.seg, self.n_cards
         for c, card in enumerate(cl.cards):
             def up(a):
                 return torch.as_tensor(np.ascontiguousarray(a), device=card)
@@ -347,13 +360,20 @@ class CardTables:
                 "cin": up(self.cin[c]),
                 "xbuf": torch.empty(2 * self.xbuf_len[c], dtype=i64,
                                     device=card),
-                "outbox": torch.zeros(self.n_cards * self.seg, dtype=i64,
-                                      device=card),
-                "inbox": torch.zeros((2, self.n_cards * self.seg),
-                                     dtype=i64, device=card),
+                "inbox": torch.zeros((2, n * seg), dtype=i64, device=card),
                 "scalars": torch.zeros(N_SCALARS, dtype=i64, device=card),
                 "events": (torch.cuda.Event(), torch.cuda.Event())
-                if card.type == "cuda" else None})
+                if card.type == "cuda" else None,
+                "grid": _card_grid(card, c, len(self.tiles[c]) - 1,
+                                   cl.share[c])})
+        for c, card in enumerate(cl.cards):
+            peers = np.zeros((2, n), dtype=np.int64)
+            for b in range(n):
+                if b != c:
+                    for p in range(2):
+                        peers[p, b] = dev[b]["inbox"][p].data_ptr() \
+                            + c * seg * 8
+            dev[c]["peers"] = torch.as_tensor(peers, device=card)
         lead = cl.lead
         i64 = torch.int64
         self.gather = {
@@ -396,14 +416,19 @@ def _card_statics(layout: dict, cl: CardLayout, c: int):
 def mesh_span_cards_torch(t0, state, inject, inject_target, targets,
                           idle_ticks, refill, capacity, layout: dict,
                           cl: CardLayout, tables: CardTables):
-    """Plain version of the mesh span over cards: the card entry's windows,
-    exchange and halt written out in torch, each card's arithmetic on its
-    own device (the CPU tests give ``[cpu] * k``).  ``state`` is the
-    7-tuple (queued, ring, tokens, delivered, target, done_tick,
-    node_sent) as :class:`CardSplit` (or global arrays, split here), the
-    injections, ``refill`` and ``capacity`` likewise.  Returns (t_stop,
-    the state as CardSplits, forwards, cross, done_snap, sent_in), the
-    last two per card (the dispatch's entry snapshots).  Pure."""
+    """Plain version of the mesh span over cards: the card entry's launches
+    (:func:`card_launch_plan`), landing, halt and direct stores written out
+    in torch, each card's arithmetic on its own device (the CPU tests give
+    ``[cpu] * k``).  Launch i of card c lands its inbox half (i - 1) & 1,
+    decides the halt at a boundary from its own flag and the other cards'
+    headers there, runs its window, and stores each cell for card b into
+    b's inbox half i & 1 at c's segment, with the header; no outbox, no
+    copy.  ``state`` is the 7-tuple (queued, ring, tokens, delivered,
+    target, done_tick, node_sent) as :class:`CardSplit` (or global arrays,
+    split here), the injections, ``refill`` and ``capacity`` likewise.
+    Returns (t_stop, the state as CardSplits, forwards, cross, done_snap,
+    sent_in), the last two per card (the dispatch's entry snapshots).
+    Pure."""
     i64 = torch.int64
     size = CELL_WIRE_BYTES
     n, L = cl.n_cards, tables.ring_len
@@ -428,7 +453,8 @@ def mesh_span_cards_torch(t0, state, inject, inject_target, targets,
             else st[1].parts[c].clone()
         route = tables.route[c]
         ring_j = [j for j, r in enumerate(route) if r and r[0] != "out"]
-        out_j = [j for j, r in enumerate(route) if r and r[0] == "out"]
+        out_j = [[j for j, r in enumerate(route) if r and r[0] == "out"
+                  and r[1] == b] for b in range(n)]
         cards.append({
             "dev": dev, "q": q, "tg": tg, "tok": tok, "ring": ring,
             "dl": st[3].parts[c].clone(), "dt": st[5].parts[c].clone(),
@@ -443,20 +469,53 @@ def mesh_span_cards_torch(t0, state, inject, inject_target, targets,
             "xsrc": torch.as_tensor(
                 [j for j in ring_j if route[j][0] == "slot"], dtype=i64,
                 device=dev),
-            "osrc": torch.as_tensor(out_j, dtype=i64, device=dev),
-            "opos": torch.as_tensor([route[j][1] * seg + HDR + route[j][2]
-                                     for j in out_j], dtype=i64, device=dev),
+            # per receiving card b: the rows whose successor is on b, and
+            # their cells' positions in c's segment of b's inbox
+            "osrc": [torch.as_tensor(v, dtype=i64, device=dev)
+                     for v in out_j],
+            "opos": [torch.as_tensor([HDR + route[j][2] for j in v],
+                                     dtype=i64, device=cl.cards[b])
+                     for b, v in enumerate(out_j)],
             "cin": torch.as_tensor(tables.cin[c], device=dev),
+            # the double inbox, a half a window parity: [2, n_cards * seg]
+            "inbox": torch.zeros((2, n * seg), dtype=i64, device=dev),
             "fwd_sum": torch.zeros((), dtype=i64, device=dev),
             "cross": torch.zeros((), dtype=i64, device=dev),
-            "done": False})
-    t = int(t0)
+            "done": False, "stopped": False, "t_stop": int(t0)})
     xcard = torch.zeros((), dtype=i64, device=cl.lead)
-    for w0, w1, at_b in card_windows(t0, targets, tables.window):
-        outs = []
-        for cd in cards:
-            dev, zero = cd["dev"], torch.zeros((), dtype=i64, device=cd["dev"])
-            out = torch.zeros(n * seg, dtype=i64, device=dev)
+    for i, (flags, w0, w1, (p0, plen)) in enumerate(card_launch_plan(
+            t0, targets, tables.window)):
+        half = i & 1
+        for c, cd in enumerate(cards):
+            if cd["stopped"]:
+                continue
+            zero = torch.zeros((), dtype=i64, device=cd["dev"])
+            inbox = cd["inbox"][half ^ 1]
+            for a in range(n if flags & LAND else 0):
+                # the previous window's cells from card a into their rows
+                if a == c:
+                    continue
+                assert int(inbox[a * seg]) == plen, "mesh cards: a header"
+                if pw:
+                    live = cd["cin"][a] >= 0
+                    cols = cd["cin"][a][live].to(i64)
+                    cells = inbox[a * seg + HDR:(a + 1) * seg].reshape(-1, pw)
+                    for k in range(plen):
+                        v = cells[k][live]
+                        cd["ring"][(p0 + k) % L][cols] = v.to(cd["ring"].dtype)
+                        cd["cross"] = cd["cross"] + v.sum()
+                        xcard = xcard + v.sum().to(cl.lead)
+            if flags & DECIDE:
+                # the halt at the boundary the previous window ended on
+                halt = cd["done"] or any(bool(inbox[a * seg + 1])
+                                         for a in range(n) if a != c)
+                cd["done"] = False
+                if halt:
+                    cd["stopped"], cd["t_stop"] = True, w0
+                    continue
+            if flags & LAST:
+                cd["t_stop"] = w0
+                continue
             for t in range(w0, w1):
                 q = cd["q"] + cd["ring"][torch.remainder(t - cd["al"], L),
                                          cd["cols"]].to(i64)
@@ -483,37 +542,20 @@ def mesh_span_cards_torch(t0, state, inject, inject_target, targets,
                                                      fwd[cd["src"]])
                 cd["ring"][t % L] = v.to(cd["ring"].dtype)
                 cd["cross"] = cd["cross"] + fwd[cd["xsrc"]].sum()
-                out[cd["opos"] + (t - w0) * pw] = fwd[cd["osrc"]]
+                for b in range(n):
+                    if b != c:
+                        # straight into card b's inbox, c's segment
+                        cards[b]["inbox"][half][
+                            c * seg + cd["opos"][b] + (t - w0) * pw] = \
+                            fwd[cd["osrc"][b]].to(cards[b]["dev"])
                 cd["fwd_sum"] = cd["fwd_sum"] + served.sum()
                 cd["done"] = cd["done"] or bool(newly.any())
-            hdr = out.reshape(n, seg)
-            hdr[:, 0] = w1 - w0
-            hdr[:, 1] = int(cd["done"])
-            outs.append(out)
-        # the exchange: card a's segment for b into b's inbox at a
-        halt = False
-        for b, cd in enumerate(cards):
-            for a in range(n):
-                if a == b:
-                    continue
-                got = outs[a][b * seg:(b + 1) * seg].to(cd["dev"])
-                assert int(got[0]) == w1 - w0
-                halt = halt or bool(got[1])
-                cells = got[HDR:].reshape(-1, pw)[:w1 - w0] if pw else None
-                live = cd["cin"][a] >= 0
-                for k in range(w1 - w0 if pw else 0):
-                    row = cd["ring"][(w0 + k) % L]
-                    row[cd["cin"][a][live].to(i64)] = \
-                        cells[k][live].to(row.dtype)
-                    cd["cross"] = cd["cross"] + cells[k][live].sum()
-                    xcard = xcard + cells[k][live].sum().to(cl.lead)
-        halt = halt or any(cd["done"] for cd in cards)
-        t = w1
-        if at_b:
-            for cd in cards:
-                cd["done"] = False
-            if halt:
-                break
+            for b in range(n):
+                if b != c:
+                    hdr = cards[b]["inbox"][half]
+                    hdr[c * seg] = w1 - w0
+                    hdr[c * seg + 1] = int(cd["done"])
+    t = cards[0]["t_stop"]
     lead = cl.lead
     cl.xcard_cells = xcard if cl.xcard_cells is None \
         else cl.xcard_cells + xcard
@@ -565,28 +607,66 @@ def mesh_span_cards_flush_torch(t0, state, inject, inject_target, targets,
 
 _VP = ctypes.c_void_p
 _I64 = ctypes.c_int64
-_CARD_ARGTYPES = ([_VP] * 22 + [_I64] * 13 + [ctypes.c_int] * 4 + [_VP])
+_CARD_ARGTYPES = ([_VP] * 22 + [_I64] * 13 + [ctypes.c_int] * 6 + [_VP])
+# the ordered pairs of physical cards whose peer access this process
+# enabled (once each)
+_PEERS_ENABLED: set = set()
 
 
-def mesh_span_card(c: int, st: Sequence[torch.Tensor], inject, inject_target,
-                   refill, capacity, tables: CardTables, cl: CardLayout,
-                   t0: int, idle_ticks: int, flags: int, w0: int, w1: int,
-                   prev: Tuple[int, int], inbox: torch.Tensor) -> None:
-    """One launch of csrc/mesh_span.cu's card entry on card ``c`` (which
-    must be current: :func:`ops._build.on_card`), on its current stream,
-    no synchronisation: the window ``[w0, w1)`` of card c's shards (none
-    with LAST), after landing ``inbox`` (the previous window's cells,
-    ``prev`` = (its first tick, its ticks)) with LAND and deciding the
-    halt with DECIDE.  ``st`` is card c's 7 state tensors, updated in
-    place.  Counts ``mesh_span_card.launches``."""
-    card = cl.cards[c]
+def _enable_peers(cl: CardLayout) -> None:
+    """Let every CUDA card of ``cl`` store into every other one's memory
+    (csrc/mesh_span.cu ``mesh_span_enable_peer``), once per ordered pair of
+    distinct physical cards.  Aliased cards share one memory and need
+    none.  A pair without peer access (cudaDeviceCanAccessPeer) raises
+    ValueError naming it: the cells are never staged through the host
+    instead."""
+    phys = sorted({c.index for c in cl.cards if c.type == "cuda"})
+    for a in phys:
+        for b in phys:
+            if a == b or (a, b) in _PEERS_ENABLED:
+                continue
+            rc = _bound("mesh_span", "mesh_span_enable_peer",
+                        [ctypes.c_int, ctypes.c_int])(a, b)
+            if rc == -1:
+                raise ValueError(
+                    f"the mesh over cards: cuda:{a} has no peer access to "
+                    f"cuda:{b} (cudaDeviceCanAccessPeer), and its card entry "
+                    "stores cross-card cells straight into the other card's "
+                    "inbox")
+            if rc != 0:
+                raise RuntimeError(f"enabling peer access from cuda:{a} to "
+                                   f"cuda:{b} failed: CUDA error {rc}")
+            _PEERS_ENABLED.add((a, b))
+
+
+def _card_grid(card: torch.device, c: int, n_tiles: int,
+               share: int) -> Optional[int]:
+    """The card entry's grid on ``card`` (csrc/mesh_span.cu
+    ``mesh_span_card_grid``: its resident blocks over the ``share`` card
+    slots aliasing it, at most ``n_tiles``), sized once; None on the
+    CPU."""
     if card.type != "cuda":
-        raise ValueError(f"mesh_span_card: needs a CUDA card, got {card}")
-    dv = tables.card(c)
+        return None
+    with on_card(card, slot=c):
+        g = _bound("mesh_span", "mesh_span_card_grid",
+                   [_I64, ctypes.c_int])(int(n_tiles), int(share))
+    if g < 1:
+        raise RuntimeError(f"mesh_span card entry: no grid on card {c} "
+                           f"({card}): CUDA error {-g}")
+    return g
+
+
+def check_card_state(c: int, st: Sequence[torch.Tensor], inject,
+                     inject_target, refill, capacity, tables: CardTables,
+                     cl: CardLayout) -> None:
+    """What card c's launches take, checked once a dispatch (the same
+    tensors serve every launch of it): the 7 state tensors, the
+    injections, ``refill`` and ``capacity``, each contiguous, of its
+    dtype and shape, on the card."""
+    card = cl.cards[c]
     lo, hi = cl.rows[c]
     nlo, nhi = cl.nodes[c]
     fc, hc = hi - lo, nhi - nlo
-    i64 = torch.int64
     for name, t, shape in (("queued", st[0], (fc,)), ("tokens", st[2], (hc,)),
                            ("delivered", st[3], (fc,)),
                            ("target", st[4], (fc,)),
@@ -595,12 +675,33 @@ def mesh_span_card(c: int, st: Sequence[torch.Tensor], inject, inject_target,
                            ("inject", inject, (fc,)),
                            ("inject_target", inject_target, (fc,)),
                            ("refill", refill, (hc,)),
-                           ("capacity", capacity, (hc,)),
-                           ("inbox", inbox, (tables.n_cards * tables.seg,))):
-        _check(f"mesh_span_card: {name}", t, i64, shape, card)
+                           ("capacity", capacity, (hc,))):
+        _check(f"mesh_span_card: {name}", t, torch.int64, shape, card)
     _check("mesh_span_card: ring", st[1], RING_TORCH_DTYPE,
            (tables.ring_len, fc), card)
-    snap, sent_in = dv["snap"], dv["sent_in"]
+
+
+def mesh_span_card(c: int, st: Sequence[torch.Tensor], inject, inject_target,
+                   refill, capacity, tables: CardTables, cl: CardLayout,
+                   t0: int, idle_ticks: int, flags: int, w0: int, w1: int,
+                   prev: Tuple[int, int], parity: int) -> None:
+    """One launch of csrc/mesh_span.cu's card entry on card ``c`` (which
+    must be current: :func:`ops._build.on_card`), on its current stream,
+    no synchronisation: the window ``[w0, w1)`` of card c's shards (none
+    with LAST), its cells for other cards stored into their inbox halves
+    ``parity``, after landing its own inbox half ``parity ^ 1`` (the
+    previous window's cells, ``prev`` = (its first tick, its ticks)) with
+    LAND and deciding the halt with DECIDE.  ``st`` is card c's 7 state
+    tensors, updated in place, checked with the other operands by
+    :func:`check_card_state` once a dispatch.  Counts
+    ``mesh_span_card.launches``."""
+    card = cl.cards[c]
+    if card.type != "cuda":
+        raise ValueError(f"mesh_span_card: needs a CUDA card, got {card}")
+    dv = tables.card(c)
+    lo, hi = cl.rows[c]
+    nlo, nhi = cl.nodes[c]
+    fc, hc = hi - lo, nhi - nlo
     stream = torch.cuda.current_stream(card).cuda_stream
     rc = _bound("mesh_span", "mesh_span_card_launch", _CARD_ARGTYPES)(
         st[0].data_ptr(), st[1].data_ptr(), st[2].data_ptr(),
@@ -608,13 +709,14 @@ def mesh_span_card(c: int, st: Sequence[torch.Tensor], inject, inject_target,
         st[6].data_ptr(), inject.data_ptr(), inject_target.data_ptr(),
         dv["meta"].data_ptr(), dv["tiles"].data_ptr(),
         dv["node_off"].data_ptr(), dv["xin"].data_ptr(), refill.data_ptr(),
-        capacity.data_ptr(), dv["scalars"].data_ptr(), snap.data_ptr(),
-        sent_in.data_ptr(), dv["xbuf"].data_ptr(), dv["outbox"].data_ptr(),
-        inbox.data_ptr(), dv["cin"].data_ptr(), fc, hc,
-        len(tables.tiles[c]) - 1, tables.ring_len, int(t0), int(idle_ticks),
-        tables.xbuf_len[c], tables.pw, tables.seg, int(w0), int(w1),
-        int(prev[0]), int(prev[1]), tables.n_cards, c, int(flags),
-        cl.share[c], stream)
+        capacity.data_ptr(), dv["scalars"].data_ptr(), dv["snap"].data_ptr(),
+        dv["sent_in"].data_ptr(), dv["xbuf"].data_ptr(),
+        dv["peers"].data_ptr(), dv["inbox"][parity ^ 1].data_ptr(),
+        dv["cin"].data_ptr(), fc, hc, len(tables.tiles[c]) - 1,
+        tables.ring_len, int(t0), int(idle_ticks), tables.xbuf_len[c],
+        tables.pw, tables.seg, int(w0), int(w1), int(prev[0]), int(prev[1]),
+        tables.n_cards, c, int(flags), int(parity), tables.shift, dv["grid"],
+        stream)
     if rc != 0:
         raise RuntimeError(f"mesh_span card entry launch failed on card {c} "
                            f"({card}): CUDA error {rc} (F={fc}, H={hc}, "
@@ -651,10 +753,10 @@ def mesh_span_cards(t0, state, inject, inject_target, targets, idle_ticks,
                     cap_chains: Optional[int] = None,
                     cap_nodes: Optional[int] = None):
     """The mesh span over cards on CUDA cards: per window, one card-entry
-    launch a card on the card's stream, then each card's outbox segments
-    copied into the other cards' inboxes (peer copies, non-blocking), the
-    next launches waiting on CUDA events; every window enqueued up front,
-    no host sync.  Then each card's state goes to the lead card and the
+    launch a card on the card's stream, which stores its cells for the
+    other cards straight into their inboxes, the next launches waiting on
+    CUDA events; every window enqueued up front, no copy and no host sync
+    between them.  Then each card's state goes to the lead card and the
     mesh entry of csrc/pack_flush.cu packs the flush there.  ``state``
     (the 7-tuple), the injections, ``refill`` and ``capacity`` are
     :class:`CardSplit` or global arrays (split here; an injection from
@@ -690,28 +792,28 @@ def mesh_span_cards(t0, state, inject, inject_target, targets, idle_ticks,
                 for a in (inject, inject_target)))
     plan = card_launch_plan(int(t0), tv, tables.window)
     cl.windows += len(plan) - 1
-    cl.copy_bytes += (len(plan) - 1) * n * (n - 1) * tables.seg * 8
+    cl.peer_bytes += sum(HDR + (w1 - w0) * tables.pw
+                         for _f, w0, w1, _p in plan[:-1]) * n * (n - 1) * 8
+    for c in range(n):
+        with on_card(cl.cards[c], cl.streams[c], slot=c):
+            check_card_state(c, [a.parts[c] for a in st], *injs[c],
+                             rf.parts[c], cap.parts[c], tables, cl)
     for i, (flags, w0, w1, prev) in enumerate(plan):
         for c, card in enumerate(cl.cards):
             s = cl.streams[c]
             dv = tables.card(c)
             with on_card(card, s, slot=c):
                 if i:
+                    # every other card's launch i - 1 is in: its landing,
+                    # the last read of the inbox half this launch stores
+                    # into, and its stores into this card's other half
                     for b in range(n):
                         if b != c:
                             s.wait_event(tables.card(b)["events"][(i - 1) & 1])
                 mesh_span_card(c, [a.parts[c] for a in st], *injs[c],
                                rf.parts[c], cap.parts[c], tables, cl, t0,
-                               idle_ticks, flags, w0, w1, prev,
-                               dv["inbox"][(i - 1) & 1])
+                               idle_ticks, flags, w0, w1, prev, i & 1)
                 if not flags & LAST:
-                    seg = tables.seg
-                    for b in range(n):
-                        if b != c:
-                            tables.card(b)["inbox"][i & 1][
-                                c * seg:(c + 1) * seg].copy_(
-                                dv["outbox"][b * seg:(b + 1) * seg],
-                                non_blocking=True)
                     dv["events"][i & 1].record(s)
     # the flush: every card's state to the lead card
     g = tables.gather

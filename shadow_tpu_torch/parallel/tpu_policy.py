@@ -182,6 +182,15 @@ class _TPUBatchMixin:
                 self._kernel = PacketHopKernel(
                     topo, engine._drop_key, engine.bootstrap_end, device,
                     device_threshold=threshold)
+            if threshold > 0:
+                # the bypass the user asked for by name, said once a run;
+                # the scrape's policy.host_calls and policy.device_calls
+                # count its batches
+                get_logger().message(
+                    "tpu", f"--tpu-device-threshold {threshold}: hop batches "
+                    f"of fewer than {threshold} packets go through the "
+                    f"host's numpy hop, the rest through the kernel on "
+                    f"{device}")
             engine.metrics.source("hop", _hop_source(device))
             if self._chunk is None:
                 self._chunk = getattr(opts, "tpu_chunk", 0)
@@ -235,12 +244,19 @@ class _TPUBatchMixin:
         per shape (one nvcc build serves every batch size); the launches
         allocate each bucket's pinned buffers and the device's first-use
         state, so benches and long runs keep that out of the measured
-        loop."""
+        loop.  A bucket that lies wholly below --tpu-device-threshold never
+        reaches the card and is skipped, as in the JAX package."""
         from ..ops.round_step import MIN_BUCKET, bucket_size
         kernel = self._ensure_kernel(engine)
+        if kernel.DEVICE_THRESHOLD and max_batch < kernel.DEVICE_THRESHOLD:
+            return
         b = MIN_BUCKET
         while b <= bucket_size(max_batch):
-            n = b // 2 + 1          # the smallest batch of bucket b
+            # the smallest batch of bucket b that clears the bypass
+            n = max(b // 2 + 1, kernel.DEVICE_THRESHOLD)
+            if n > b:
+                b <<= 1
+                continue
             dummy_rows = np.zeros(n, dtype=np.int32)
             kernel.launch(dummy_rows, dummy_rows,
                           np.zeros(n, dtype=np.uint64),

@@ -1,17 +1,21 @@
 """The mesh spread over several cards (parallel/mesh/cards.py), held to the
 JAX package's mesh on its 8 virtual XLA devices, on the CPU.
 
-* The card entry's schedule restated in numpy (:func:`restate`): each card
-  runs its own shards alone for a lookahead window of W ticks, its
-  cross-card cells written into an outbox row a tick, landed into their
-  ring rows ``(w0 + k) mod L`` before the next window; windows end at the
-  targets boundaries, where the halt is the OR over cards.  At W = 1, W
-  > 1 (the layout's own), a boundary that cuts a window short with a halt
-  on it, an idle fold, a masked leg and 'none', and 8 shards over 2 and 4
-  cards: equal to the port's one-card plain mesh and to JAX's
-  ``make_mesh_span_flush``, bit for bit.
-* The plain over-cards step (``device_mesh(..., cards=[cpu] * k)``) on the
-  same cases, against the same.
+* The card entry's schedule restated in numpy (:func:`restate`): launch
+  by launch (``card_launch_plan``) each card runs its own shards alone for
+  a lookahead window of W ticks, its cross-card cells stored straight into
+  the receiving card's inbox half of the launch's parity, and lands its
+  other half into the ring rows ``(w0 + k) mod L`` at its next launch;
+  windows end at the targets boundaries, where the halt is a card's own
+  flag OR the other cards' headers.  At W = 1, W > 1 (the layout's own), a
+  boundary that cuts a window short with a halt on it, an idle fold, a
+  masked leg and 'none', and 8 shards over 2 and 4 cards: equal to the
+  port's one-card plain mesh and to JAX's ``make_mesh_span_flush``, bit
+  for bit.
+* The plain over-cards step (``device_mesh(..., cards=[cpu] * k)``, the
+  direct-store plain version) on the same cases, against the same; and
+  with targets on the last card only, a halt every other card decides
+  from that card's header, over 2 and 4 cards at W and at W = 1.
 * The sharded hop over ``[cpu] * k``, batch- and row-sharded, against JAX's
   ``ShardedPacketHopKernel`` (``_make_batch_sharded_2out``,
   ``_make_matrix_sharded_hop_step``); no card's row slice holds all A
@@ -93,12 +97,14 @@ def _leg_mask(lay, masked):
 
 def restate(lay, ring_len, n_cards, window, t0, state, inject,
             inject_target, targets, idle, mode, leg_mask):
-    """The card entry's dispatch in numpy: per card, per window, the
-    card's own rows tick by tick (a successor on the card written into the
-    card's ring row t mod L, counted into ``cross`` when it is on another
-    shard; one on another card written into the outbox row of the tick);
-    then every outbox landed into its receiving card's ring rows; at a
-    boundary the OR over cards halts.  Returns (t_stop, the 7 state
+    """The card entry's dispatch in numpy, launch by launch: card c's
+    launch i lands the cells its inbox half (i - 1) & 1 holds (each into
+    its ring row), decides the halt at a boundary from its own flag and
+    the other cards' headers there, then runs its own rows tick by tick (a
+    successor on the card written into the card's ring row t mod L,
+    counted into ``cross`` when it is on another shard; one on another
+    card stored into that card's inbox half i & 1) and writes its header
+    into every other card's half i & 1.  Returns (t_stop, the 7 state
     arrays, forwards, cross) in the global layout."""
     sched = lay["exchange"]
     pad, hp = int(lay["pad"]), int(lay["h_pad"])
@@ -137,11 +143,31 @@ def restate(lay, ring_len, n_cards, window, t0, state, inject,
             "dl": state[3][rows].copy(),
             "tg": state[4][rows] + inject_target[rows],
             "dt": state[5][rows].copy(), "ns": state[6][nodes].copy(),
-            "cap": cap, "rf": rf, "fwd_sum": 0, "cross": 0, "done": False})
-    t = int(t0)
-    for w0, w1, at_b in tcards.card_windows(t0, targets, window):
-        outbox = []                       # (tick, receiving row, cells)
-        for cd in cards:
+            "cap": cap, "rf": rf, "fwd_sum": 0, "cross": 0, "done": False,
+            # per half: the stored cells (tick, receiving row, cell) and
+            # the other cards' header flags
+            "inbox": [[], []], "hdr": [{}, {}], "stopped": False,
+            "t_stop": int(t0)})
+    plan = tcards.card_launch_plan(t0, targets, window)
+    for i, (flags, w0, w1, _prev) in enumerate(plan):
+        half = i & 1
+        for c, cd in enumerate(cards):
+            if cd["stopped"]:
+                continue
+            if flags & tcards.LAND:
+                for t_sent, dst, v in cd["inbox"][half ^ 1]:
+                    cd["ring"][t_sent % L, dst - cd["lo"]] = v
+                    cd["cross"] += v
+                cd["inbox"][half ^ 1] = []
+            if flags & tcards.DECIDE:
+                halt = cd["done"] or any(cd["hdr"][half ^ 1].values())
+                cd["done"] = False
+                if halt:
+                    cd["stopped"], cd["t_stop"] = True, w0
+                    continue
+            if flags & tcards.LAST:
+                cd["t_stop"] = w0
+                continue
             f = len(cd["rows"])
             for t in range(w0, w1):
                 q = cd["q"] + cd["ring"][(t - cd["al"]) % L, np.arange(f)]
@@ -174,24 +200,16 @@ def restate(lay, ring_len, n_cards, window, t0, state, inject,
                         row[dst - cd["lo"]] = v
                         if shard[dst] != shard[j]:
                             cd["cross"] += v
-                    else:
-                        outbox.append((t, dst, v))
+                    else:   # straight into the receiving card's inbox
+                        cards[card[dst]]["inbox"][half].append((t, dst, v))
                 cd["ring"][t % L] = row
-        for t_sent, dst, v in outbox:     # the landing
-            cd = cards[card[dst]]
-            cd["ring"][t_sent % L, dst - cd["lo"]] = v
-            cd["cross"] += v
-        t = w1
-        if at_b:
-            halt = any(cd["done"] for cd in cards)
-            for cd in cards:
-                cd["done"] = False
-            if halt:
-                break
+            for b, other in enumerate(cards):
+                if b != c:
+                    other["hdr"][half][c] = cd["done"]
     out = [np.concatenate([cd[k] for cd in cards], axis=-1)
            for k in ("q", "ring", "tok", "dl", "tg", "dt", "ns")]
     out[1] = out[1].astype(RING_DTYPE)
-    return (t, *out, sum(cd["fwd_sum"] for cd in cards),
+    return (cards[0]["t_stop"], *out, sum(cd["fwd_sum"] for cd in cards),
             sum(cd["cross"] for cd in cards))
 
 
@@ -282,6 +300,70 @@ def test_plain_over_cards_equals_the_mesh_and_jax(toy, references, n_cards,
     # each card holds its own rows only
     assert [p.shape[-1] for p in out[1].parts] == \
         [hi - lo for lo, hi in step.cards.rows]
+
+
+@pytest.fixture(scope="module")
+def last_card_targets(toy):
+    """Per card count k in (2, 4): the toy's dispatches with a target on
+    the chains whose last stage lies on the last card only, so a halt is
+    decided on every other card from that card's segment headers; and the
+    one-card plain mesh's and JAX's outputs of them (fused)."""
+    lay = toy["lay"]
+    pad = int(lay["pad"])
+    out = {}
+    for k in (2, 4):
+        rows = np.arange(len(lay["src"]))
+        on_last = (rows // pad) * k // D == k - 1
+        target = np.where(on_last, toy["injects"][0][1], 0)
+        injects = ((toy["injects"][0][0], target),) + toy["injects"][1:]
+        tstep = tex.make_mesh_span_flush(
+            device_mesh(D, device="cpu"), "flows", toy["L"], lay,
+            toy["last"], lay["node_src"], toy["h"], mode="fused")
+        jstep = jex.make_mesh_span_flush(
+            jdevice_mesh(D, axis_names=("flows",)), "flows", toy["L"], lay,
+            toy["last"], lay["node_src"], toy["h"], mode="fused")
+        port, ref = [], []
+        a = (0,) + tuple(torch.as_tensor(x) for x in toy["state0"])
+        b = (np.int64(0),) + tuple(jnp.asarray(x) for x in toy["state0"])
+        for (tv, idle), inj in zip(DISPATCHES, injects):
+            a = tstep(int(a[0]), *a[1:8], torch.as_tensor(inj[0]),
+                      torch.as_tensor(inj[1]), tv, idle, *_statics(lay))
+            b = jstep(*b[:8], *inj, tv, np.int64(idle), *_statics(lay))
+            port.append([np.asarray(x) for x in a])
+            ref.append([np.asarray(x) for x in b])
+        out[k] = (injects, on_last, port, ref)
+    return out
+
+
+@pytest.mark.parametrize("window", [None, 1])
+@pytest.mark.parametrize("n_cards", [2, 4])
+def test_halt_decided_from_another_cards_header(toy, last_card_targets,
+                                                n_cards, window):
+    """The direct-store plain version over 2 and 4 CPU "cards", at the
+    layout's W and at W = 1, where only the last card's chains complete:
+    each other card halts on the boundary from the last card's header in
+    its inbox, and every output equals the one-card plain mesh's and
+    JAX's, bit for bit, over the three chained dispatches."""
+    lay = toy["lay"]
+    injects, on_last, port, ref = last_card_targets[n_cards]
+    step = tex.make_mesh_span_flush(
+        device_mesh(D, device="cpu", cards=["cpu"] * n_cards), "flows",
+        toy["L"], lay, toy["last"], lay["node_src"], toy["h"], mode="fused",
+        max_window=window)
+    out = (0,) + tuple(torch.as_tensor(x) for x in toy["state0"])
+    halted = []
+    for k, ((tv, idle), inj) in enumerate(zip(DISPATCHES, injects)):
+        out = step(int(out[0]), *out[1:8], torch.as_tensor(inj[0]),
+                   torch.as_tensor(inj[1]), tv, idle, *_statics(lay))
+        for i in range(10):
+            np.testing.assert_array_equal(np.asarray(out[i]), port[k][i],
+                                          err_msg=f"dispatch {k} output {i}")
+            np.testing.assert_array_equal(np.asarray(out[i]), ref[k][i],
+                                          err_msg=f"dispatch {k} output {i}")
+        halted.append(int(out[0]) < int(tv[-1]))
+    done = np.asarray(out[6]) >= 0
+    assert done.any() and not (done & ~on_last).any()
+    assert halted[1], "a completion on the last card halts every card"
 
 
 def test_windows_cut_at_every_boundary():
@@ -388,7 +470,10 @@ def test_every_card_launches_with_its_card_current(toy, monkeypatch):
     """mesh_span_cards's schedule with a stand-in for the card entry (and
     for the flush, which needs a card): each launch runs inside on_card
     with its own card current, the cards' launches window by window, as
-    many as the plan has, and the inbox copies between them."""
+    many as the plan has, launch i storing into the inbox halves i & 1;
+    no copy runs between them (the stand-in stores nothing, and every
+    inbox stays as it was), and each card's table of the other cards'
+    inbox segments is where its launches store."""
     lay = toy["lay"]
     n = 4
     step = tex.make_mesh_span_flush(
@@ -405,9 +490,8 @@ def test_every_card_launches_with_its_card_current(toy, monkeypatch):
     seen = []
 
     def stand_in(c, st, *args):
-        flags, w0 = args[8], args[9]
-        seen.append((c, _build.current_card(), flags, w0))
-        tables.card(c)["outbox"].fill_(c + 1)
+        flags, w0, parity = args[8], args[9], args[12]
+        seen.append((c, _build.current_card(), flags, w0, parity))
     monkeypatch.setattr(tcards, "mesh_span_card", stand_in)
     monkeypatch.setattr(tcards, "mesh_pack_flush",
                         lambda *a, **k: torch.zeros(3, dtype=torch.int64))
@@ -423,18 +507,19 @@ def test_every_card_launches_with_its_card_current(toy, monkeypatch):
     assert len(seen) == len(plan) * n
     for i, (flags, w0, _w1, _p) in enumerate(plan):
         for c in range(n):
-            got_c, (slot, card), got_flags, got_w0 = seen[i * n + c]
+            got_c, (slot, card), got_flags, got_w0, parity = seen[i * n + c]
             assert (got_c, slot, card) == (c, c, CPU)
-            assert (got_flags, got_w0) == (flags, w0)
+            assert (got_flags, got_w0, parity) == (flags, w0, i & 1)
     assert _build.current_card() is None
-    # the last windows' copies: card a's segment for b in b's inbox at a
     seg = tables.seg
-    half = (len(plan) - 2) & 1
-    for b in range(n):
-        inbox = tables.card(b)["inbox"][half]
-        for a in range(n):
-            if a != b:
-                assert bool((inbox[a * seg:(a + 1) * seg] == a + 1).all())
+    for c in range(n):
+        assert not bool(tables.card(c)["inbox"].any())
+        peers = tables.card(c)["peers"]
+        for b in range(n):
+            for p in range(2):
+                want = 0 if b == c else \
+                    tables.card(b)["inbox"][p].data_ptr() + c * seg * 8
+                assert int(peers[p, b]) == want
 
 
 def test_check_tensor_refuses_another_card(monkeypatch):
@@ -452,6 +537,49 @@ def test_check_tensor_refuses_another_card(monkeypatch):
     with _build.on_card(CPU, slot=3):
         assert _build.current_card() == (3, CPU)
     assert _build.current_card() is None
+
+
+def test_peer_access_enabled_once_a_pair_and_refused_loudly(monkeypatch):
+    """``_enable_peers`` asks the C entry once for each ordered pair of
+    distinct physical cards, remembers the pairs it enabled, names a pair
+    without peer access in a ValueError and a CUDA error in a
+    RuntimeError; aliased cards ask for nothing."""
+    import types
+    calls, rcs = [], []
+
+    def bound(lib, name, argtypes):
+        assert (lib, name) == ("mesh_span", "mesh_span_enable_peer")
+
+        def enable(a, b):
+            calls.append((a, b))
+            return rcs.pop(0)
+        return enable
+    monkeypatch.setattr(tcards, "_bound", bound)
+    monkeypatch.setattr(tcards, "_PEERS_ENABLED", set())
+
+    def layout(*idx):
+        return types.SimpleNamespace(
+            cards=tuple(torch.device("cuda", i) for i in idx))
+    rcs[:] = [-1]
+    with pytest.raises(ValueError, match=r"cuda:0 has no peer access to "
+                                         r"cuda:1"):
+        tcards._enable_peers(layout(0, 1))
+    assert calls == [(0, 1)] and not tcards._PEERS_ENABLED
+    calls.clear()
+    rcs[:] = [0, 0]
+    tcards._enable_peers(layout(0, 1))
+    assert calls == [(0, 1), (1, 0)]
+    assert tcards._PEERS_ENABLED == {(0, 1), (1, 0)}
+    calls.clear()
+    tcards._enable_peers(layout(1, 0, 1))
+    tcards._enable_peers(layout(0, 0, 0))
+    assert calls == []
+    rcs[:] = [0, 2]
+    with pytest.raises(RuntimeError, match=r"cuda:1 to cuda:2 failed: "
+                                           r"CUDA error 2"):
+        tcards._enable_peers(layout(0, 1, 2))
+    assert calls == [(0, 2), (1, 2)]
+    assert tcards._PEERS_ENABLED == {(0, 1), (1, 0), (0, 2)}
 
 
 def test_fuzz_mesh_mode_over_cards_equals_one_device():
