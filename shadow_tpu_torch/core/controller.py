@@ -19,6 +19,7 @@ before any simulation work; they never quietly take another path
 from __future__ import annotations
 
 import os
+import time as _walltime
 from typing import Dict, List, Optional
 
 from ..apps import registry as app_registry
@@ -74,8 +75,15 @@ class Controller:
         native_build.ensure_tally()
         self.options = options
         self.config = config
+        t0 = _walltime.perf_counter()
         self.topology = self._load_topology()
+        t1 = _walltime.perf_counter()
         self.engine = Engine(options, self.topology)
+        # the run's tracer exists from here: the topology's span goes into
+        # it, not into the process's tracer of before
+        if self.engine.tracer.enabled:
+            self.engine.tracer.complete("boot.topology", "boot", t0, t1,
+                                        None, None)
         self._program_paths: Dict[str, str] = {}
 
     def _load_topology(self) -> Topology:
@@ -165,21 +173,22 @@ class Controller:
             self._program_paths[prog.id] = prog.path
 
         from ..scale.memprof import BootProfile
-        profile = BootProfile()
-        profile.snapshot()
-        if self._table_mode():
-            self._setup_table_hosts()
-        else:
-            self._setup_eager_hosts()
-        profile.commit(self.engine.total_host_count())
-        profile.install(self.engine)
-        self.topology.finalize()
-        # the C data plane (parallel/native_plane.py): TCP/UDP pipeline +
-        # interfaces + router + hop execute natively for eligible serial
-        # runs; Python keeps the control plane.  No-op (with a logged
-        # reason) when ineligible in auto mode.
-        from ..parallel.native_plane import attach as attach_native
-        attach_native(self.engine)
+        with self.engine.tracer.span("boot.hosts", "boot"):
+            profile = BootProfile()
+            profile.snapshot()
+            if self._table_mode():
+                self._setup_table_hosts()
+            else:
+                self._setup_eager_hosts()
+            profile.commit(self.engine.total_host_count())
+            profile.install(self.engine)
+            self.topology.finalize()
+            # the C data plane (parallel/native_plane.py): TCP/UDP
+            # pipeline + interfaces + router + hop execute natively for
+            # eligible serial runs; Python keeps the control plane.  No-op
+            # (with a logged reason) when ineligible in auto mode.
+            from ..parallel.native_plane import attach as attach_native
+            attach_native(self.engine)
 
     def _setup_eager_hosts(self) -> None:
         """The classic boot path: one Host object per quantity expansion."""

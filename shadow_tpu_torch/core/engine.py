@@ -581,7 +581,8 @@ class Engine:
         from ..routing import packet as packet_mod
         packet_mod.AUDIT_STATUSES = log.would_log("debug")
         self.sim_start_wall = _walltime.monotonic()
-        self.schedule_boot()
+        with self.tracer.span("boot.schedule", "boot"):
+            self.schedule_boot()
         # The hot loop allocates millions of short-lived Events/Packets that
         # die by refcount; cyclic GC passes over them are pure overhead (the
         # few true cycles — e.g. TCP parent/child links — are reclaimed by
@@ -610,35 +611,39 @@ class Engine:
             # post-mortem timeline is exactly what the flight recorder
             # exists to preserve (the success path exports in _obs_finish)
             self._obs_emergency()
+            self.tracer.end_run()
             raise
         finally:
             if gc_was_enabled:
                 gc.enable()
                 gc.unfreeze()
                 gc.collect()
-        self._running = False
-        if self.device_plane is not None:
-            # fold every pending device-plane byte delta so post-run
-            # readers see final tracker totals
-            self.device_plane.flush_all_trackers()
-        if self.native_plane is not None:
-            # post-run reads (tests, tools, digests) see the Python tracker
-            # objects; the authoritative counts accumulated in C — fetched
-            # with ONE bulk C call for all hosts, not 10k round trips
-            with self.native_plane.bulk_sync():
-                for host in self.hosts.values():
-                    self.native_plane.sync_tracker(host.id, host.tracker)
-        # teardown: hosts (and their descriptors) are reclaimed here
-        for host in self.hosts.values():
-            # dict.fromkeys: dedupe multi-IP interfaces in insertion order
-            # (set iteration order varies run-to-run — SIM003)
-            for iface in dict.fromkeys(host.interfaces.values()):
-                if iface.pcap is not None:
-                    iface.pcap.close()
-            self.counters.count_free("host")
-        if self.host_table is not None:
-            # never-materialized rows: balance the host ledger in bulk
-            self.host_table.close_counters()
+        with self.tracer.span("teardown", "engine"):
+            self._running = False
+            if self.device_plane is not None:
+                # fold every pending device-plane byte delta so post-run
+                # readers see final tracker totals
+                self.device_plane.flush_all_trackers()
+            if self.native_plane is not None:
+                # post-run reads (tests, tools, digests) see the Python
+                # tracker objects; the authoritative counts accumulated in
+                # C — fetched with ONE bulk C call for all hosts, not 10k
+                # round trips
+                with self.native_plane.bulk_sync():
+                    for host in self.hosts.values():
+                        self.native_plane.sync_tracker(host.id,
+                                                       host.tracker)
+            # teardown: hosts (and their descriptors) are reclaimed here
+            for host in self.hosts.values():
+                # dict.fromkeys: dedupe multi-IP interfaces in insertion
+                # order (set iteration order varies run-to-run — SIM003)
+                for iface in dict.fromkeys(host.interfaces.values()):
+                    if iface.pcap is not None:
+                        iface.pcap.close()
+                self.counters.count_free("host")
+            if self.host_table is not None:
+                # never-materialized rows: balance the host ledger in bulk
+                self.host_table.close_counters()
         log.flush()
         leaks = self.counters.leaks()
         if self.device_plane is not None:
@@ -663,6 +668,7 @@ class Engine:
         if leaks:
             log.message("engine", self.counters.report())
         self._obs_finish()
+        self.tracer.end_run()
         log.flush()
         return 1 if self.plugin_errors else 0
 

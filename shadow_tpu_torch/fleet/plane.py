@@ -56,10 +56,13 @@ a fallback.
 from __future__ import annotations
 
 import threading
+import time as _walltime
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..obs.trace import get_tracer
 
 
 def _pow2(n: int) -> int:
@@ -180,10 +183,11 @@ class _ShapeClass:
 class _Submit:
     """One lane's staged dispatch: its real-shaped state rows, injections
     (numpy, or None for none), padded targets and idle ticks, filled in
-    with its result row (or an error) by the launching thread."""
+    with its result row (or an error) and the perf_counter at which its
+    batch's launch began by the launching thread."""
 
     __slots__ = ("lane", "state", "inject", "inject_target", "tvec", "idle",
-                 "result", "error")
+                 "result", "error", "t_launch")
 
     def __init__(self, lane: "FleetLane", state: tuple, inject,
                  inject_target, tvec: np.ndarray, idle: int):
@@ -195,6 +199,7 @@ class _Submit:
         self.idle = idle
         self.result: Optional[tuple] = None
         self.error: Optional[BaseException] = None
+        self.t_launch = 0.0
 
 
 class FleetLane:
@@ -349,12 +354,17 @@ class FleetPlane:
             self._maybe_launch_locked()
 
     def _submit(self, sub: _Submit) -> None:
+        tracer = get_tracer()
+        t_park = _walltime.perf_counter() if tracer.enabled else None
         with self._cv:
             self._pending.append(sub)
             self.lane_dispatches += 1
             self._maybe_launch_locked()
             while sub.result is None and sub.error is None:
                 self._cv.wait()
+        if t_park is not None:
+            tracer.complete("fleet.wait", "fleet", t_park, sub.t_launch,
+                            None, None)
 
     def _maybe_launch_locked(self) -> None:
         """Launch when every live lane is parked (lock held on entry and
@@ -365,6 +375,9 @@ class FleetPlane:
             return
         batch, self._pending = self._pending, []
         self._launching = True
+        t_launch = _walltime.perf_counter()
+        for sub in batch:
+            sub.t_launch = t_launch
         self._cv.release()
         try:
             self._run_batch(batch)
@@ -447,6 +460,8 @@ class FleetPlane:
 
     def _launch_class(self, cls: _ShapeClass, subs: List[_Submit]) -> None:
         import contextlib
+        tracer = get_tracer()
+        t_start = _walltime.perf_counter() if tracer.enabled else None
         width = max(cls.width, _pow2(len(subs)))
         ctx = contextlib.ExitStack()
         if self._stream is not None:
@@ -478,6 +493,10 @@ class FleetPlane:
             # are in its header); waits for the launch to finish
             # simjit: disable=SIM302 -- the fleet's designed collect: a fleet launch returns with its lanes' flush, one copy back a launch
             flush = out[9].cpu().numpy()
+        if t_start is not None:
+            tracer.complete("fleet.launch", "fleet", t_start,
+                            _walltime.perf_counter(), None,
+                            {"lanes": len(subs), "width": width})
         with self._cv:
             cls.width = width
             if (cls.key, width) not in self._compiled:

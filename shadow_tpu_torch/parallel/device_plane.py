@@ -94,6 +94,7 @@ from ..core import stime
 from ..core.event import Event
 from ..core.task import Task
 from ..core.logger import get_logger
+from ..obs.trace import get_tracer
 
 TICK_NS = 1_000_000          # 1 ms, = the interface refill interval
 
@@ -757,7 +758,8 @@ class DeviceTrafficPlane:
                  np.full(f, -1, dtype=np.int64),                   # done_tick
                  np.zeros(h, dtype=np.int64))                      # node_sent
         if self.mode == "device":
-            state = self._to_device(state)
+            with get_tracer().span("boot.plane.upload", "boot"):
+                state = self._to_device(state)
         self._state = state
         self._flow_args_cached = None
         self._zero_inject_cached = None
@@ -948,10 +950,11 @@ class DeviceTrafficPlane:
                     self.last_flow)
             if self.mode == "device":
                 from ..ops.torcells_device import SpanTables
-                args = self._to_device((0,) + args)[1:]
-                self._span_tables = SpanTables(
-                    args[0], args[1], args[2], args[3], self.n_nodes,
-                    self.ring_len)
+                with get_tracer().span("boot.plane.upload", "boot"):
+                    args = self._to_device((0,) + args)[1:]
+                    self._span_tables = SpanTables(
+                        args[0], args[1], args[2], args[3], self.n_nodes,
+                        self.ring_len)
             self._flow_args_cached = args
         return self._flow_args_cached
 
@@ -2014,31 +2017,36 @@ def build_plane_from_engine(engine, mode: str = "device"):
     configs (scale tier); returns a DeviceTrafficPlane or None if the
     workload has none.  The scan goes through engine.iter_process_specs so
     deferred table rows contribute identical specs to live Hosts."""
-    specs = []
-    for _hid, host_name, app, args in engine.iter_process_specs():
-        spec = None
-        if app.endswith("tor"):
-            spec = parse_device_client(host_name, args)
-        elif app.endswith("tgen"):
-            spec = parse_device_tgen(host_name, args)
-        if spec is not None:
-            specs.append(spec)
-    table = getattr(engine, "host_table", None)
-    if table is not None and table.flows:
-        from ..apps.tor import PAYLOAD_MAX
-        for (_row, route_down, route_up, down_bytes, up_bytes,
-             start_ns) in table.flows:
-            client = route_down[-1]
-            s = _FlowSpec(client, list(route_down), list(route_up),
-                          max(1, math.ceil(down_bytes / PAYLOAD_MAX)),
-                          math.ceil(up_bytes / PAYLOAD_MAX) if up_bytes
-                          else 0, dest=route_down[0])
-            s.auto_start_ns = int(start_ns)
-            specs.append(s)
-    if not specs:
-        return None
-    resolve_auto_routes(engine, specs)
-    plane = DeviceTrafficPlane(engine, specs, mode=mode)
+    with get_tracer().span("boot.plane.scan", "boot"):
+        specs = []
+        for _hid, host_name, app, args in engine.iter_process_specs():
+            spec = None
+            if app.endswith("tor"):
+                spec = parse_device_client(host_name, args)
+            elif app.endswith("tgen"):
+                spec = parse_device_tgen(host_name, args)
+            if spec is not None:
+                specs.append(spec)
+        table = getattr(engine, "host_table", None)
+        if table is not None and table.flows:
+            from ..apps.tor import PAYLOAD_MAX
+            for (_row, route_down, route_up, down_bytes, up_bytes,
+                 start_ns) in table.flows:
+                client = route_down[-1]
+                s = _FlowSpec(client, list(route_down), list(route_up),
+                              max(1, math.ceil(down_bytes / PAYLOAD_MAX)),
+                              math.ceil(up_bytes / PAYLOAD_MAX) if up_bytes
+                              else 0, dest=route_down[0])
+                s.auto_start_ns = int(start_ns)
+                specs.append(s)
+        if not specs:
+            return None
+        resolve_auto_routes(engine, specs)
+    # the layout and the rest of the construction (a fleet lane's tables
+    # padded and put on the lane's card included); a single plane's state
+    # and tables go to the card at its first activation (boot.plane.upload)
+    with get_tracer().span("boot.plane.layout", "boot"):
+        plane = DeviceTrafficPlane(engine, specs, mode=mode)
     get_logger().message(
         "device-plane",
         f"device traffic plane: {len(specs)} circuits, "

@@ -3,9 +3,10 @@
 The port twin of ``tests/test_obs.py``'s determinism and parity gates: two
 identically seeded device-plane runs of the port on the CPU (a small Tor
 network with device-mode clients) write the same sim-time trace stream,
-wall fields excluded, with the engine, device and plugin spans in it; and
-observability on and off leaves the state digest unchanged.  The port's
-stream is also held to the JAX package's on the same run.
+wall fields excluded, with the engine, device, plugin and boot spans in
+it; and observability on and off leaves the state digest unchanged.  The
+port's stream is also held to the JAX package's on the same run, less the
+boot and teardown spans the JAX package does not record.
 """
 
 import importlib
@@ -47,15 +48,25 @@ def _run_device(tmp_path, tag, stop=60, seed=3, trace=True, metrics=True,
     return ctrl, tp
 
 
+# events the wall clock decides: the wall-gated engine heartbeat and the
+# garbage collector's pauses
+WALL_EVENTS = ("engine.heartbeat", "gc")
+
+
+def _port_only(name):
+    """The spans the port records and the JAX package does not."""
+    return name.startswith("boot.") or name == "teardown"
+
+
 def _sim_stream(path):
     """Per-track ordered (name, cat, ph, sim_ns) tuples: every wall field
-    excluded, and the wall-clock-gated engine heartbeat dropped."""
+    excluded, and the events the wall clock decides dropped."""
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     return [(e["pid"], e["tid"], e["name"], e["cat"], e["ph"],
              e.get("args", {}).get("sim_ns"))
             for e in events
-            if e.get("ph") != "M" and e["name"] != "engine.heartbeat"]
+            if e.get("ph") != "M" and e["name"] not in WALL_EVENTS]
 
 
 def test_trace_simtime_stream_deterministic(tmp_path):
@@ -66,7 +77,9 @@ def test_trace_simtime_stream_deterministic(tmp_path):
     # the gate compared something substantial: engine, device and plugin
     # spans, at more than one virtual time, from a run that dispatched
     names = {t[2] for t in s1}
-    assert {"round", "device.dispatch", "plugin.continue"} <= names
+    assert {"round", "device.dispatch", "plugin.continue", "boot.topology",
+            "boot.hosts", "boot.plane.scan", "boot.plane.layout",
+            "boot.plane.upload", "boot.schedule", "teardown"} <= names
     assert len({t[5] for t in s1}) > 2
     assert c1.engine.device_plane.dispatches > 0
     assert state_digest(c1.engine) == state_digest(c2.engine)
@@ -82,6 +95,7 @@ def test_digest_parity_with_obs_enabled(tmp_path):
 def test_trace_stream_equals_the_jax_packages(tmp_path):
     port, tp = _run_device(tmp_path, "port")
     ref, tp_ref = _run_device(tmp_path, "jax", pkg="shadow_tpu")
-    assert _sim_stream(tp) == _sim_stream(tp_ref)
+    port_stream = [t for t in _sim_stream(tp) if not _port_only(t[2])]
+    assert port_stream == _sim_stream(tp_ref)
     from shadow_tpu.core.checkpoint import state_digest as jax_digest
     assert state_digest(port.engine) == jax_digest(ref.engine)
