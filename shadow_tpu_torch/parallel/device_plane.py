@@ -84,6 +84,7 @@ timeout) ends the run.
 
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Dict, List, Optional, Tuple
 
@@ -322,6 +323,47 @@ def resolve_auto_routes(engine, specs: List[_FlowSpec]) -> None:
         guard, middle, exit_ = path[0], path[1], path[2]
         s.route_down = [s.dest, exit_, middle, guard, s.client_name]
         s.route_up = [s.client_name, guard, middle, exit_, s.dest]
+
+
+def _resolve_plane_hosts(engine, table, hosts: List[str]):
+    """Where each of the plane's ``hosts`` lives, resolved once a name: a
+    live ``Host`` (``engine.hosts_by_name``, first) or a host table row.
+    Deliberately NOT engine.host_by_name: that would materialize every
+    table row the flow table references — the whole point is that quiet
+    hosts contribute array rows, so the table's columns are read instead.
+    Returns the live hosts by index, each host's topology row and up and
+    down rates, and its table row (-1 for a live host)."""
+    live = {i: h for i, h in enumerate(map(engine.hosts_by_name.get, hosts))
+            if h is not None}
+    row_of: Dict[str, int] = {}
+    if table is not None:
+        # the canonical names only ("client01" never aliases client1)
+        for g in table.groups:
+            row_of.update(zip(map(g.name_of, range(g.count)),
+                              range(g.first_row, g.first_row + g.count)))
+    table_row = np.fromiter(map(row_of.get, hosts, itertools.repeat(-1)),
+                            dtype=np.int64, count=len(hosts))
+    is_live = np.zeros(len(hosts), dtype=bool)
+    is_live[list(live)] = True
+    table_row[is_live] = -1
+    missing = (table_row < 0) & ~is_live
+    if missing.any():
+        raise ValueError(f"device plane: unknown host "
+                         f"{hosts[int(np.argmax(missing))]!r}")
+    on_table = table_row >= 0
+    topo_row = np.zeros(len(hosts), dtype=np.int64)
+    bw_up = np.zeros(len(hosts), dtype=np.int64)
+    bw_down = np.zeros(len(hosts), dtype=np.int64)
+    if table is not None:
+        rows = table_row[on_table]
+        topo_row[on_table] = table.topo_rows[rows]
+        bw_up[on_table] = table.bw_up[rows]
+        bw_down[on_table] = table.bw_down[rows]
+    for i, host in live.items():
+        topo_row[i] = host.topo_row
+        bw_up[i] = host.params.bw_up_kibps
+        bw_down[i] = host.params.bw_down_kibps
+    return live, topo_row, bw_up, bw_down, table_row
 
 
 class DeviceTrafficPlane:
@@ -587,71 +629,63 @@ class DeviceTrafficPlane:
         gathered from the engine's real topology rows — no [H, H] local
         matrix is ever materialized (10k-host graphs would not fit)."""
         topo = engine.topology
+        # chains: 2 per spec (download then upload), VARIABLE hop counts —
+        # a tor circuit is 5 stages, a star-bulk pair is 2 (the flow table
+        # is built from the actual routes, not a fixed grid).  Pre-sort
+        # flows are chain-contiguous, in (chain, stage) order.
+        routes = [rt for s in self.specs for rt in (s.route_down, s.route_up)]
+        c = len(routes)
+        chain_len = np.fromiter(map(len, routes), dtype=np.int64, count=c)
+        n_flows = int(chain_len.sum())
+        # every hop's host as an integer, in one pass over the names: the
+        # flow at which the host first appears, then its rank in that
+        # order; names resolve once per distinct host
+        seen: Dict[str, int] = {}
+        first_at = np.fromiter(
+            map(seen.setdefault, itertools.chain.from_iterable(routes),
+                itertools.count()), dtype=np.int64, count=n_flows)
+        hosts = list(seen)
+        rank_of = np.empty(n_flows, dtype=np.int64)
+        rank_of[np.fromiter(seen.values(), dtype=np.int64,
+                            count=len(hosts))] = np.arange(len(hosts))
+        flow_host = rank_of[first_at]
+        table = getattr(engine, "host_table", None)
+        live, topo_row, bw_up, bw_down, table_row = _resolve_plane_hosts(
+            engine, table, hosts)
         # Every host contributes up to TWO plane nodes: its EGRESS node
         # (up-bandwidth bucket — paces stages 0..3, the sending hops) and
         # its INGRESS node (down-bandwidth bucket — paces stage 4, the
         # delivering hop).  Distinct buckets per direction mirror the
         # engine's send/receive TokenBuckets; a client uploading and
         # downloading concurrently contends on the right one each way.
-        names: List[Tuple[str, str]] = []      # (host, "tx"|"rx")
-        name_idx: Dict[Tuple[str, str], int] = {}
-
-        def node_of(nm: str, kind: str) -> int:
-            key = (nm, kind)
-            if key not in name_idx:
-                name_idx[key] = len(names)
-                names.append(key)
-            return name_idx[key]
-
-        # chains: 2 per spec (download then upload), VARIABLE hop counts —
-        # a tor circuit is 5 stages, a star-bulk pair is 2 (the flow table
-        # is built from the actual routes, not a fixed grid)
-        chains: List[List[int]] = []
-        for s in self.specs:
-            for rt in (s.route_down, s.route_up):
-                chains.append([node_of(nm, "tx") for nm in rt[:-1]] +
-                              [node_of(rt[-1], "rx")])
-        self.node_names = names
-        self.node_hosts = []
-        self.node_kind = [k for (_nm, k) in names]
+        # A node's key is host * 2 + (1 on the chain's last stage); nodes
+        # are numbered in order of first appearance over the flows.
+        chain_base = np.cumsum(chain_len) - chain_len
+        is_last_pre = np.zeros(n_flows, dtype=bool)
+        is_last_pre[chain_base + chain_len - 1] = True
+        flow_key = flow_host * 2 + is_last_pre
+        first = np.full(2 * len(hosts), n_flows, dtype=np.int64)
+        np.minimum.at(first, flow_key, np.arange(n_flows, dtype=np.int64))
+        node_key = np.flatnonzero(first < n_flows)
+        node_key = node_key[np.argsort(first[node_key])]
+        node_of_key = np.empty(2 * len(hosts), dtype=np.int64)
+        node_of_key[node_key] = np.arange(len(node_key), dtype=np.int64)
+        flow_node = node_of_key[flow_key]
+        node_host = node_key >> 1
+        node_rx = (node_key & 1).astype(bool)
+        kinds = ("tx", "rx")
+        self.node_kind = [kinds[k] for k in node_rx.tolist()]
         self._has_upload = np.array([s.cells_up > 0 for s in self.specs],
                                     dtype=bool)
-        rows = np.empty(len(names), dtype=np.int64)
-        rates = np.empty(len(names), dtype=np.int64)
-        table = getattr(engine, "host_table", None)
-        for i, (nm, kind) in enumerate(names):
-            # deliberately NOT engine.host_by_name: that would materialize
-            # every table row the flow table references — the whole point
-            # is that quiet hosts contribute array rows, so read the
-            # table's columns instead
-            host = engine.hosts_by_name.get(nm)
-            if host is not None:
-                self.node_hosts.append(host)
-                rows[i] = host.topo_row
-                rates[i] = (host.params.bw_up_kibps if kind == "tx"
-                            else host.params.bw_down_kibps)
-                continue
-            info = table.plane_host_info(nm) if table is not None else None
-            if info is None:
-                raise ValueError(f"device plane: unknown host {nm!r}")
-            self.node_hosts.append(None)
-            topo_row, bw_up, bw_down = info
-            rows[i] = topo_row
-            rates[i] = bw_up if kind == "tx" else bw_down
+        rows = topo_row[node_host]
+        rates = np.where(node_rx, bw_down[node_host], bw_up[node_host])
         from ..ops.bandwidth import bucket_params
         refill, capacity = bucket_params(rates)
         self.refill = refill.astype(np.int64)
         self.capacity = capacity.astype(np.int64)
-        # flatten chains into pre-sort flow arrays (chain-contiguous)
-        c = len(chains)
-        chain_len = np.array([len(rt) for rt in chains], dtype=np.int64)
-        n_flows = int(chain_len.sum())
         flow_chain = np.repeat(np.arange(c, dtype=np.int64), chain_len)
-        flow_stage = np.concatenate(
-            [np.arange(m, dtype=np.int64) for m in chain_len])
-        flow_node = np.concatenate(
-            [np.asarray(rt, dtype=np.int64) for rt in chains])
-        is_last_pre = flow_stage == chain_len[flow_chain] - 1
+        flow_stage = np.arange(n_flows, dtype=np.int64) \
+            - chain_base[flow_chain]
         nxt = np.where(is_last_pre, flow_node,
                        np.roll(flow_node, -1))       # next stage, same chain
         pre_succ = np.where(is_last_pre, -1,
@@ -660,8 +694,9 @@ class DeviceTrafficPlane:
         lat_pre = np.where(is_last_pre, 0,
                            np.maximum(lat_ns // TICK_NS, 1))
         # sort by (paced node, chain, stage): the per-tick allocation is a
-        # segment cumsum in this order (exact greedy per node)
-        order = np.lexsort((flow_stage, flow_chain, flow_node))
+        # segment cumsum in this order (exact greedy per node); the flows
+        # are already in (chain, stage) order, so a stable sort by node
+        order = np.argsort(flow_node, kind="stable")
         pos_of = np.empty(n_flows, dtype=np.int64)
         pos_of[order] = np.arange(n_flows)
         flow_node = flow_node[order]
@@ -678,10 +713,9 @@ class DeviceTrafficPlane:
         self.flow_circ = flow_chain[order]
         self.flow_stage = flow_stage[order]
         # per-chain entry (stage 0) and exit (last stage) flow positions
-        chain_base = np.r_[0, np.cumsum(chain_len)[:-1]]
         self.first_flow = pos_of[chain_base]
         self.last_flow = pos_of[chain_base + chain_len - 1]
-        self.n_chains = len(chains)
+        self.n_chains = c
         # Step granulation: the kernel's loop iteration covers ``granule``
         # milliseconds.  Chosen so the arrival ring stays <= ~64 slots even
         # on multi-second-latency topologies (the reference GraphML has
@@ -716,7 +750,7 @@ class DeviceTrafficPlane:
                 "2**31 cells — the int32 arrival ring would overflow "
                 "(lower --device-plane-granule-ms or the host bandwidth)")
         self.n_flows = n_flows
-        self.n_nodes = len(names)
+        self.n_nodes = len(node_key)
         # Vectorized tracker feed (the control-plane cut): collects
         # fold each flush's per-node byte deltas into ONE numpy
         # scatter-add here; the per-host split into Tracker counter
@@ -726,17 +760,22 @@ class DeviceTrafficPlane:
         # Python loop over every touched node.
         self._node_pending = np.zeros(self.n_nodes, dtype=np.int64)
         self._table = table
-        name_nodes: Dict[str, List[int]] = {}
-        for i, (nm, _kind) in enumerate(names):
-            name_nodes.setdefault(nm, []).append(i)
-        for nm, nodes in name_nodes.items():
-            host = engine.hosts_by_name.get(nm)
-            if host is not None:
-                host.tracker._device_feed = (self, nodes)
-            else:
-                # table row: the table folds these nodes' deltas into its
-                # tracker columns, and wires the feed at materialization
-                table.set_device_nodes(nm, nodes, self)
+        # each host's nodes, ascending (views of one array: no container
+        # a host for the collector to walk)
+        by_host = np.argsort(node_host, kind="stable")
+        ends = np.cumsum(np.bincount(node_host, minlength=len(hosts)))
+        nodes_of = [by_host[a:b] for a, b in
+                    zip([0] + ends[:-1].tolist(), ends.tolist())]
+        self._live_hosts = list(live.values())
+        for i, host in live.items():
+            host.tracker._device_feed = (self, nodes_of[i])
+        if table is not None:
+            # table rows: the table folds these nodes' deltas into its
+            # tracker columns, and wires the feed at materialization
+            on_table = np.flatnonzero(table_row >= 0)
+            table.set_device_rows(table_row[on_table],
+                                  [nodes_of[i] for i in on_table.tolist()],
+                                  self)
 
     # -- state ------------------------------------------------------------
     def _init_state(self):
@@ -1926,8 +1965,7 @@ class DeviceTrafficPlane:
         readers (tests, digests, tools) see final tracker totals.  Table
         rows fold into the table's columns (or through their materialized
         Host's tracker) via the table's own sweep."""
-        for host in dict.fromkeys(h for h in self.node_hosts
-                                  if h is not None):
+        for host in self._live_hosts:
             host.tracker.pull_device()
         if self._table is not None:
             self._table.flush_device_nodes(self)

@@ -555,6 +555,13 @@ class HostTable:
         self._dev_plane = plane
         return True
 
+    def set_device_rows(self, rows, nodes: List[List[int]], plane) -> None:
+        """Register the plane node indices of many table rows at once:
+        ``nodes[k]`` is row ``rows[k]``'s list (the device plane's layout
+        resolves names to rows itself)."""
+        self._dev_nodes.update(zip(np.asarray(rows).tolist(), nodes))
+        self._dev_plane = plane
+
     def _fold_device_row(self, row: int) -> None:
         """The table-side twin of Tracker.pull_device: fold the plane's
         pending per-node byte deltas into this row's tracker columns."""

@@ -69,12 +69,15 @@ CHANGED_FUNCTIONS = {
 # top-level name, ``__doc__`` or ``Class.method``, each present on one
 # side at least): the tracer keeps exact totals a span name, records the
 # collector's pauses, labels moments by their open spans and may be
-# installed for a whole process (obs/), and the engine's boot schedule is
-# a span of it and its run ends the run's tracer.  Where the edit adds or
+# installed for a whole process (obs/), the engine's boot schedule is a
+# span of it and its run ends the run's tracer, and the host table takes
+# the device plane's node lists for many rows in one call.  The blank line
+# right above a named statement goes with it.  Where the edit adds or
 # drops whole statements (LOOSE), the blank lines and the comment block
 # above a named statement are not compared either.
 EDITED = {
     "core/engine": ("Engine.run",),
+    "scale/hosttable": ("HostTable.set_device_rows",),
     "obs/__init__": ("__doc__", "_walltime", "configure_observability",
                      "_CALIBRATION_CAP", "disabled_overhead_sec"),
     "obs/trace": ("__doc__", "bisect", "gc", "deque", "Dict", "CARD_SPANS",
@@ -235,9 +238,9 @@ def _bound(node) -> set:
 
 
 def _without_statements(text: str, names, loose: bool):
-    """``text`` with the statements ``names`` cut out (``loose``: each
-    with the comment lines right above it, and every blank line dropped),
-    and the names found in it."""
+    """``text`` with the statements ``names`` cut out, each with the blank
+    line right above it (``loose``: with the comment lines right above it
+    too, and every blank line dropped), and the names found in it."""
     lines = text.splitlines(keepends=True)
     body = ast.parse(text).body
     cut_nodes, found = [], set()
@@ -262,6 +265,8 @@ def _without_statements(text: str, names, loose: bool):
                                   getattr(n, "decorator_list", [])]) - 1
         while loose and first > 0 \
                 and lines[first - 1].lstrip().startswith("#"):
+            first -= 1
+        if first > 0 and not lines[first - 1].strip():
             first -= 1
         cut |= set(range(first, n.end_lineno))
     return "".join(line for i, line in enumerate(lines)
