@@ -1,8 +1,10 @@
 """Finding a cell's pieces by name, from the root of a checkout: its entry
-in ``BENCHMARK.json``, its configuration file, its traffic mix
-(``portbench/traffic/<name>.json``) and the reader of each metric
-(``portbench/metrics/<name>.py``, a ``read(ctx)`` that returns a number,
-or None where it finds nothing to read)."""
+in ``BENCHMARK.json``, its configuration file, the scenario that file
+names (``portbench/scenarios/<name>.py``; see that package for what a
+scenario provides), its traffic mix (``portbench/traffic/<name>.json``)
+and the reader of each metric (``portbench/metrics/<name>.py``, a
+``read(ctx)`` that returns a number, or None where it finds nothing to
+read)."""
 
 from __future__ import annotations
 
@@ -12,6 +14,9 @@ import os
 from typing import Callable, Dict, List
 
 DIR = "portbench"
+# the scenario of a configuration file that names none: the files written
+# before scenarios were found by name are all of it
+DEFAULT_SCENARIO = "tor"
 
 
 def load_benchmark(path: str = "BENCHMARK.json") -> Dict:
@@ -45,10 +50,27 @@ def metrics_for(bench: Dict, cell: Dict, kind: str) -> List[Dict]:
             if cell["name"] in m.get("workloads", [cell["name"]])]
 
 
-def reader(name: str) -> Callable[[Dict], object]:
-    path = os.path.join(DIR, "metrics", f"{name}.py")
+def _module(kind: str, name: str):
+    path = os.path.join(DIR, kind, f"{name}.py")
     spec = importlib.util.spec_from_file_location(
-        f"portbench.metrics.{name.replace('.', '_').replace('-', '_')}", path)
+        f"portbench.{kind}.{name.replace('.', '_').replace('-', '_')}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def scenario(config: Dict):
+    """The scenario module the configuration names."""
+    name = config.get("scenario", DEFAULT_SCENARIO)
+    d = os.path.join(DIR, "scenarios")
+    if not os.path.isfile(os.path.join(d, f"{name}.py")):
+        have = sorted(f[:-3] for f in os.listdir(d)
+                      if f.endswith(".py") and f != "__init__.py")
+        raise SystemExit(f"portbench: no scenario {name!r} "
+                         f"(portbench/scenarios/<name>.py; have "
+                         f"{', '.join(have)})")
+    return _module("scenarios", name)
+
+
+def reader(name: str) -> Callable[[Dict], object]:
+    return _module("metrics", name).read

@@ -1,11 +1,12 @@
-"""Experiments through the port's normal entry.
+"""Episodes through the port's normal entry.
 
-An episode is one whole Tor experiment, its set-up included: the
-program's ``Configuration`` built from every field of the cell's
-configuration and traffic files (:func:`tor_configuration`) and run by
+An episode is one whole experiment, its set-up included: the program's
+``Configuration`` and ``Options`` built by the cell's scenario
+(``portbench/scenarios/<name>.py``) from every field of the cell's
+configuration and traffic files, and run by
 ``Controller(options, config).run()``, alone (a serial cell) or as a
 lane of ``FleetDriver`` over one ``FleetPlane`` (a fleet cell).  Episode
-``i``'s seeds (the engine's and the circuits' draw) come from the run's
+``i``'s seeds (the engine's and the scenario's draw) come from the run's
 ``--seed`` and ``i``.  What the program produced is kept for the check;
 the program's objects are dropped when the episode ends.
 """
@@ -18,73 +19,9 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-SERIAL_KERNELS = ("torcells_span", "pack_flush")
-FLEET_KERNELS = ("torcells_span_batched", "pack_flush")
-
-
-# the groups of a configuration file: (host id, count key, up rate key,
-# down rate key); the reference names the hosts the same way
-GROUPS = (("relay", "relays", "relay_kibps", "relay_kibps"),
-          ("dest", "servers", "server_kibps", "server_kibps"),
-          ("torclient", "clients", "client_up_kibps", "client_down_kibps"))
-
-
-def one_vertex_graphml(latency_ms: float) -> str:
-    """A topology of one vertex whose self-loop takes ``latency_ms`` (a
-    path between two of its hosts takes the loop twice)."""
-    return (
-        '<graphml xmlns="http://graphml.graphdrawing.org/xmlns">'
-        '<key id="d0" for="edge" attr.name="latency" attr.type="double"/>'
-        '<key id="d1" for="edge" attr.name="packetloss" attr.type="double"/>'
-        '<key id="d2" for="node" attr.name="countrycode" '
-        'attr.type="string"/>'
-        '<key id="d3" for="node" attr.name="type" attr.type="string"/>'
-        '<graph edgedefault="undirected">'
-        '<node id="poi-1"><data key="d2">US</data><data key="d3">net</data>'
-        '</node><edge source="poi-1" target="poi-1">'
-        f'<data key="d0">{float(latency_ms)}</data>'
-        '<data key="d1">0.0</data></edge></graph></graphml>')
-
-
-def tor_configuration(config: Dict, traffic: Dict, stoptime: int,
-                      path_seed: int):
-    """The program's ``Configuration`` of one experiment: a host group for
-    the relays, the servers and the clients with the file's counts and
-    rates, the file's one-vertex latency, and one ``FlowConfig`` for the
-    clients carrying the mix's transfer sizes and arrival waves and the
-    seeded draw of each client's circuit over the file's relays and
-    servers."""
-    from shadow_tpu_torch.core.configuration import (Configuration,
-                                                     FlowConfig, HostConfig)
-    counts = [int(config[key]) for _id, key, _up, _down in GROUPS]
-    if sum(counts) != int(config["hosts"]) or counts[0] < 3 \
-            or counts[1] < 1 or counts[2] < 1:
-        raise ValueError(
-            f"portbench: {config.get('name')}: relays, servers and clients "
-            f"{counts} must be >= 3, >= 1, >= 1 and add up to hosts "
-            f"{config['hosts']}")
-    cfg = Configuration(stop_time_sec=stoptime,
-                        topology_text=one_vertex_graphml(
-                            config["vertex_latency_ms"]))
-    for (host_id, _key, up, down), n in zip(GROUPS, counts):
-        cfg.hosts.append(HostConfig(
-            id=host_id, quantity=n,
-            bandwidth_down_kibps=int(config[down]),
-            bandwidth_up_kibps=int(config[up])))
-    cfg.hosts[-1].flows.append(FlowConfig(
-        dest="", start_time_sec=float(traffic["start_s"]),
-        down_bytes=int(traffic["down_bytes"]),
-        up_bytes=int(traffic["up_bytes"]),
-        stagger_waves=int(traffic["waves"]),
-        stagger_step_sec=float(traffic["step_s"]),
-        tor_path_seed=path_seed, tor_relays=counts[0],
-        tor_relay_prefix=GROUPS[0][0], tor_servers=counts[1],
-        tor_server_prefix=GROUPS[1][0]))
-    return cfg
-
 
 def episode_seeds(seed: int, index: int):
-    """(engine seed, circuit seed) of episode ``index`` of a run."""
+    """(engine seed, draw seed) of episode ``index`` of a run."""
     a, b = np.random.SeedSequence([seed % 2 ** 64, index]).generate_state(2)
     return int(a) & 0x7FFFFFFF, int(b)
 
@@ -102,29 +39,32 @@ def ensure_kernels(names) -> None:
 
 
 class Experiments:
-    """Episodes of one cell: its configuration and traffic, the run's seed
-    and the device the program runs on."""
+    """Episodes of one cell: its scenario, configuration and traffic, the
+    run's seed, the device the program runs on, the cards the cell asks
+    for, and whether the run is the control."""
 
-    def __init__(self, config: Dict, traffic: Dict, seed: int, device: str,
-                 granule_ms: int = 0):
+    def __init__(self, scenario, config: Dict, traffic: Dict, seed: int,
+                 device: str, chips: int = 1, control: bool = False):
+        self.scenario = scenario
         self.config = config
         self.traffic = traffic
         self.seed = seed
         self.device = device
-        self.granule_ms = granule_ms
+        self.chips = chips
+        self.control = control
         self.fleet = traffic["mode"] == "fleet"
 
-    def scenario(self, index: int, stoptime: Optional[int] = None):
-        from shadow_tpu_torch.core.options import Options
+    def episode(self, index: int, stoptime: Optional[int] = None):
+        """(Configuration, Options, engine seed, draw seed) of episode
+        ``index``, run to ``stoptime`` (the configuration's by default)."""
+        sc = self.scenario
         stop = int(stoptime or self.config["stoptime_s"])
-        engine_seed, path_seed = episode_seeds(self.seed, index)
-        cfg = tor_configuration(self.config, self.traffic, stop, path_seed)
-        opts = Options(scheduler_policy="global", device=self.device,
-                       workers=0, seed=engine_seed, host_table="on",
-                       heartbeat_interval_sec=0, stop_time_sec=stop,
-                       log_level="warning",
-                       device_plane_granule_ms=self.granule_ms)
-        return cfg, opts, engine_seed, path_seed
+        engine_seed, draw_seed = episode_seeds(self.seed, index)
+        cfg = sc.configuration(self.config, self.traffic, stop, draw_seed)
+        opts = sc.options(self.config, self.traffic, seed=engine_seed,
+                          stoptime=stop, device=self.device,
+                          chips=self.chips, control=self.control)
+        return cfg, opts, engine_seed, draw_seed
 
     def run_one(self, index: int, lane=None,
                 stoptime: Optional[int] = None) -> Dict:
@@ -138,32 +78,17 @@ class Experiments:
             set_thread_logger(SimLogger(level="warning"))
         try:
             t_start = time.monotonic()
-            cfg, opts, engine_seed, path_seed = self.scenario(index,
-                                                               stoptime)
+            cfg, opts, engine_seed, draw_seed = self.episode(index,
+                                                             stoptime)
             if lane is not None:
                 opts._fleet_lane = lane
             ctl = Controller(opts, cfg)
             rc = ctl.run()
-            eng = ctl.engine
-            plane = eng.device_plane
-            table = eng.host_table
-            n = eng.total_host_count()
             rec = {"index": index, "engine_seed": engine_seed,
-                   "path_seed": path_seed, "sim_s": int(cfg.stop_time_sec),
+                   "draw_seed": draw_seed, "sim_s": int(cfg.stop_time_sec),
                    "rc": rc, "t_start": t_start,
-                   "t_loop": eng.sim_start_wall,
-                   "dispatches": plane.dispatches,
-                   "device_ns": plane.device_ns,
-                   "granule": plane.granule,
-                   "chain_done": plane._chain_done.copy(),
-                   "forwards": int(plane.total_forwards),
-                   "completed": len(plane._done),
-                   "tx": table.tx_bytes[:n].copy(),
-                   "rx": table.rx_bytes[:n].copy(),
-                   # (name, quantity, first row, rows) of each host group;
-                   # never the groups themselves, which hold the engine
-                   "groups": [(g.hc.id, g.hc.quantity, g.first_row, g.count)
-                              for g in table.groups]}
+                   "t_loop": ctl.engine.sim_start_wall,
+                   **self.scenario.record(ctl)}
             rec["t_end"] = time.monotonic()
             return rec
         finally:
@@ -171,10 +96,10 @@ class Experiments:
                 set_thread_logger(None)
 
     def warm_up(self) -> None:
-        """One experiment of the cell's network, cut to its first wave,
-        through the same entry: the kernels' first launches and the boot's
-        first pass happen here, not in the window."""
-        stop = int(self.traffic["start_s"]) + 1
+        """One episode cut to the scenario's warm-up stoptime, through the
+        same entry: the kernels' first launches and the boot's first pass
+        happen here, not in the window."""
+        stop = self.scenario.warm_stoptime(self.config, self.traffic)
         if not self.fleet:
             self.run_one(0, stoptime=stop)
             return

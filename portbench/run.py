@@ -4,21 +4,23 @@
         --trace <0|1>
 
 from the root of a checkout (where ``BENCHMARK.json`` is).  The cell
-names a configuration (``portbench/configs/<name>.json``), a traffic mix
+names a configuration (``portbench/configs/<name>.json``), which names
+its scenario (``portbench/scenarios/<name>.py``), a traffic mix
 (``portbench/traffic/<name>.json``) and, through the metrics' entries,
 the readers (``portbench/metrics/<name>.py``): all found by name, so a
-cell, a configuration or a metric is added by adding files and entries.
+cell, a configuration, a deployment of a new shape or a metric is added
+by adding files and entries.
 
-A run: set-up (import torch, the CUDA context, the kernels from the
-checkout's compile cache, one experiment of the cell's network cut to
-its first wave), then the window (experiments from a seeded queue until
+A run: set-up (import torch, the CUDA context, the scenario's kernels
+from the checkout's compile cache, one episode cut to the scenario's
+warm-up stoptime), then the window (episodes from a seeded queue until
 ``--seconds`` have passed, the ones in flight finishing), then the
 readings (peak memory, the trace), the check that no module of JAX or of
-the JAX package was loaded, the check of every experiment against the
-plain reference and the metrics' readers.  The look for JAX is made
-again after the readers, just before the result is printed, so nothing
-that the reference or a reader loads goes unseen.  The last line of
-standard output is the result.
+the JAX package was loaded, the check of every episode against the
+scenario's plain reference and the metrics' readers.  The look for JAX
+is made again after the readers, just before the result is printed, so
+nothing that the reference or a reader loads goes unseen.  The last line
+of standard output is the result.
 """
 
 from __future__ import annotations
@@ -51,9 +53,8 @@ def parse(argv: List[str]) -> argparse.Namespace:
                    help="cuda (the benchmark); cpu runs the program's "
                         "plain versions for the CPU tests")
     p.add_argument("--control", type=int, choices=(0, 1), default=0,
-                   help="1 runs the program at a 2 ms tick (its "
-                        "--device-plane-granule-ms), which the check must "
-                        "refuse")
+                   help="1 runs the scenario's control: the program on a "
+                        "path the check must refuse")
     return p.parse_args(argv)
 
 
@@ -90,7 +91,7 @@ class GcClock:
 
 
 def label_for(records: List[Dict], fleet: bool):
-    """What the host was doing at a monotonic time: an experiment's set-up
+    """What the host was doing at a monotonic time: an episode's set-up
     or its engine loop (counted over lanes in a fleet cell)."""
     def label(t: float) -> str:
         setup = sum(r["t_start"] <= t < r["t_loop"] for r in records)
@@ -108,6 +109,7 @@ def main(argv: List[str], t0: float) -> int:
     cell = cells.workload(bench, args.workload)
     config = cells.config_file(bench, cell["config"])
     traffic = cells.traffic_file(cell["traffic"])
+    scenario = cells.scenario(config)
     import torch
     if args.device == "cuda":
         if not torch.cuda.is_available() \
@@ -120,12 +122,11 @@ def main(argv: List[str], t0: float) -> int:
     # a cost model from the environment would retune the program's
     # dispatch depth; the benchmark runs it as the checkout configures it
     os.environ.pop("SHADOW_TORCH_COSTMODEL", None)
-    from .episodes import (FLEET_KERNELS, SERIAL_KERNELS, Experiments,
-                           ensure_kernels)
-    exp = Experiments(config, traffic, args.seed, args.device,
-                      granule_ms=2 if args.control else 0)
+    from .episodes import Experiments, ensure_kernels
+    exp = Experiments(scenario, config, traffic, args.seed, args.device,
+                      chips=int(cell["chips"]), control=bool(args.control))
     if args.device == "cuda":
-        ensure_kernels(FLEET_KERNELS if exp.fleet else SERIAL_KERNELS)
+        ensure_kernels(scenario.KERNELS[traffic["mode"]])
     exp.warm_up()
     if args.device == "cuda":
         torch.cuda.synchronize()
@@ -167,7 +168,7 @@ def main(argv: List[str], t0: float) -> int:
               [[round(r[k] - t_win, 3) for k in ("t_start", "t_loop", "t_end")]
                for r in records]), file=sys.stderr)
     t_ref = time.monotonic()
-    result = check.check_all(records, config, traffic,
+    result = check.check_all(records, scenario, config, traffic,
                              torch.device(args.device))
     print(f"portbench: set-up {setup_s:.3f} s, window "
           f"{t_last - t_win:.3f} s ({cpu_s:.3f} s of the process's CPU "

@@ -15,29 +15,40 @@ from typing import Dict, List, Optional
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-# a few hundred hosts, a few waves, seconds of simulated time
-TINY_CONFIG = {"hosts": 300, "relays": 30, "servers": 3, "clients": 267,
-               "stoptime_s": 6}
-TINY_TRAFFIC = {"waves": 3}
 
 
 def tiny_copy(dest: str) -> str:
-    """The benchmark under ``dest`` with every configuration and traffic
-    mix cut to TINY_*; returns ``dest``."""
+    """The benchmark under ``dest`` (an existing directory), cut by
+    :func:`cut`; returns ``dest``."""
     shutil.copy(os.path.join(REPO, "BENCHMARK.json"), dest)
     shutil.copytree(os.path.join(REPO, "portbench"),
                     os.path.join(dest, "portbench"),
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
-    for sub, cut in (("configs", TINY_CONFIG), ("traffic", TINY_TRAFFIC)):
-        d = os.path.join(dest, "portbench", sub)
-        for name in os.listdir(d):
-            path = os.path.join(d, name)
-            with open(path) as f:
-                data = json.load(f)
-            data.update(cut)
-            with open(path, "w") as f:
-                json.dump(data, f, indent=1)
-    return dest
+    return cut(dest)
+
+
+def cut(root: str) -> str:
+    """Each cell's configuration and mix under ``root`` cut to a size the
+    CPU runs in seconds: the keys of the ``TINY_CONFIG`` and
+    ``TINY_TRAFFIC`` of the configuration's scenario overwritten; returns
+    ``root``."""
+    from portbench import cell
+    b = bench(root)
+    with contextlib.chdir(root):
+        for w in b["workloads"]:
+            config = cell.config_file(b, w["config"])
+            sc = cell.scenario(config)
+            entry = next(c for c in b["configs"] if c["name"] == w["config"])
+            for path, tiny in ((entry["file"], sc.TINY_CONFIG),
+                               (os.path.join("portbench", "traffic",
+                                             f"{w['traffic']}.json"),
+                                sc.TINY_TRAFFIC)):
+                with open(path) as f:
+                    data = json.load(f)
+                data.update(tiny)
+                with open(path, "w") as f:
+                    json.dump(data, f, indent=1)
+    return root
 
 
 def bench(root: str) -> Dict:
@@ -69,15 +80,10 @@ def run_inprocess(root: str, workload: str, seed: int = 3_000_000_019,
     program underneath): (exit code, the result line or None)."""
     import time
     from portbench.run import main
-    cwd = os.getcwd()
     out = io.StringIO()
-    os.chdir(root)
-    try:
-        with contextlib.redirect_stdout(out):
-            rc = main(["--workload", workload, "--seed", str(seed),
-                       "--seconds", str(seconds), "--device", "cpu",
-                       *(extra or [])], time.monotonic())
-    finally:
-        os.chdir(cwd)
+    with contextlib.chdir(root), contextlib.redirect_stdout(out):
+        rc = main(["--workload", workload, "--seed", str(seed),
+                   "--seconds", str(seconds), "--device", "cpu",
+                   *(extra or [])], time.monotonic())
     lines = out.getvalue().strip().splitlines()
     return rc, (json.loads(lines[-1]) if rc == 0 and lines else None)

@@ -139,7 +139,8 @@ def test_reference_imports_nothing_of_the_program():
     imports name no module of the program, of JAX or of the JAX package."""
     import ast
     here = os.path.join(benchcopy.REPO, "portbench")
-    for name in ("reference.py", "check.py", "roofline.py"):
+    for name in ("reference.py", "check.py", "roofline.py",
+                 "tests/star_reference.py"):
         with open(os.path.join(here, name)) as f:
             tree = ast.parse(f.read())
         for node in ast.walk(tree):
