@@ -104,12 +104,25 @@ def publish_descriptor(api, dirspec, orport, bw_weight):
     api.close(fd)
 
 
+class _Directory(dict):
+    """The authority's relays, name -> (orport, bw), in the order their
+    descriptors arrived; ``published_ns`` the sim time each arrived at."""
+
+    def __init__(self):
+        super().__init__()
+        self.published_ns = {}
+
+
 def dirauth_main(api, port):
-    relays = {}          # name -> (orport, bw)
+    relays = _Directory()          # name -> (orport, bw)
     api.process.app_state = relays
     lfd = api.socket("tcp")
     api.bind(lfd, ("0.0.0.0", port))
-    api.listen(lfd, 64)
+    # every relay publishes at once when the network starts: a backlog of
+    # SOMAXCONN (4096 on Linux), as Tor listens with, takes them all; a
+    # short one drops their SYNs, and a relay that retries for seconds
+    # misses the consensus its clients fetch
+    api.listen(lfd, 4096)
     api.log(f"tor dirauth on :{port}")
     while True:
         cfd, _ = yield from api.accept(lfd)
@@ -128,6 +141,7 @@ def _dirauth_conn(api, relays, fd):
     if line.startswith("r "):
         _, name, orport, bw = line.split()
         relays[name] = (int(orport), int(bw))
+        relays.published_ns.setdefault(name, api.now_ns())
     elif line.startswith("GETCONS"):
         # deterministic consensus: sorted by relay name
         doc = "".join(f"r {n} {p} {w}\n"
@@ -371,6 +385,13 @@ class _ClientStats:
         self.streams_ok = 0
         self.bytes_up = 0
         self.bytes_down = 0
+        # the consensus fetched (auto: paths): its relays, their summed
+        # weight and the sim time it arrived; the path the circuit is
+        # built through
+        self.consensus_relays = 0
+        self.consensus_weight = 0
+        self.fetched_ns = -1
+        self.path = []
 
 
 def client_main(api, args):
@@ -413,6 +434,11 @@ def client_main(api, args):
     nstreams = int(args[4]) if len(args) > 4 else 1
     specs = args[5:] if len(args) > 5 else ["100:10000"]
     stats = _ClientStats()
+    if args[1].startswith("auto:"):
+        stats.consensus_relays = len(consensus)
+        stats.consensus_weight = sum(w for _n, _p, w in consensus)
+        stats.fetched_ns = api.now_ns()
+    stats.path = [h for h, _p in path]
     api.process.app_state = stats
 
     # build the circuit: connect to the guard, CREATE, then EXTEND per hop

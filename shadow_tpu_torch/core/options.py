@@ -107,6 +107,11 @@ class Options:
                                          # (parallel/mesh device_mesh)
     tpu_device_threshold: int = 0        # >0: batches below N bypass to numpy
     tpu_chunk: int = 0                   # mid-round async launch size (0=off)
+    hop_record: bool = False             # the tpu policy keeps every hop
+                                         # launch's lanes and results
+                                         # (parallel/tpu_policy.py), for a
+                                         # check to hold them to a
+                                         # reference: no flag
     device_plane: str = "device"         # device | numpy (bit-identical twin)
     dataplane: str = "auto"              # auto | native | python: C data
                                          # plane for eligible serial runs

@@ -527,6 +527,10 @@ class DeviceTrafficPlane:
         self._done: Dict[int, int] = {}   # circuit -> wake sim time ns
         self._woken: set = set()
         self._chain_done: Optional[np.ndarray] = None  # [C] step or -1
+        # the dispatch base step each chain's cells entered at, or -1
+        self._chain_inject = np.full(self.n_chains, -1, dtype=np.int64)
+        self.reroutes = 0            # circuits re-routed to a runtime route
+        self._relayout_due = False
         self._flow_args_cached = None
         self._zero_inject_cached = None   # device-resident, reused when the
                                           # staged inject buffer is empty
@@ -623,11 +627,12 @@ class DeviceTrafficPlane:
             engine.metrics.source("fleet", fleet_source(lane.plane))
 
     # -- static layout ----------------------------------------------------
-    def _build_layout(self, engine) -> None:
+    def _build_layout(self, engine, granule: int = 0) -> None:
         """Flow table from the static specs: the torcells layout (sorted by
         paced node, segment cumsum offsets) with per-flow onward latencies
         gathered from the engine's real topology rows — no [H, H] local
-        matrix is ever materialized (10k-host graphs would not fit)."""
+        matrix is ever materialized (10k-host graphs would not fit).
+        ``granule`` > 0 keeps a step size already in use (a re-lay)."""
         topo = engine.topology
         # chains: 2 per spec (download then upload), VARIABLE hop counts —
         # a tor circuit is 5 stages, a star-bulk pair is 2 (the flow table
@@ -673,6 +678,8 @@ class DeviceTrafficPlane:
         flow_node = node_of_key[flow_key]
         node_host = node_key >> 1
         node_rx = (node_key & 1).astype(bool)
+        # each node's host (by name) and direction, for a re-lay
+        self._node_of = (hosts, node_host, node_rx)
         kinds = ("tx", "rx")
         self.node_kind = [kinds[k] for k in node_rx.tolist()]
         self._has_upload = np.array([s.cells_up > 0 for s in self.specs],
@@ -730,6 +737,8 @@ class DeviceTrafficPlane:
         override = getattr(engine.options, "device_plane_granule_ms", 0)
         if override:
             g = int(override)
+        if granule:
+            g = granule
         self.granule = g
         lat_steps = -(-self.flow_lat // g)
         self.flow_lat_steps = np.where(self.flow_lat > 0,
@@ -766,9 +775,12 @@ class DeviceTrafficPlane:
         ends = np.cumsum(np.bincount(node_host, minlength=len(hosts)))
         nodes_of = [by_host[a:b] for a, b in
                     zip([0] + ends[:-1].tolist(), ends.tolist())]
+        for host in getattr(self, "_live_hosts", ()):
+            host.tracker._device_feed = None   # a re-lay rewires below
         self._live_hosts = list(live.values())
         for i, host in live.items():
             host.tracker._device_feed = (self, nodes_of[i])
+        self._on_table = table is not None and bool((table_row >= 0).any())
         if table is not None:
             # table rows: the table folds these nodes' deltas into its
             # tracker columns, and wires the feed at materialization
@@ -1057,18 +1069,94 @@ class DeviceTrafficPlane:
         client-side order, e.g. [guard, middle, exit] for tor or [server]
         for star bulk) against the spec the flow table was built from.  A
         mismatch means an auto: client's fetched consensus diverged from
-        the startup prediction — the flows would silently ride the wrong
-        links, so fail loudly instead."""
+        the startup prediction (a relay whose descriptor reached the
+        authority after the client fetched).  The client's chains then
+        follow the route it built, before their cells enter: the table is
+        laid out again at the next dispatch (``_relayout``).  A plane that
+        cannot lay out again (a fleet lane, a mesh, hosts on the host
+        table) fails loudly instead: the flows would ride the wrong
+        links."""
         spec = self._by_client.get(client_name)
         if spec is None:
             raise ValueError(f"{client_name} has no device flow spec")
         expect = spec.route_up[1:-1] if len(spec.route_up) > 2 \
             else [spec.route_up[-1]]
-        if list(hops) != expect:
+        hops = list(hops)
+        if hops == expect:
+            return
+        c = spec.circuit
+        if (self._lane is not None or self._shard is not None
+                or self._on_table or len(hops) != len(expect)
+                or len(expect) < 2 or self._chain_inject[2 * c] >= 0
+                or any(ch >> 1 == c for ch, _n in self._inject_buf)):
             raise RuntimeError(
                 f"device plane: {client_name}'s runtime route {hops} != "
                 f"predicted route {expect} (the consensus diverged from "
-                "the startup prediction — e.g. a relay published late)")
+                "the startup prediction — e.g. a relay published late), "
+                "and this plane cannot lay out its table again")
+        spec.route_up = [client_name, *hops, spec.route_up[-1]]
+        spec.route_down = spec.route_up[::-1]
+        self.reroutes += 1
+        self._relayout_due = True
+
+    def _node_ids(self) -> List[Tuple[str, bool]]:
+        """Each node as (host name, ingress), in node order."""
+        hosts, node_host, node_rx = self._node_of
+        return [(hosts[h], rx) for h, rx in
+                zip(node_host.tolist(), node_rx.tolist())]
+
+    def _chain_order(self) -> np.ndarray:
+        """Each flow's index in (chain, stage) order, by table position."""
+        n = np.bincount(self.flow_circ, minlength=self.n_chains)
+        return (np.cumsum(n) - n)[self.flow_circ] + self.flow_stage
+
+    def _relayout(self, engine) -> None:
+        """Lay the flow table out again from the specs, after a client's
+        chains took the route it built (check_route), at a dispatch
+        boundary with nothing in flight.  The step size stays; the state
+        carries over through each flow's (chain, stage) and each node's
+        host and direction: the re-routed chains have never carried a
+        cell, a node new to the table has sent nothing and holds a full
+        bucket (as a node with no flows does), and the arrival ring keeps
+        every step whose sends can still arrive."""
+        self._relayout_due = False
+        self.flush_all_trackers()
+        old_pos = np.empty(self.n_flows, dtype=np.int64)
+        old_pos[self._chain_order()] = np.arange(self.n_flows)
+        old_nodes = {k: i for i, k in enumerate(self._node_ids())}
+        old_ring_len = self.ring_len
+        self._build_layout(engine, granule=self.granule)
+        self._node_pending = np.zeros(self.n_nodes, dtype=np.int64)
+        self._flow_args_cached = None
+        self._zero_inject_cached = None
+        self._span_tables = None
+        if self._state is None:
+            return
+        # each flow's old position, in the new order (the routes' lengths,
+        # so the (chain, stage) order, are the same in both layouts)
+        take = old_pos[self._chain_order()]
+        node_take = np.array([old_nodes.get(k, -1)
+                              for k in self._node_ids()], dtype=np.int64)
+        known = node_take >= 0
+        (_t, queued, ring, tokens, delivered, target, done_tick,
+         node_sent) = (self._host(a) for a in self._state)
+        new_tokens = self.capacity_step.copy()
+        new_tokens[known] = tokens[node_take[known]]
+        new_sent = np.zeros(self.n_nodes, dtype=np.int64)
+        new_sent[known] = node_sent[node_take[known]]
+        # step w's sends sit in slot w % L; the kernel runs step t next,
+        # and banked idle steps clear the ring at the next dispatch
+        new_ring = np.zeros((self.ring_len, self.n_flows), dtype=ring.dtype)
+        if not self._idle_ticks_banked:
+            t = int(self._ticks_synced)
+            for w in range(t - min(old_ring_len, self.ring_len) + 1, t):
+                new_ring[w % self.ring_len] = ring[w % old_ring_len, take]
+        state = (np.int64(self._ticks_synced - self._idle_ticks_banked),
+                 queued[take], new_ring, new_tokens, delivered[take],
+                 target[take], done_tick[take], new_sent)
+        if self.mode == "device":
+            state = self._to_device(state)
+        self._state = state
 
     def is_done(self, circuit: int) -> bool:
         return circuit in self._done
@@ -1288,6 +1376,8 @@ class DeviceTrafficPlane:
             # re-partition onto the survivors before this round's launch
             self._fault_device_lost = 0
             self._reshard(engine)
+        if self._relayout_due:
+            self._relayout(engine)
         if self._auto_pos < len(self._auto):
             ws = engine.scheduler.window_start
             if self._state is None and not self._inject_buf \
@@ -1338,6 +1428,7 @@ class DeviceTrafficPlane:
             inject = np.zeros(f, dtype=np.int64)
             inject_target = np.zeros(f, dtype=np.int64)
             for circ, cells in self._inject_buf:
+                self._chain_inject[circ] = self._ticks_synced
                 inject[self.first_flow[circ]] += cells
                 inject_target[self.last_flow[circ]] += cells
                 self._cells_dispatched += cells
@@ -1969,6 +2060,14 @@ class DeviceTrafficPlane:
             host.tracker.pull_device()
         if self._table is not None:
             self._table.flush_device_nodes(self)
+
+    def chain_steps(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Each chain's entry step (the base step of the dispatch that
+        folded its cells in) and completion step, -1 where there is none:
+        what a check holds the plane's chains to."""
+        done = (self._chain_done.copy() if self._chain_done is not None
+                else np.full(self.n_chains, -1, dtype=np.int64))
+        return self._chain_inject.copy(), done
 
     def stats(self) -> Dict[str, int]:
         return {

@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import threading
 import time as _walltime
+from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -64,6 +65,21 @@ def _hop_source(device):
     return scrape
 
 
+@dataclass(eq=False)
+class HopLaunch:
+    """One launch of the hop kernel as ``Options.hop_record`` keeps it:
+    its lanes' source and destination rows, uids and send times and the
+    round's barrier, then the delivery times and keep flags once
+    ``consume_flush`` has waited on it (None until then)."""
+    src: np.ndarray
+    dst: np.ndarray
+    uid: np.ndarray
+    send: np.ndarray
+    barrier: int
+    deliver: Optional[np.ndarray] = None
+    keep: Optional[np.ndarray] = None
+
+
 class _TPUBatchMixin:
     """The device-batching behavior (offer/launch/consume/warmup), layered
     over an event-storage policy.  Two concrete layouts:
@@ -86,7 +102,8 @@ class _TPUBatchMixin:
         self.packets_batched = 0
         self.packets_dropped = 0
         # launched-but-unconsumed chunks: (pkts, src_hosts, dst_hosts, seqs,
-        # src_rows, dst_rows, handle, barrier) where the handle's results
+        # src_rows, dst_rows, handle, barrier, the chunk's HopLaunch or
+        # None) where the handle's results
         # may still be computing on the device.  consume_flush materializes
         # them at the NEXT round boundary, so device compute overlaps host
         # round work.
@@ -104,6 +121,15 @@ class _TPUBatchMixin:
         self.last_batch = 0
         self.device_ns = 0          # cumulative wall ns blocked on the device
         self.host_flush_ns = 0      # cumulative wall ns in flush outside step
+        self.lanes_hopped = 0       # packets the hop kernel was launched on
+        # Options.hop_record: a HopLaunch a kernel launch; None while the
+        # option is off
+        self.hop_record: Optional[List[HopLaunch]] = None
+
+    @property
+    def kernel_calls(self) -> int:
+        """Launches of the hop kernel on the device so far."""
+        return self._kernel.device_calls if self._kernel is not None else 0
 
     # -- worker-facing batching -------------------------------------------
     def offer_packet(self, packet, worker) -> bool:
@@ -201,6 +227,8 @@ class _TPUBatchMixin:
             # writing regardless — this just keeps flush's return count
             # meaningful there).
             self._sync = engine.shard_count > 1
+            if getattr(opts, "hop_record", False):
+                self.hop_record = []
         return self._kernel
 
     def _launch(self, engine, cols) -> None:
@@ -219,23 +247,32 @@ class _TPUBatchMixin:
          uids, times) = cols
         n = len(pkts)
         self.last_batch = n
-        kernel = self._ensure_kernel(engine)
-        src_arr = np.array(src_rows, dtype=np.int32)
-        dst_arr = np.array(dst_rows, dtype=np.int32)
-        uid_arr = np.array(uids, dtype=np.uint64)
-        time_arr = np.array(times, dtype=np.int64)
-        barrier = engine.scheduler.window_end
-        # --tpu-max-inflight bounds one device step's padded batch (HBM
-        # safety valve for enormous rounds); lanes are independent, so
-        # chunked steps are exact
-        cap = max(1, getattr(engine.options, "tpu_max_inflight", 0) or n)
-        for i in range(0, n, cap):
-            j = min(i + cap, n)
-            handle = kernel.launch(src_arr[i:j], dst_arr[i:j],
-                                   uid_arr[i:j], time_arr[i:j], barrier)
-            self._pending.append((pkts[i:j], src_hosts[i:j], dst_hosts[i:j],
-                                  seqs[i:j], src_arr[i:j], dst_arr[i:j],
-                                  handle, barrier))
+        self.lanes_hopped += n
+        with engine.tracer.span("hop.launch", "tpu", args={"lanes": n}):
+            kernel = self._ensure_kernel(engine)
+            src_arr = np.array(src_rows, dtype=np.int32)
+            dst_arr = np.array(dst_rows, dtype=np.int32)
+            uid_arr = np.array(uids, dtype=np.uint64)
+            time_arr = np.array(times, dtype=np.int64)
+            barrier = engine.scheduler.window_end
+            record = self.hop_record
+            # --tpu-max-inflight bounds one device step's padded batch (HBM
+            # safety valve for enormous rounds); lanes are independent, so
+            # chunked steps are exact
+            cap = max(1, getattr(engine.options, "tpu_max_inflight", 0) or n)
+            for i in range(0, n, cap):
+                j = min(i + cap, n)
+                handle = kernel.launch(src_arr[i:j], dst_arr[i:j],
+                                       uid_arr[i:j], time_arr[i:j], barrier)
+                entry = None
+                if record is not None:
+                    entry = HopLaunch(src_arr[i:j], dst_arr[i:j],
+                                      uid_arr[i:j], time_arr[i:j], barrier)
+                    record.append(entry)
+                self._pending.append((pkts[i:j], src_hosts[i:j],
+                                      dst_hosts[i:j], seqs[i:j],
+                                      src_arr[i:j], dst_arr[i:j], handle,
+                                      barrier, entry))
         self.host_flush_ns += _walltime.perf_counter_ns() - t0
 
     def warmup(self, engine, max_batch: int = 8192) -> None:
@@ -312,44 +349,51 @@ class _TPUBatchMixin:
         owns = engine.owns_host
         outboxes = engine.shard_outboxes
         shard_of = engine.shard_of
+        tracer = engine.tracer
         t_dev = 0
-        for (pkts, src_hosts, dst_hosts, seqs, src_arr, dst_arr,
-             handle, barrier) in pending:
-            td0 = _walltime.perf_counter_ns()
-            # blocks iff the device isn't done; exact-length host arrays
-            deliver, keep = handle.wait()
-            t_dev += _walltime.perf_counter_ns() - td0
-            # per-path packet accounting for the kept lanes, vectorized
-            # (the CPU latency lookup path counts per call)
-            np.add.at(topo.path_packet_counts,
-                      (src_arr[keep], dst_arr[keep]), 1)
-            deliver_list = deliver.tolist()
-            keep_list = keep.tolist()
-            for i in range(len(pkts)):
-                pkt = pkts[i]
-                if not keep_list[i]:
-                    pkt.add_status("INET_DROPPED")
-                    count_drop(pkt)
-                    dropped += 1
-                    continue
-                t = deliver_list[i]
-                if t >= end_time:
-                    continue
-                pkt.add_status("INET_SENT")
-                dst = dst_hosts[i]
-                if sharded and not owns(dst):
-                    # --processes: hand the finished hop to the owner shard
-                    # (the seq was claimed at offer time, so the event tuple
-                    # matches)
-                    outboxes[shard_of(dst)].append(
-                        (t, dst.id, src_hosts[i].id, seqs[i], pkt.to_wire()))
+        with tracer.span("hop.consume", "tpu"):
+            for (pkts, src_hosts, dst_hosts, seqs, src_arr, dst_arr,
+                 handle, barrier, entry) in pending:
+                td0 = _walltime.perf_counter_ns()
+                # blocks iff the device isn't done; exact-length host arrays
+                with tracer.span("hop.wait", "tpu"):
+                    deliver, keep = handle.wait()
+                t_dev += _walltime.perf_counter_ns() - td0
+                if entry is not None:
+                    entry.deliver = deliver
+                    entry.keep = keep
+                # per-path packet accounting for the kept lanes, vectorized
+                # (the CPU latency lookup path counts per call)
+                np.add.at(topo.path_packet_counts,
+                          (src_arr[keep], dst_arr[keep]), 1)
+                deliver_list = deliver.tolist()
+                keep_list = keep.tolist()
+                for i in range(len(pkts)):
+                    pkt = pkts[i]
+                    if not keep_list[i]:
+                        pkt.add_status("INET_DROPPED")
+                        count_drop(pkt)
+                        dropped += 1
+                        continue
+                    t = deliver_list[i]
+                    if t >= end_time:
+                        continue
+                    pkt.add_status("INET_SENT")
+                    dst = dst_hosts[i]
+                    if sharded and not owns(dst):
+                        # --processes: hand the finished hop to the owner
+                        # shard (the seq was claimed at offer time, so the
+                        # event tuple matches)
+                        outboxes[shard_of(dst)].append(
+                            (t, dst.id, src_hosts[i].id, seqs[i],
+                             pkt.to_wire()))
+                        delivered += 1
+                        continue
+                    task = Task(_deliver_packet_task, dst, pkt,
+                                name="deliver_packet")
+                    ev = Event(task, t, dst, src_hosts[i], seqs[i])
+                    push(ev, 0, barrier)
                     delivered += 1
-                    continue
-                task = Task(_deliver_packet_task, dst, pkt,
-                            name="deliver_packet")
-                ev = Event(task, t, dst, src_hosts[i], seqs[i])
-                push(ev, 0, barrier)
-                delivered += 1
         counters.count_new("event", delivered)
         self.packets_dropped += dropped
         t1 = _walltime.perf_counter_ns()

@@ -70,12 +70,17 @@ CHANGED_FUNCTIONS = {
 # side at least): the tracer keeps exact totals a span name, records the
 # collector's pauses, labels moments by their open spans and may be
 # installed for a whole process (obs/), the engine's boot schedule is a
-# span of it and its run ends the run's tracer, and the host table takes
-# the device plane's node lists for many rows in one call.  The blank line
+# span of it and its run ends the run's tracer, the host table takes
+# the device plane's node lists for many rows in one call, and the Tor
+# app's authority listens with Tor's backlog and keeps when each
+# descriptor arrived while its clients keep what consensus they fetched,
+# when, and their path.  The blank line
 # right above a named statement goes with it.  Where the edit adds or
 # drops whole statements (LOOSE), the blank lines and the comment block
 # above a named statement are not compared either.
 EDITED = {
+    "apps/tor": ("_Directory", "dirauth_main", "_dirauth_conn",
+                 "_ClientStats.__init__", "client_main"),
     "core/engine": ("Engine.run",),
     "scale/hosttable": ("HostTable.set_device_rows",),
     "obs/__init__": ("__doc__", "_walltime", "configure_observability",
@@ -88,7 +93,7 @@ EDITED = {
                   "Tracer.label_at", "Tracer.covered", "set_tracer",
                   "_installed", "install", "installed"),
 }
-LOOSE = {"obs/__init__", "obs/trace"}
+LOOSE = {"obs/__init__", "obs/trace", "apps/tor"}
 
 
 def _port_modules():
